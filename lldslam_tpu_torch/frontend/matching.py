@@ -82,9 +82,11 @@ def search_by_projection(cam: StereoCamera, T_cw: torch.Tensor,
                          n_levels: int = 8, scale: float = 1.2,
                          th: float = 1.0, nn_ratio: float = 0.8,
                          check_rot: bool = False,
-                         ref_angle: torch.Tensor | None = None):
+                         ref_angle: torch.Tensor | None = None,
+                         site: str = "tracking"):
     """Associate map points to frame keypoints. Returns (pt2kp (P,) int32,
-    kp2pt (N,) int32, uvr_pred (P, 3), in_frustum (P,) bool)."""
+    kp2pt (N,) int32, uvr_pred (P, 3), in_frustum (P,) bool). `site`
+    labels the caller in K2's launch counts."""
     dev = T_cw.device
     scales = _level_scales(scale, n_levels, dev)
     log_scale = torch.log(torch.tensor(scale, dtype=torch.float32, device=dev))
@@ -115,7 +117,7 @@ def search_by_projection(cam: StereoCamera, T_cw: torch.Tensor,
     cand = win & oct_ok & ur_ok & in_frustum[:, None] & frame.valid[None, :]
 
     best_kp, best, second, second_kp = match_best2.masked_best2(
-        pts.desc, frame.desc, cand.contiguous())
+        pts.desc, frame.desc, cand.contiguous(), site=site)
     best_kp = best_kp.long()
     same_lvl = frame.octave[best_kp] == frame.octave[second_kp.long()]
     ratio_ok = (~same_lvl) | (best.to(torch.float32)

@@ -65,6 +65,20 @@ def quat_from_mat(R: torch.Tensor) -> torch.Tensor:
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
 
 
+def mat_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w, x, y, z) -> rotation matrix (..., 3, 3)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    tx, ty, tz = 2 * x, 2 * y, 2 * z
+    twx, twy, twz = tx * w, ty * w, tz * w
+    txx, txy, txz = tx * x, ty * x, tz * x
+    tyy, tyz, tzz = ty * y, tz * y, tz * z
+    return torch.stack([
+        torch.stack([1 - (tyy + tzz), txy - twz, txz + twy], dim=-1),
+        torch.stack([txy + twz, 1 - (txx + tzz), tyz - twx], dim=-1),
+        torch.stack([txz - twy, tyz + twx, 1 - (txx + tyy)], dim=-1),
+    ], dim=-2)
+
+
 def so3_log(R: torch.Tensor) -> torch.Tensor:
     q = quat_from_mat(R)
     qw = q[..., 0]
@@ -83,8 +97,8 @@ def from_Rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(*batch, 3, 3)
     t = t.expand(*batch, 3)
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(*batch, 1, 4)
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:] \
+        .expand(*batch, 1, 4)
     return torch.cat([top, bottom], dim=-2)
 
 

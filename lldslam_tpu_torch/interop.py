@@ -5,8 +5,10 @@ state converts here without importing JAX: every JAX array field is read
 with `np.asarray`, and results go back as numpy arrays. uint32 descriptors
 become int32 views (torch.uint32 has no bitwise ops on the CPU) and back.
 
-Covered: FrameFeatures and FrameData, MapPointView, the MapStore arrays, and
-StereoCamera / OrbConfig / SlamConfig given as field dicts.
+Covered: FrameFeatures and FrameData, MapPointView, the MapStore arrays,
+StereoCamera / OrbConfig / SlamConfig given as field dicts, and for loop
+closing a Vocabulary, a PoseGraph, a sparse BAProblem/BAObs and the
+contents of a KeyFrameDatabase.
 """
 from __future__ import annotations
 
@@ -19,7 +21,11 @@ from .config import CameraConfig, LineConfig, SlamConfig, TrackingConfig
 from .frontend.frame import FrameData
 from .frontend.matching import FrameFeatures, MapPointView
 from .geometry.camera import StereoCamera
+from .loop.bow import Vocabulary
+from .loop.database import KeyFrameDatabase
 from .ops.orb import Keypoints, OrbConfig
+from .optim.ba import BAObs, BAProblem
+from .optim.pose_graph import PoseGraph
 from .slammap.map_store import MapStore
 
 _DESC_FIELDS = ("desc",)
@@ -91,6 +97,52 @@ def map_store(src, cam: StereoCamera, orb: OrbConfig) -> MapStore:
         setattr(dst, name, int(getattr(src, name)))
     dst.loop_edges = list(src.loop_edges)
     dst.mark_obs_dirty()
+    return dst
+
+
+def vocabulary(src, device="cpu") -> Vocabulary:
+    """A JAX Vocabulary (its four tree arrays plus k and L) -> the port's."""
+    return Vocabulary(*(np.array(getattr(src, f), copy=True) for f in (
+        "node_children", "node_desc", "node_word", "word_weight")),
+        int(src.k), int(src.L), device)
+
+
+def _int64_fields(cls, src, names, device):
+    get = src.get if isinstance(src, dict) else (lambda k: getattr(src, k))
+    out = {}
+    for k in cls._fields:
+        a = np.asarray(get(k))
+        if k in names:
+            a = a.astype(np.int64)
+        out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return cls(**out)
+
+
+def pose_graph(src, device="cpu") -> PoseGraph:
+    """JAX PoseGraph (or a dict of its fields) -> port tensors (edge
+    indices as int64)."""
+    return _int64_fields(PoseGraph, src, ("e_i", "e_j"), device)
+
+
+def ba_problem(src, device="cpu") -> BAProblem:
+    """JAX BAProblem with its BAObs -> port tensors (indices as int64)."""
+    get = src.get if isinstance(src, dict) else (lambda k: getattr(src, k))
+    t = lambda k: torch.from_numpy(np.ascontiguousarray(
+        np.asarray(get(k)))).to(device)
+    return BAProblem(poses=t("poses"), points=t("points"),
+                     pose_fixed=t("pose_fixed"), point_valid=t("point_valid"),
+                     obs=_int64_fields(BAObs, get("obs"), ("k", "p"), device))
+
+
+def keyframe_database(src, voc: Vocabulary) -> KeyFrameDatabase:
+    """A port KeyFrameDatabase over `voc` holding copies of a JAX
+    database's inverted file and per-keyframe BoW vectors."""
+    dst = KeyFrameDatabase(voc)
+    dst.inv = [list(lst) for lst in src.inv]
+    dst.kf_words = {int(k): np.array(v, copy=True)
+                    for k, v in src.kf_words.items()}
+    dst.kf_vals = {int(k): np.array(v, copy=True)
+                   for k, v in src.kf_vals.items()}
     return dst
 
 

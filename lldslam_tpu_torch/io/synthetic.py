@@ -1,13 +1,20 @@
 """Synthetic stereo sequences, numpy only (no JAX).
 
-Counterpart of the generator in bench.py (`_make_tex`, `_sample_tex`,
-`_make_sequence`): a forward-moving stereo camera in a ray-cast corridor of
-textured planes (ground, two walls, end wall) with multi-octave block
-texture, rendered with full perspective plus Gaussian pixel noise. The
-per-frame motion increment comes from this package's `se3.exp`, so the
-machine without JAX can generate the same frames; for one seed the images
-and poses agree with bench._make_sequence (the increment may differ by a
-float32 ulp).
+1. `make_sequence`: the generator of bench.py (`_make_tex`, `_sample_tex`,
+   `_make_sequence`): a forward-moving stereo camera in a ray-cast corridor
+   of textured planes (ground, two walls, end wall) with multi-octave block
+   texture, rendered with full perspective plus Gaussian pixel noise.
+2. The patch worlds of the JAX package's end-to-end tests: textured 3D
+   points stamped as 41x41 patches with bilinear subpixel placement, far
+   first. `make_ring_sequence` is the loop-closure circle of
+   tests/test_loop_e2e.py (`_make_ring_world`, `_circle_pose`);
+   `make_points_world` and `corridor_poses` are the forward corridor of
+   tests/test_pipeline.py (`_make_world`) that tests/test_reloc.py blinds.
+
+Motion increments come from this package's `se3.exp`, so the machine
+without JAX generates the same frames; for one seed the images and poses
+agree with the JAX-side generators (an increment may differ by a float32
+ulp).
 """
 from __future__ import annotations
 
@@ -158,3 +165,182 @@ def make_sequence(cam, n_frames: int, n_per_m: float = 40.0, seed: int = 0,
         return frames, poses, dict(half_w=half_w, cam_h=cam_h,
                                    length=length, wall_top=wall_top)
     return frames
+
+
+PATCH = 41       # side of a stamped patch (pixels)
+
+
+def _patches(rng, n: int) -> np.ndarray:
+    """Random texture patches with a dark ring around a bright centre."""
+    patches = rng.uniform(0, 120, (n, PATCH, PATCH)).astype(np.float32)
+    c = PATCH // 2
+    patches[:, c - 2:c + 3, c - 2:c + 3] = 40.0
+    bright = rng.uniform(180, 250, n)
+    patches[:, c - 1:c + 2, c - 1:c + 2] = bright[:, None, None]
+    return patches
+
+
+def make_points_world(rng, n: int = 500):
+    """Random textured 3D points in a corridor along +z, 4-60 m ahead (the
+    world of tests/test_pipeline.py::_make_world). Returns (pts (n, 3),
+    patches)."""
+    pts = np.stack([
+        rng.uniform(-30.0, 30.0, n),
+        rng.uniform(-6.0, 6.0, n),
+        rng.uniform(4.0, 60.0, n),
+    ], -1).astype(np.float32)
+    return pts, _patches(rng, n)
+
+
+def make_ring_world(rng, n: int = 1600):
+    """Textured points on a ring band the camera orbits inside (the world
+    of tests/test_loop_e2e.py::_make_ring_world)."""
+    th = rng.uniform(0, 2 * np.pi, n)
+    r = rng.uniform(18.0, 45.0, n)
+    pts = np.stack([r * np.cos(th), rng.uniform(-6.0, 6.0, n),
+                    r * np.sin(th)], -1).astype(np.float32)
+    return pts, _patches(rng, n)
+
+
+def circle_pose(theta: float, radius: float = 8.0) -> np.ndarray:
+    """T_cw of a camera on the circle looking radially outward."""
+    c = np.array([radius * np.cos(theta), 0.0, radius * np.sin(theta)])
+    z = np.array([np.cos(theta), 0.0, np.sin(theta)])
+    y = np.array([0.0, 1.0, 0.0])
+    T_wc = np.eye(4, dtype=np.float32)
+    T_wc[:3, :3] = np.stack([np.cross(y, z), y, z], axis=1)
+    T_wc[:3, 3] = c
+    return np.linalg.inv(T_wc).astype(np.float32)
+
+
+def corridor_poses(n_frames: int) -> list[np.ndarray]:
+    """T_cw per frame of the forward corridor with a slow yaw: each frame
+    left-multiplies exp((0, 0, -0.25, 0, 0.004, 0))."""
+    xi = torch.tensor([0.0, 0.0, -0.25, 0.0, 0.004, 0.0])
+    dT = se3.exp(xi).numpy()
+    poses, T = [], np.eye(4, dtype=np.float32)
+    for _ in range(n_frames):
+        poses.append(T.copy())
+        T = (dT @ T).astype(np.float32)
+    return poses
+
+
+def _stamp(im, patch, uc, vc):
+    """Bilinear subpixel stamp of `patch` centred at float (uc, vc)."""
+    h = PATCH // 2
+    iu, iv = int(np.floor(uc)), int(np.floor(vc))
+    dx, dy = uc - iu, vc - iv
+    pp = np.pad(patch, 1, mode="edge")
+    im[iv - h:iv + h + 1, iu - h:iu + h + 1] = (
+        (1 - dy) * (1 - dx) * pp[1:-1, 1:-1] + (1 - dy) * dx * pp[1:-1, :-2]
+        + dy * (1 - dx) * pp[:-2, 1:-1] + dy * dx * pp[:-2, :-2])
+
+
+def render_points(cam, T_cw: np.ndarray, pts: np.ndarray,
+                  patches: np.ndarray):
+    """Stereo pair (float32, background 15) of a patch world: every point
+    more than 0.5 m in front whose patch fits both images, far first."""
+    W, H = cam.width, cam.height
+    imL = np.full((H, W), 15.0, np.float32)
+    imR = np.full((H, W), 15.0, np.float32)
+    Xc = (T_cw[:3, :3] @ pts.T).T + T_cw[:3, 3]
+    z = np.maximum(Xc[:, 2], 1e-6)
+    u = cam.fx * Xc[:, 0] / z + cam.cx
+    v = cam.fy * Xc[:, 1] / z + cam.cy
+    ur = u - cam.bf / z
+    h = PATCH // 2
+    for i in np.argsort(-Xc[:, 2]):
+        if Xc[i, 2] <= 0.5:
+            continue
+        if h + 1 < u[i] < W - h - 1 and h + 1 < v[i] < H - h - 1 \
+                and h + 1 < ur[i] < W - h - 1:
+            _stamp(imL, patches[i], u[i], v[i])
+            _stamp(imR, patches[i], ur[i], v[i])
+    return imL, imR
+
+
+def make_ring_sequence(cam, n_frames: int = 88, seed: int = 11):
+    """The loop-closure circle of tests/test_loop_e2e.py: 1.08 turns of a
+    radius-8 m circle in `n_frames` frames around a ring of textured
+    points. Returns (frames [(imL, imR)], T_cw per frame)."""
+    pts, patches = make_ring_world(np.random.default_rng(seed))
+    poses = [circle_pose(2 * np.pi * 1.08 * i / n_frames)
+             for i in range(n_frames)]
+    return [render_points(cam, T, pts, patches) for T in poses], poses
+
+
+# keyframe drift of make_loop_map at its last keyframe, (upsilon, omega)
+LOOP_MAP_DRIFT = (0.4, 0.0, 0.3, 0.0, 0.04, 0.0)
+
+
+def make_loop_map(store, n_kf: int = 24, seed: int = 0):
+    """Fill an empty MapStore (this package's or the JAX package's: only
+    their common API is used) with the keyframes of a drifting circle
+    whose last keyframes revisit the first ones' place.
+
+    `n_kf` keyframes over 1.25 turns of the ring world, each observing
+    every ring point it sees (pixel noise 0.3, two flipped descriptor bits
+    per observation, octave 0). A point keeps its id while consecutive
+    keyframes see it and gets a new one when it comes back into view, as a
+    tracker would create it, so the revisiting keyframes share words but no
+    points with the first ones. Keyframe k's estimated pose is
+    exp(k / (n_kf - 1) * drift) times its true pose, and each point is
+    placed in the estimated frame of the keyframe that created it; the
+    drift reaches LOOP_MAP_DRIFT at the last keyframe. Returns the true
+    T_cw per keyframe."""
+    rng = np.random.default_rng(seed)
+    cam = store.cam
+    pts, _ = make_ring_world(rng)
+    base = rng.integers(0, 2**32, (len(pts), 8), dtype=np.uint64) \
+        .astype(np.uint32)
+    xi = torch.tensor(LOOP_MAP_DRIFT, dtype=torch.float32)
+    n_kp = store.n_kp
+    true_poses, prev = [], {}
+    for k in range(n_kf):
+        T = circle_pose(2 * np.pi * 1.25 * k / n_kf)
+        true_poses.append(T)
+        T_est = (se3.exp(xi * (k / max(n_kf - 1, 1))).numpy() @ T) \
+            .astype(np.float32)
+        Xc = (T[:3, :3] @ pts.T).T + T[:3, 3]
+        z = np.maximum(Xc[:, 2], 1e-6)
+        u = cam.fx * Xc[:, 0] / z + cam.cx
+        v = cam.fy * Xc[:, 1] / z + cam.cy
+        ur = u - cam.bf / z
+        seen = np.nonzero((Xc[:, 2] > 0.5) & (u >= 20) & (u < cam.width - 20)
+                          & (v >= 20) & (v < cam.height - 20)
+                          & (ur >= 0))[0][:n_kp]
+        m = len(seen)
+        feats = dict(xy=np.zeros((n_kp, 2), np.float32),
+                     ur=np.full(n_kp, -1.0, np.float32),
+                     octave=np.zeros(n_kp, np.int32),
+                     angle=np.zeros(n_kp, np.float32),
+                     desc=np.zeros((n_kp, 8), np.uint32),
+                     valid=np.arange(n_kp) < m)
+        feats["xy"][:m] = np.stack([u[seen], v[seen]], -1) \
+            + rng.normal(0, 0.3, (m, 2))
+        feats["ur"][:m] = ur[seen] + rng.normal(0, 0.3, m)
+        desc = base[seen].copy()
+        for _ in range(2):
+            bit = rng.integers(0, 256, m)
+            desc[np.arange(m), bit // 32] ^= (np.uint32(1) << (bit % 32)
+                                              .astype(np.uint32))
+        feats["desc"][:m] = desc
+        depth = np.full(n_kp, -1.0, np.float32)
+        depth[:m] = Xc[seen, 2]
+        kf = store.add_keyframe(T_est, feats, depth,
+                                np.full(n_kp, -1, np.int32), k, 0.1 * k)
+        old = np.array([w in prev for w in seen], bool)
+        f_old = np.nonzero(old)[0]
+        store.kf_pt_ids[kf, f_old] = [prev[w] for w in seen[f_old]]
+        f_new = np.nonzero(~old)[0]
+        T_wc = np.linalg.inv(T_est)
+        Xw = (T_wc[:3, :3] @ Xc[seen[f_new]].T).T + T_wc[:3, 3]
+        ids = store.create_points(kf, f_new, Xw.astype(np.float32))
+        prev = dict(zip(seen[f_old].tolist(),
+                        store.kf_pt_ids[kf, f_old].tolist()))
+        prev.update(zip(seen[f_new].tolist(), ids.tolist()))
+        store.mark_obs_dirty()
+        store.set_parent_from_covisibility(kf)
+    store.refresh_obs_counts()
+    store._update_point_geometry(np.nonzero(store.pt_valid[:store.n_pt])[0])
+    return true_poses

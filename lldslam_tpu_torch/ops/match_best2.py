@@ -17,8 +17,10 @@ import torch
 
 from . import cuda_build, hamming
 
-# launches of the CUDA kernel (incremented where the kernel is launched)
+# launches of the CUDA kernel (incremented where the kernel is launched),
+# in all and by the caller's site label
 launches = 0
+launches_by_site: dict[str, int] = {}
 
 
 def masked_best2_plain(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor):
@@ -37,9 +39,11 @@ def masked_best2_plain(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor):
             second_idx.to(torch.int32))
 
 
-def masked_best2(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor):
+def masked_best2(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
+                 site: str = "other"):
     """a (M, 8) int32, b (N, 8) int32, mask (M, N) bool. Returns
-    (best_idx, best, second, second_idx), each (M,) int32."""
+    (best_idx, best, second, second_idx), each (M,) int32. `site` labels
+    the caller in `launches_by_site`."""
     if a.device.type != "cuda":
         return masked_best2_plain(a, b, mask)
     global launches
@@ -64,4 +68,5 @@ def masked_best2(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor):
         cuda_build.stream_ptr(a))
     cuda_build.check(err, "K2 masked_best2 launch")
     launches += 1
+    launches_by_site[site] = launches_by_site.get(site, 0) + 1
     return out[0], out[1], out[2], out[3]

@@ -1,12 +1,23 @@
-"""Windowed local bundle adjustment on a dense (K, P) observation grid.
+"""Bundle adjustment: Levenberg-Marquardt with Huber IRLS, graduated
+non-convexity and Schur elimination of the points.
 
-Counterpart of the grid path of lldslam_tpu/optim/ba.py (`_densify_obs`
-through `local_ba`): Levenberg-Marquardt with Huber IRLS and graduated
-non-convexity, Schur elimination of the points through a dense (K, P, 6, 3)
-coupling tensor, a Jacobi-scaled solve of the reduced camera system, and the
-reference LocalBundleAdjustment schedule (5 iterations, drop outliers, 10
-more, classify). The sparse `ba_solve`, its CG variant and the packed
-readback are not part of this port yet.
+Counterpart of lldslam_tpu/optim/ba.py, two paths over the same residuals:
+
+- the dense (K, P) grid path (`_densify_obs` through `local_ba`): the
+  coupling tensor is (K, P, 6, 3), the reduced camera system is solved
+  directly, on the reference LocalBundleAdjustment schedule (5 iterations,
+  drop outliers, 10 more, classify);
+- the sparse observation-table path (`_terms` through `ba_solve`): the
+  normal blocks are scattered per observation (`index_add_`) and the
+  reduced system is solved matrix-free by block-Jacobi preconditioned CG,
+  which is what global BA after a loop closure runs. The JAX package's
+  dense reduced system on this path (`dense=True`) has no caller there and
+  is not carried over.
+
+The accept/reject test and the damping stay on the device, and the solves
+use the `_ex` variants, which report failures in a tensor instead of
+checking them on the host: the LM loops never wait for the host. The
+packed readback of the JAX package is not carried over.
 """
 from __future__ import annotations
 
@@ -100,7 +111,7 @@ def _densify_obs(problem: BAProblem):
 
 
 def _terms_grid(cam, poses, points, point_valid, uvr_g, w_g, st_g, val_g,
-                robust: bool, dscale: float):
+                dscale: float):
     """Residuals, Jacobians and IRLS weights over the dense (K, P) grid;
     also the current robust cost (raw chi2, no 1e6 gate)."""
     T = poses[:, None]                                      # (K, 1, 4, 4)
@@ -116,9 +127,9 @@ def _terms_grid(cam, poses, points, point_valid, uvr_g, w_g, st_g, val_g,
     Jp = Jp * active[..., None, None]
     chi2 = w_g * torch.sum(r * r * row_w, dim=-1)
     delta_sq = torch.where(st_g, res.CHI2_STEREO, res.CHI2_MONO) * dscale
-    hub = res.huber_weight(chi2, delta_sq) if robust else 1.0
+    hub = res.huber_weight(chi2, delta_sq)
     W = (w_g * hub * active)[..., None] * row_w             # (K, P, 3)
-    rho = res.huber_rho(chi2_raw, delta_sq) if robust else chi2_raw
+    rho = res.huber_rho(chi2_raw, delta_sq)
     cost = torch.sum(rho * in_front.to(r.dtype))
     return r, Jc, Jp, W, cost
 
@@ -138,33 +149,16 @@ def _build_blocks_grid(r, Jc, Jp, W):
 def _schur_solve_from_B(pose_fixed, point_valid, Hcc, bc, Hpp, bp, B, lam):
     """Reduced camera system from the dense coupling tensor, gauge fix,
     Jacobi-scaled solve, landmark back-substitution."""
-    K = Hcc.shape[0]
     eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
-    Hpp_d = _damp_diag(Hpp, lam)
     seen = B.abs().sum(dim=(0, 2, 3)) > 0
-    Hpp_d = torch.where(seen[:, None, None], Hpp_d, eye3)
-    Hpp_inv = _inv3x3(Hpp_d)
-    BHinv = torch.einsum("kpij,pjl->kpil", B, Hpp_inv)
-    S = torch.einsum("kpil,qpjl->kiqj", BHinv, B)             # (K, 6, K, 6)
-    Hcc_d = _damp_diag(Hcc, lam)
-    eyeK = torch.eye(K, dtype=Hcc.dtype, device=Hcc.device)
-    S = torch.einsum("kij,kq->kiqj", Hcc_d, eyeK) - S
-    rhs = bc - torch.einsum("kpil,pl->ki", BHinv, bp)
-    S, rhs = _fix_gauge(S, rhs, pose_fixed)
-    Sm = S.reshape(6 * K, 6 * K)
-    Sm = 0.5 * (Sm + Sm.T)
-    dsi = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(Sm).abs(), min=1e-12))
-    Ss = Sm * dsi[:, None] * dsi[None, :] \
-        + 1e-6 * torch.eye(6 * K, dtype=Sm.dtype, device=Sm.device)
-    y = torch.linalg.solve_ex(Ss, rhs.reshape(6 * K) * dsi)[0]
-    dc = (y * dsi).reshape(K, 6)
-    dp = torch.einsum("pij,pj->pi", Hpp_inv,
-                      bp - torch.einsum("kpij,ki->pj", B, dc))
-    return dc, dp * point_valid[:, None]
+    Hpp_inv = _inv3x3(torch.where(seen[:, None, None], _damp_diag(Hpp, lam),
+                                  eye3))
+    return _reduced_solve(pose_fixed, point_valid, Hcc, bc, Hpp_inv, bp, B,
+                          lam)
 
 
 def _total_cost_grid(cam, poses, points, point_valid, uvr_g, w_g, st_g,
-                     val_g, robust: bool, dscale: float):
+                     val_g, dscale: float):
     T = poses[:, None]
     X = points[None]
     r = res.point_residual_stereo(cam, T, X, uvr_g)
@@ -172,30 +166,28 @@ def _total_cost_grid(cam, poses, points, point_valid, uvr_g, w_g, st_g,
     chi2 = w_g * torch.sum(r * r * _row_weights(st_g), dim=-1)
     delta_sq = torch.where(st_g, res.CHI2_STEREO, res.CHI2_MONO) * dscale
     active = (val_g & point_valid[None, :] & (Xc[..., 2] > 0.05)).to(r.dtype)
-    c = res.huber_rho(chi2, delta_sq) if robust else chi2
-    return torch.sum(c * active)
+    return torch.sum(res.huber_rho(chi2, delta_sq) * active)
 
 
-def ba_solve_grid(cam: StereoCamera, problem: BAProblem, iters: int = 5,
-                  robust: bool = True, gnc: bool = True):
+def ba_solve_grid(cam: StereoCamera, problem: BAProblem, iters: int = 5):
     """LM on the dense grid: GNC (the Huber delta starts 8x inflated and
     halves per iteration), accept on cost decrease. Returns (problem', final
     chi2 per observation)."""
     uvr_g, w_g, st_g, val_g = _densify_obs(problem)
     poses, points = problem.poses, problem.points
     free = (~problem.pose_fixed).to(poses.dtype)
-    lam = torch.tensor(1e-4, dtype=poses.dtype, device=poses.device)
+    lam = torch.full((), 1e-4, dtype=poses.dtype, device=poses.device)
     for i in range(iters):
-        dscale = max(1.0, 64.0 * 0.5 ** i) if gnc else 1.0
+        dscale = max(1.0, 64.0 * 0.5 ** i)
         r, Jc, Jp, W, c_old = _terms_grid(
             cam, poses, points, problem.point_valid, uvr_g, w_g, st_g, val_g,
-            robust, dscale)
+            dscale)
         dc, dp = _schur_solve_from_B(problem.pose_fixed, problem.point_valid,
                                      *_build_blocks_grid(r, Jc, Jp, W), lam)
         poses_c = se3.exp(dc * free[:, None]) @ poses
         points_c = points + dp
         c_new = _total_cost_grid(cam, poses_c, points_c, problem.point_valid,
-                                 uvr_g, w_g, st_g, val_g, robust, dscale)
+                                 uvr_g, w_g, st_g, val_g, dscale)
         accept = c_new < c_old
         poses = torch.where(accept, poses_c, poses)
         points = torch.where(accept, points_c, points)
@@ -224,3 +216,191 @@ def local_ba(cam: StereoCamera, problem: BAProblem):
     problem = problem._replace(obs=problem.obs._replace(valid=keep))
     problem, chi2 = ba_solve_grid(cam, problem, iters=10)
     return problem, classify_outliers(problem, chi2, cam)
+
+
+# ---------------------------------------------------------------------------
+# sparse observation-table path
+
+
+def _terms(cam: StereoCamera, problem: BAProblem, delta_scale=1.0):
+    """Per-observation residuals, Jacobians and IRLS weights. Returns
+    r (O, 3), Jc (O, 3, 6), Jp (O, 3, 3), W (O, 3) row weights, chi2 (O,),
+    active (O,)."""
+    o = problem.obs
+    T = problem.poses[o.k]
+    X = problem.points[o.p]
+    r = res.point_residual_stereo(cam, T, X, o.uvr)
+    Jc, Jp, Xc = res.point_jacobians_stereo(cam, T, X)
+    row_w = _row_weights(o.is_stereo)
+    chi2_raw = o.inv_sigma2 * torch.sum(r * r * row_w, dim=-1)
+    # near-camera and > 1000-sigma observations carry no usable signal and
+    # would poison the float32 Schur complement
+    active = (o.valid & problem.point_valid[o.p] & (Xc[..., 2] > 0.05)
+              & (chi2_raw < 1e6)).to(r.dtype)
+    r = r * active[:, None]
+    Jc = Jc * active[:, None, None]
+    Jp = Jp * active[:, None, None]
+    chi2 = o.inv_sigma2 * torch.sum(r * r * row_w, dim=-1)
+    delta_sq = torch.where(o.is_stereo, res.CHI2_STEREO, res.CHI2_MONO) \
+        * delta_scale
+    hub = res.huber_weight(chi2, delta_sq)
+    W = (o.inv_sigma2 * hub * active)[:, None] * row_w
+    return r, Jc, Jp, W, chi2, active
+
+
+def _build_blocks(problem: BAProblem, r, Jc, Jp, W):
+    """Scatter observation terms into per-pose / per-point normal blocks."""
+    K = problem.poses.shape[0]
+    P = problem.points.shape[0]
+    o = problem.obs
+    dt, dev = r.dtype, r.device
+    JcW = Jc * W[:, :, None]                                 # (O, 3, 6)
+    Hcc = torch.zeros((K, 6, 6), dtype=dt, device=dev).index_add_(
+        0, o.k, torch.einsum("ori,orj->oij", JcW, Jc))
+    bc = torch.zeros((K, 6), dtype=dt, device=dev).index_add_(
+        0, o.k, -torch.einsum("ori,or->oi", JcW, r))
+    JpW = Jp * W[:, :, None]
+    Hpp = torch.zeros((P, 3, 3), dtype=dt, device=dev).index_add_(
+        0, o.p, torch.einsum("ori,orj->oij", JpW, Jp))
+    bp = torch.zeros((P, 3), dtype=dt, device=dev).index_add_(
+        0, o.p, -torch.einsum("ori,or->oi", JpW, r))
+    Wcp = torch.einsum("ori,orj->oij", JcW, Jp)              # (O, 6, 3)
+    return Hcc, bc, Hpp, bp, Wcp
+
+
+def _point_blocks_inv(problem: BAProblem, Hpp, Wcp, lam):
+    """Damped point blocks, identity where a point has no active
+    observation, inverted in closed form."""
+    P = problem.points.shape[0]
+    seen = torch.zeros(P, dtype=Hpp.dtype, device=Hpp.device).index_add_(
+        0, problem.obs.p, Wcp.abs().sum(dim=(1, 2))) > 0
+    eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
+    return _inv3x3(torch.where(seen[:, None, None], _damp_diag(Hpp, lam),
+                               eye3))
+
+
+def _reduced_solve(pose_fixed, point_valid, Hcc, bc, Hpp_inv, bp, B, lam):
+    K = Hcc.shape[0]
+    BHinv = torch.einsum("kpij,pjl->kpil", B, Hpp_inv)
+    S = torch.einsum("kpil,qpjl->kiqj", BHinv, B)              # (K, 6, K, 6)
+    eyeK = torch.eye(K, dtype=Hcc.dtype, device=Hcc.device)
+    S = torch.einsum("kij,kq->kiqj", _damp_diag(Hcc, lam), eyeK) - S
+    rhs = bc - torch.einsum("kpil,pl->ki", BHinv, bp)
+    S, rhs = _fix_gauge(S, rhs, pose_fixed)
+    Sm = S.reshape(6 * K, 6 * K)
+    Sm = 0.5 * (Sm + Sm.T)
+    dsi = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(Sm).abs(), min=1e-12))
+    Ss = Sm * dsi[:, None] * dsi[None, :] \
+        + 1e-6 * torch.eye(6 * K, dtype=Sm.dtype, device=Sm.device)
+    y = torch.linalg.solve_ex(Ss, rhs.reshape(6 * K) * dsi)[0]
+    dc = (y * dsi).reshape(K, 6)
+    dp = torch.einsum("pij,pj->pi", Hpp_inv,
+                      bp - torch.einsum("kpij,ki->pj", B, dc))
+    return dc, dp * point_valid[:, None]
+
+
+def _schur_cg(problem: BAProblem, Hcc, bc, Hpp, bp, Wcp, lam, cg_iters: int):
+    """Matrix-free reduced-system CG: S @ v by two observation-level
+    scatter passes, block-Jacobi preconditioner on Jacobi-scaled blocks."""
+    o = problem.obs
+    K = problem.poses.shape[0]
+    P = problem.points.shape[0]
+    dt, dev = bc.dtype, bc.device
+    free = (~problem.pose_fixed).to(dt)
+    Hpp_inv = _point_blocks_inv(problem, Hpp, Wcp, lam)
+    Hcc_d = _damp_diag(Hcc, lam)
+
+    def to_points(v):                     # z_p = sum_o Wcp_o^T v[k(o)]
+        return torch.zeros((P, 3), dtype=dt, device=dev).index_add_(
+            0, o.p, torch.einsum("oij,oi->oj", Wcp, v[o.k]))
+
+    def to_poses(z):                      # y_k = sum_o Wcp_o z[p(o)]
+        return torch.zeros((K, 6), dtype=dt, device=dev).index_add_(
+            0, o.k, torch.einsum("oij,oj->oi", Wcp, z[o.p]))
+
+    def S_matvec(v):
+        v = v * free[:, None]
+        y = torch.einsum("kij,kj->ki", Hcc_d, v)
+        z = torch.einsum("pij,pj->pi", Hpp_inv, to_points(v))
+        return (y - to_poses(z)) * free[:, None]
+
+    rhs = (bc - to_poses(torch.einsum("pij,pj->pi", Hpp_inv, bp))) \
+        * free[:, None]
+    db = torch.sqrt(torch.clamp(torch.diagonal(Hcc_d, dim1=-2, dim2=-1),
+                                min=1e-12))
+    scale = db[:, :, None] * db[:, None, :]
+    eye6 = torch.eye(6, dtype=dt, device=dev)
+    Minv = torch.linalg.inv_ex(Hcc_d / scale + 1e-6 * eye6)[0] / scale
+
+    def precond(r):
+        return torch.einsum("kij,kj->ki", Minv, r) * free[:, None]
+
+    x = torch.zeros_like(rhs)
+    r = rhs
+    z = precond(r)
+    pdir = z
+    rz = torch.sum(r * z)
+    for _ in range(cg_iters):
+        Ap = S_matvec(pdir)
+        denom = torch.sum(pdir * Ap)
+        alpha = rz / torch.where(denom.abs() < 1e-12,
+                                 torch.full_like(denom, 1e-12), denom)
+        x = x + alpha * pdir
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = torch.sum(r * z)
+        beta = rz_new / torch.where(rz.abs() < 1e-12,
+                                    torch.full_like(rz, 1e-12), rz)
+        pdir = z + beta * pdir
+        rz = rz_new
+    dp = torch.einsum("pij,pj->pi", Hpp_inv, bp - to_points(x))
+    return x, dp * problem.point_valid[:, None]
+
+
+def _apply_update(problem: BAProblem, dc, dp) -> BAProblem:
+    free = (~problem.pose_fixed).to(dc.dtype)
+    return problem._replace(poses=se3.exp(dc * free[:, None]) @ problem.poses,
+                            points=problem.points + dp)
+
+
+def _total_cost(cam, problem: BAProblem, delta_scale=1.0):
+    o = problem.obs
+    T = problem.poses[o.k]
+    X = problem.points[o.p]
+    r = res.point_residual_stereo(cam, T, X, o.uvr)
+    chi2 = o.inv_sigma2 * torch.sum(r * r * _row_weights(o.is_stereo), dim=-1)
+    delta_sq = torch.where(o.is_stereo, res.CHI2_STEREO, res.CHI2_MONO) \
+        * delta_scale
+    Xc = se3.apply(T, X)
+    active = (o.valid & problem.point_valid[o.p] & (Xc[..., 2] > 0.05)) \
+        .to(r.dtype)
+    return torch.sum(res.huber_rho(chi2, delta_sq) * active)
+
+
+def ba_solve(cam: StereoCamera, problem: BAProblem, iters: int = 5,
+             cg_iters: int = 24):
+    """`iters` LM iterations on the observation table, each step solved by
+    `cg_iters` CG steps (GNC: the Huber delta starts 8x inflated and halves
+    per iteration). Returns (problem', final chi2 per observation)."""
+    o = problem.obs
+    problem = problem._replace(obs=o._replace(k=o.k.long(), p=o.p.long()))
+    lam = torch.full((), 1e-4, dtype=problem.poses.dtype,
+                     device=problem.poses.device)
+    for i in range(iters):
+        dscale = max(1.0, 64.0 * 0.5 ** i)
+        r, Jc, Jp, W, _, _ = _terms(cam, problem, dscale)
+        dc, dp = _schur_cg(problem, *_build_blocks(problem, r, Jc, Jp, W),
+                           lam, cg_iters)
+        cand = _apply_update(problem, dc, dp)
+        accept = _total_cost(cam, cand, dscale) \
+            < _total_cost(cam, problem, dscale)
+        problem = problem._replace(
+            poses=torch.where(accept, cand.poses, problem.poses),
+            points=torch.where(accept, cand.points, problem.points))
+        lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 5.0),
+                          1e-9, 1e4)
+    o = problem.obs
+    r = res.point_residual_stereo(cam, problem.poses[o.k],
+                                  problem.points[o.p], o.uvr)
+    chi2 = o.inv_sigma2 * torch.sum(r * r * _row_weights(o.is_stereo), dim=-1)
+    return problem, chi2

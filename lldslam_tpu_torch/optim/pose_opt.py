@@ -31,9 +31,8 @@ class PointPoseObs(NamedTuple):
 
 def _row_weights(is_stereo: torch.Tensor) -> torch.Tensor:
     """(N, 3) per-row weights: the uR row is dropped for mono edges."""
-    mono = torch.tensor([1.0, 1.0, 0.0], dtype=torch.float32,
-                        device=is_stereo.device)
-    return torch.where(is_stereo[..., None], torch.ones_like(mono), mono)
+    s = is_stereo.to(torch.float32)
+    return torch.stack([torch.ones_like(s), torch.ones_like(s), s], dim=-1)
 
 
 def _point_terms(cam, T, p: PointPoseObs, inlier, delta_m2, delta_s2,
@@ -62,7 +61,7 @@ def optimize_pose(cam: StereoCamera, T_init: torch.Tensor, pts: PointPoseObs,
     T = T_init
     pt_in = pts.valid.to(torch.float32)
     for _ in range(rounds):
-        lam = torch.tensor(1e-5, dtype=dt, device=dev)
+        lam = torch.full((), 1e-5, dtype=dt, device=dev)
         for _ in range(iters):
             H, b, cost, _ = _point_terms(cam, T, pts, pt_in, delta_m2, delta_s2)
             Hd = H + lam * torch.diag(torch.diagonal(H)) + 1e-8 * eye6

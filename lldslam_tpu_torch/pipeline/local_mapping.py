@@ -64,6 +64,9 @@ class LocalMapper:
             1.0 / store.cfg.scale ** 2, np.arange(store.cfg.n_levels)
         ).astype(np.float32)
         self._lut_dev = torch.from_numpy(self._inv_sigma2).to(self.device)
+        # called with each culled keyframe id (the tracker points it at the
+        # loop closer's KeyFrameDatabase.erase)
+        self.on_kf_culled = None
         self.stage_times: dict[str, float] = {}
         self.cache = cache or KfCache(n_slots=32, n_kp=store.n_kp,
                                       device=self.device)
@@ -357,7 +360,8 @@ class LocalMapper:
     def cull_keyframes(self, kf_id: int):
         """Redundant-KF culling: a covisible KF dies when >= 90% of its
         tracked points are seen by at least 3 other keyframes; culled KFs
-        keep their pose but stop contributing observations."""
+        keep their pose but stop contributing observations, and
+        `on_kf_culled` hears of each."""
         s = self.store
         covis, _ = s.covisible_kfs(kf_id, min_shared=15)
         if len(covis) == 0:
@@ -380,6 +384,8 @@ class LocalMapper:
                 s.kf_valid[k] = False
                 s.reparent_children(k)
                 s.mark_obs_dirty()
+                if self.on_kf_culled is not None:
+                    self.on_kf_culled(k)
         s.refresh_obs_counts()
 
     # ------------------------------------------------------------------

@@ -115,7 +115,8 @@ def fuse_candidates(cam: StereoCamera, T_kf: torch.Tensor,
     features (radius-3 projection search through K2). Returns (pt2kp (P,),
     kp2pt (N,))."""
     pt2kp, kp2pt, _, _ = matching.search_by_projection(
-        cam, T_kf, view, kf_feats, n_levels=n_levels, scale=scale, th=0.75)
+        cam, T_kf, view, kf_feats, n_levels=n_levels, scale=scale, th=0.75,
+        site="fusion")
     return pt2kp, kp2pt
 
 

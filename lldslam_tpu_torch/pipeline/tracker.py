@@ -3,22 +3,27 @@
 Counterpart of lldslam_tpu/pipeline/tracker.py (`StereoTracker` with
 `pipeline=False`). Every frame runs
 
-    build_frame_pair -> motion-model match (radius 7, else 14) -> pose LM
-    -> local-map projection search (K2) -> pose LM -> keyframe decision
-    -> (on a keyframe) point creation + LocalMapper.process_keyframe
+    build_frame_pair -> (LOST: relocalization) -> motion-model match
+    (radius 7, else 14) -> pose LM -> local-map projection search (K2)
+    -> pose LM -> keyframe decision -> (on a keyframe) point creation
+    + LocalMapper.process_keyframe + LoopCloser.process_keyframe
 
 with the reference semantics the JAX package keeps: stereo initialization
 above `min_init_points` depth'd keypoints, TrackReferenceKeyFrame fallback
 when the motion model is weak, temporal seeding of close unassociated
 features into the next frame's motion model, NeedNewKeyFrame with a minimum
 gap of 3 frames, and trajectory bookkeeping relative to reference keyframes.
-With loop closing off (the only mode ported) a LOST tracker stays LOST, as
-in the JAX package.
 
-Not ported yet (each raises NotImplementedError, see ROADMAP queue 1): loop
-closing and relocalization, the pipelined tracker (and with it the
-provisional point identities and the on-device keyframe decision), lines,
-monocular and RGB-D input.
+Loop closing is on by default, as in the JAX package: with no vocabulary
+given, one is trained from the first keyframe's descriptors. A LOST tracker
+relocalizes through the loop closer's vocabulary and keyframe database
+(BoW candidates -> descriptor match -> EPnP RANSAC -> pose LM -> projection
+rounds through K2 at 8192 rows). `localization_only` suppresses keyframes
+and the auto-reset.
+
+Not ported yet (each raises NotImplementedError, see ROADMAP queue 1): the
+pipelined tracker (and with it the provisional point identities and the
+on-device keyframe decision), lines, monocular and RGB-D input.
 """
 from __future__ import annotations
 
@@ -35,7 +40,9 @@ from ..frontend.frame import FrameData, build_frame_pair
 from ..geometry.camera import backproject
 from ..io import trajectory as traj
 from ..ops import hamming
-from ..optim import pose_opt
+from ..loop.bow import Vocabulary
+from ..loop.closing import LoopCloser, project_match
+from ..optim import pnp, pose_opt
 from ..slammap.map_store import MapStore
 from . import local_mapping, mapper_fast
 from .kf_cache import KfCache
@@ -146,6 +153,7 @@ class TrackMetrics:
     n_motion_matches: int = 0
     n_inliers: int = 0
     new_kf: bool = False
+    reloc_kf: int = -1      # keyframe relocalized against on this frame
     n_points: int = 0
     n_kfs: int = 0
     t_build: float = 0.0
@@ -155,12 +163,9 @@ class TrackMetrics:
 
 class StereoTracker:
     def __init__(self, cfg: SlamConfig, store: MapStore | None = None,
-                 enable_loops: bool = False, pipeline: bool = False,
-                 device="cpu"):
-        if enable_loops:
-            raise NotImplementedError(
-                "loop closing and relocalization are not ported to "
-                "lldslam_tpu_torch yet; see ROADMAP queue 1 items 2-3")
+                 enable_loops: bool = True,
+                 vocabulary: Vocabulary | None = None,
+                 pipeline: bool = False, device="cpu"):
         if pipeline:
             raise NotImplementedError(
                 "the pipelined tracker is not ported to lldslam_tpu_torch "
@@ -183,6 +188,10 @@ class StereoTracker:
         self._ref_matches = 0
         self.logs: list[FrameLog] = []
         self.metrics: list[TrackMetrics] = []
+        self.kf_timings: list[dict] = []
+        self.localization_only = False
+        self._reloc_gen = torch.Generator(device=self.device)
+        self._reloc_gen.manual_seed(7)
         # last-frame state for the motion model (device tensors)
         self._last_feats = None
         self._last_ptpos = None    # (N, 3) world position per keypoint
@@ -199,6 +208,18 @@ class StereoTracker:
                                 device=self.device)
         self.mapper = local_mapping.LocalMapper(
             self.store, cfg, cache=self.kf_cache, device=self.device)
+        # loop closing: the vocabulary given, or one trained from the first
+        # keyframe's descriptors at initialization
+        self.enable_loops = enable_loops
+        self.vocabulary = vocabulary
+        self.loop_closer = None
+        if enable_loops and vocabulary is not None:
+            self._make_loop_closer()
+
+    def _make_loop_closer(self):
+        self.loop_closer = LoopCloser(self.store, self.vocabulary, self.cfg,
+                                      device=self.device)
+        self.mapper.on_kf_culled = self.loop_closer.db.erase
 
     # ------------------------------------------------------------------
 
@@ -267,6 +288,12 @@ class StereoTracker:
         self.velocity = np.eye(4, dtype=np.float32)
         self.ref_kf = kf
         self.last_kf_frame = fid
+        if self.enable_loops and self.loop_closer is None:
+            self.vocabulary = Vocabulary.train(
+                feats["desc"][feats["valid"]], k=8, L=3, seed=0)
+            self._make_loop_closer()
+        if self.loop_closer is not None:
+            self.loop_closer.process_keyframe(kf)
         self.mapper.cache_frame(kf, fd.feats)
         self.state = TrackState.OK
         self._has_velocity = False
@@ -377,13 +404,91 @@ class StereoTracker:
         host["stats"] = [int(x) for x in host["stats"]]
         return host, step
 
+    def _attempt_reloc(self, fd: FrameData) -> np.ndarray | None:
+        """Relocalization: BoW candidates (at most 5) -> ratio-0.7 mutual
+        descriptor match (>= 15) -> EPnP RANSAC (>= 10 inliers) -> pose LM
+        (>= 10) -> projection rounds at th 2.5 then 0.75 until >= 50
+        inliers. Returns T_cw or None."""
+        if self.loop_closer is None:
+            return None
+        s = self.store
+        f = fd.feats
+        voc, db = self.loop_closer.voc, self.loop_closer.db
+        ids, vals = voc.bow_vector(f.desc, f.valid)
+        cands = db.detect_reloc_candidates(ids, vals)[:5]
+        xy, octave = f.xy.cpu().numpy(), f.octave.cpu().numpy()
+        for kf in cands:
+            has_kf = s.kf_kp_valid[kf] & (s.kf_pt_ids[kf] >= 0)
+            idx, ok, _ = hamming.match_descriptors(
+                f.desc, f.valid, self._t(s.kf_desc[kf].view(np.int32)),
+                self._t(has_kf), max_dist=hamming.TH_LOW, ratio=0.7)
+            idx, ok = idx.cpu().numpy(), ok.cpu().numpy()
+            sel = np.nonzero(ok)[0]
+            if len(sel) < 15:
+                continue
+            pts = s.kf_pt_ids[kf, idx[sel]]
+            n = min(len(sel), 512)
+            s2 = (self.orb.scale ** (2.0 * octave[sel[:n]])).astype(np.float32)
+            T, _, n_inl = pnp.ransac_pnp(
+                self.cam, self._t(s.pt_pos[pts[:n]]), self._t(xy[sel[:n]]),
+                self._t(s2), torch.ones(n, dtype=torch.bool,
+                                        device=self.device),
+                self._reloc_gen)
+            if int(n_inl) < 10:
+                continue
+            # robust refinement on the whole candidate set
+            kp2pt = np.full(s.n_kp, -1, np.int32)
+            kp2pt[sel] = pts
+            T2, n_in = self._reloc_pose(fd, T, kp2pt)
+            if n_in < 10:
+                continue
+            # projection rounds over the candidate's local map, wide window
+            # first, then a narrow confirmation pass
+            covis, _ = s.covisible_kfs(kf, min_shared=15, top=10)
+            kfs = np.concatenate([[kf], covis]).astype(np.int32)
+            pids = np.unique(s.kf_pt_ids[kfs])
+            pids = pids[pids >= 0]
+            pids = pids[s.pt_valid[pids]]
+            for th in (2.5, 0.75):
+                if n_in >= 50:
+                    break
+                kp2pt_w = self._project_view_match(fd, pids,
+                                                   T2.cpu().numpy(), th=th)
+                kp2pt = np.where(kp2pt >= 0, kp2pt, kp2pt_w)
+                T2, n_in = self._reloc_pose(fd, T2, kp2pt)
+            if n_in >= 50:
+                self.ref_kf = kf
+                self._refresh_local_view()
+                self._refresh_ref_matches()
+                return T2.cpu().numpy().astype(np.float32)
+        return None
+
+    def _reloc_pose(self, fd: FrameData, T: torch.Tensor, kp2pt: np.ndarray):
+        """Pose LM from T on the keypoint -> map point table; returns
+        (T_cw tensor, n_inliers)."""
+        X = self.store.pt_pos[np.maximum(kp2pt, 0)]
+        rows = np.where(kp2pt >= 0, np.arange(len(X)), -1)
+        pobs = _gather_pose_obs(self.cam, self._t(X), self._t(rows),
+                                fd.feats, self._inv_sigma2_lut)
+        T2, _, n_in = pose_opt.optimize_pose(self.cam, T, pobs)
+        return T2, int(n_in)
+
+    def _project_view_match(self, fd: FrameData, pids: np.ndarray,
+                            T_cw: np.ndarray, th: float) -> np.ndarray:
+        """Project the given map points into the current frame and match
+        (the relocalization SearchByProjection, K2 at PROJECT_CAP rows).
+        Returns kp2pid (N,) global ids."""
+        return project_match(self.store, fd.feats, pids, T_cw, th, "reloc")
+
     def _reset_full(self):
         """Auto-reset when tracking is lost right after initialization:
-        clear the map and trajectory bookkeeping, reinitialize."""
+        clear the map, database and trajectory bookkeeping, reinitialize."""
         self.store = MapStore(self.cam, self.orb)
         self.kf_cache.clear()
         self.mapper = local_mapping.LocalMapper(
             self.store, self.cfg, cache=self.kf_cache, device=self.device)
+        if self.loop_closer is not None:
+            self._make_loop_closer()
         self.state = TrackState.NOT_INITIALIZED
         self.T_cw = np.eye(4, dtype=np.float32)
         self.velocity = np.eye(4, dtype=np.float32)
@@ -395,8 +500,13 @@ class StereoTracker:
 
     def _track(self, fd: FrameData, timestamp: float, m: TrackMetrics):
         fid = self.frame_id
-        # relocalization needs loop closing's vocabulary: with loops off a
-        # LOST tracker stays LOST (as in the JAX package)
+        if self.state == TrackState.LOST:
+            T_reloc = self._attempt_reloc(fd)
+            if T_reloc is not None:
+                m.reloc_kf = self.ref_kf
+                self.T_cw = T_reloc
+                self.velocity = np.eye(4, dtype=np.float32)
+                self._has_velocity = False
         if not self._has_velocity and self.ref_kf >= 0 \
                 and self.state == TrackState.OK:
             # no motion model: anchor on the reference KF
@@ -441,7 +551,7 @@ class StereoTracker:
         np.add.at(self.store.pt_found, kp2pt[kp2pt >= 0], 1)
 
         if n_in < self.cfg.tracking.min_track_inliers:
-            if self.store.n_kf <= 5:
+            if self.store.n_kf <= 5 and not self.localization_only:
                 # lost right after initialization: full reset
                 m.state = TrackState.LOST.name
                 self._reset_full()
@@ -457,7 +567,9 @@ class StereoTracker:
         self._has_velocity = True
         self.T_cw = T_np.astype(np.float32)
 
-        new_kf = self._need_new_kf(n_in, tracked_close, untracked_close, fid)
+        # localization-only mode creates no keyframes
+        new_kf = (not self.localization_only) and self._need_new_kf(
+            n_in, tracked_close, untracked_close, fid)
         if new_kf:
             t0 = time.perf_counter()
             self._create_kf(fd, kp2pt, timestamp, fid)
@@ -485,10 +597,11 @@ class StereoTracker:
         return weak or need_close or too_old
 
     def _create_kf(self, fd: FrameData, kp2pt: np.ndarray, timestamp: float,
-                   fid: int):
+                   fid: int) -> bool:
         """CreateNewKeyFrame: insert the KF, create close-depth points (all
-        under ThDepth, or the 100 nearest), then run the local-mapping
-        step."""
+        under ThDepth, or the 100 nearest), then run the local-mapping and
+        loop-closing steps. Returns True when a loop closure corrected the
+        map."""
         s = self.store
         feats, depth = self._snapshot_np(fd)
         kf = s.add_keyframe(self.T_cw, feats, depth, kp2pt, fid, timestamp)
@@ -510,14 +623,23 @@ class StereoTracker:
         self.ref_kf = kf
         self.last_kf_frame = fid
         self.mapper.cache_frame(kf, fd.feats)
+        t0 = time.perf_counter()
         view_out = self.mapper.process_keyframe(kf)
-        # refresh the current pose from the BA-corrected KF pose
+        t1 = time.perf_counter()
+        corrected = False
+        if self.loop_closer is not None:
+            corrected = self.loop_closer.process_keyframe(kf)
+        t2 = time.perf_counter()
+        # refresh the current pose from the (BA- or loop-)corrected KF pose
         self.T_cw = s.kf_pose[kf].copy()
-        if view_out is not None:
+        if view_out is not None and not corrected:
             self._view, self._view_pid = view_out   # post-BA view
         else:
             self._refresh_local_view()
         self._refresh_ref_matches()
+        self.kf_timings.append(dict(mapper=t1 - t0, loop=t2 - t1,
+                                    view=time.perf_counter() - t2))
+        return corrected
 
     def trajectory(self):
         """(timestamps, T_wc stack) replayed through reference keyframes."""

@@ -6,31 +6,82 @@ Counterpart of lldslam_tpu/system.py, synchronous stereo only:
     T_cw, metrics = sys.track_stereo(img_l, img_r, timestamp)
     sys.save_trajectory_kitti(path)
 
-`enable_loops` defaults to False here (loop closing is not ported yet);
-passing True, `pipeline=True`, a line-enabled config, `track_rgbd`,
-`track_monocular`, `save_map` or `load_map` raises NotImplementedError.
+Loop closing and relocalization are on by default, with the vocabulary the
+JAX package ships (`lldslam_tpu/loop/vocab_synth.npz`, read by path); when
+that file is absent a vocabulary is trained from the first keyframe.
+`pipeline=True`, a line-enabled config, `track_rgbd`, `track_monocular`,
+`save_map` and `load_map` raise NotImplementedError.
 """
 from __future__ import annotations
 
+import functools
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from .config import SlamConfig, load_config
 from .io import trajectory as traj
+from .loop.bow import Vocabulary
 from .pipeline.tracker import StereoTracker, TrackState
+
+# the vocabulary file of the JAX package, beside this package
+DEFAULT_VOCABULARY = (Path(__file__).resolve().parent.parent / "lldslam_tpu"
+                      / "loop" / "vocab_synth.npz")
+
+
+@functools.lru_cache(maxsize=1)
+def _default_vocabulary() -> Vocabulary | None:
+    """The shipped vocabulary (host arrays, read once per process), or None
+    when the file is absent."""
+    if not DEFAULT_VOCABULARY.exists():
+        return None
+    return Vocabulary.load_npz(DEFAULT_VOCABULARY)
 
 
 class System:
     def __init__(self, cfg: SlamConfig | str | Path, sequence: str | None = None,
-                 enable_loops: bool = False, pipeline: bool = False,
-                 device="cpu"):
+                 vocabulary=None, enable_loops: bool = True,
+                 pipeline: bool = False, device="cpu"):
+        """vocabulary: a `Vocabulary`, a path to an `.npz` vocabulary or an
+        ORBvoc.txt-format file, or None (the shipped vocabulary, else one
+        trained from the first keyframe)."""
         if not isinstance(cfg, SlamConfig):
             cfg = load_config(cfg, sequence=sequence)
         self.cfg = cfg
         self.device = device
-        self.tracker = StereoTracker(cfg, enable_loops=enable_loops,
+        self.pipeline = pipeline
+        if isinstance(vocabulary, (str, Path)):
+            p = Path(vocabulary)
+            vocabulary = (Vocabulary.load_npz(p) if p.suffix == ".npz"
+                          else Vocabulary.load_text(p))
+        elif vocabulary is None and enable_loops:
+            vocabulary = _default_vocabulary()
+        if vocabulary is not None:
+            vocabulary = vocabulary.to(device)
+        self.tracker = StereoTracker(cfg, vocabulary=vocabulary,
+                                     enable_loops=enable_loops,
                                      pipeline=pipeline, device=device)
+
+    def warmup(self) -> None:
+        """Do the one-off set-up of the rare paths now rather than inside
+        the first loop event: build the CUDA kernels, load the solver
+        libraries the loop and relocalization paths call (batched eigh,
+        SVD, solve, inverse) and initialise `torch.func`, whose first forward-mode
+        pass takes about 2 s. Nothing is compiled ahead: the port runs
+        eagerly."""
+        dev = self.tracker.device
+        eye = torch.eye(4, device=dev).expand(2, 4, 4)
+        torch.func.jvp(lambda x: x * 2, (eye,), (eye,))
+        if dev.type != "cuda":
+            return
+        from .ops import cuda_build
+        cuda_build.library()
+        torch.linalg.eigh(eye)
+        torch.linalg.svd(eye)
+        torch.linalg.solve_ex(eye, eye)
+        torch.linalg.inv_ex(eye)
+        torch.cuda.synchronize(dev)
 
     # -- frame input ------------------------------------------------------
     def track_stereo(self, img_l: np.ndarray, img_r: np.ndarray,
@@ -81,7 +132,22 @@ class System:
         T_wc[:, :3, 3] = twc
         traj.save_tum(path, s.kf_timestamp[sel], T_wc)
 
-    # -- map persistence and lifecycle ------------------------------------
+    # -- mode switches and lifecycle --------------------------------------
+    def activate_localization_mode(self) -> None:
+        """Track against the frozen map: no keyframes, no map growth."""
+        self.tracker.localization_only = True
+
+    def deactivate_localization_mode(self) -> None:
+        self.tracker.localization_only = False
+
+    def reset(self) -> None:
+        """Full reset: clear map and trajectory, reinitialize."""
+        self.tracker = StereoTracker(
+            self.cfg, vocabulary=self.tracker.vocabulary,
+            enable_loops=self.tracker.enable_loops, pipeline=self.pipeline,
+            device=self.device)
+
+    # -- map persistence --------------------------------------------------
     def save_map(self, path) -> None:
         raise NotImplementedError(
             "map checkpoints are not ported to lldslam_tpu_torch yet; see "

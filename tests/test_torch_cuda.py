@@ -11,17 +11,25 @@ Each kernel is held to its plain PyTorch version on the same device tensors
 one tie contract), and the frame build on the card to the frame build on the
 CPU (integer pipeline exact; descriptors and stereo through the same
 tolerances as the JAX parity tests, since sin/cos/atan2 may differ by an ulp
-between the card's and the CPU's math libraries).
+between the card's and the CPU's math libraries). One loop correction on the
+card is held to the same correction on the CPU within the tolerances the
+JAX parity test (tests/test_torch_loop.py) states, and the solver loops of
+a loop event run without a host synchronisation.
 """
 import numpy as np
 import pytest
 import torch
 
-from lldslam_tpu_torch.config import CameraConfig
+from lldslam_tpu_torch.config import CameraConfig, SlamConfig
 from lldslam_tpu_torch.frontend import frame
-from lldslam_tpu_torch.io.synthetic import make_sequence
+from lldslam_tpu_torch.geometry import se3
+from lldslam_tpu_torch.io.synthetic import make_loop_map, make_sequence
+from lldslam_tpu_torch.loop.closing import LoopCloser
 from lldslam_tpu_torch.ops import match_best2, patch_sample
 from lldslam_tpu_torch.ops.orb import OrbConfig
+from lldslam_tpu_torch.optim import ba, pose_graph, sim3_solver
+from lldslam_tpu_torch.slammap.map_store import MapStore
+from lldslam_tpu_torch.system import _default_vocabulary
 
 pytestmark = pytest.mark.cuda
 
@@ -54,7 +62,8 @@ def test_k1_equals_plain(dev, dtype, S):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("M,N", [(4096, 2048), (2048, 2048), (300, 77)])
+@pytest.mark.parametrize("M,N", [(4096, 2048), (2048, 2048), (8192, 2048),
+                                 (300, 77)])
 def test_k2_equals_plain(dev, M, N):
     rng = np.random.default_rng(1)
     a = rng.integers(0, 2**32, (M, 8), dtype=np.uint64).astype(np.uint32)
@@ -111,3 +120,136 @@ def test_frame_build_on_card_matches_cpu(dev):
     assert ((gu >= 0) == (cu >= 0)).float().mean() >= 0.99
     both = (gu >= 0) & (cu >= 0)
     assert ((gu - cu)[both].abs() <= 1e-3).float().mean() >= 0.99
+
+
+def _angle(Ra, Rb):
+    d = np.einsum("kji,kjl->kil", Ra.astype(np.float64), Rb.astype(np.float64))
+    w = np.stack([d[:, 2, 1] - d[:, 1, 2], d[:, 0, 2] - d[:, 2, 0],
+                  d[:, 1, 0] - d[:, 0, 1]], -1)
+    return np.arcsin(np.clip(np.linalg.norm(w, axis=-1) / 2, 0, 1))
+
+
+def test_loop_correct_on_card_matches_cpu(dev):
+    """The synthetic loop map (io.synthetic.make_loop_map): Sim3 between
+    keyframe 21 and keyframe 2 on the CPU, then the guided matches (K2 at
+    8192 rows on the card, exact against the CPU) and `_correct` (pose
+    graph, remap, fusion through K2, global BA) on both devices: poses
+    within 2e-3 m and 1e-3 rad, points within 5e-3 m (median), the same
+    observations on >= 99.9% of the slots."""
+    cfg = SlamConfig(camera=CameraConfig(fx=400.0, fy=400.0, cx=256.0,
+                                         cy=192.0, bf=200.0, width=512,
+                                         height=384),
+                     orb=OrbConfig(n_features=600))
+    voc = _default_vocabulary()
+    assert voc is not None
+    cam = cfg.camera.stereo_camera()
+    stores = [MapStore(cam, cfg.orb, max_kf=64, max_pt=20000) for _ in "ab"]
+    for st in stores:
+        make_loop_map(st)
+    cpu = LoopCloser(stores[0], voc, cfg)
+    card = LoopCloser(stores[1], voc, cfg, device=dev)
+    res = cpu._compute_sim3(21, 2)
+    assert res is not None
+    S = res[0]
+    Tm = stores[0].kf_pose[2]
+    T_corr = np.eye(4, dtype=np.float32)
+    T_corr[:3, :3] = S[0] @ Tm[:3, :3]
+    T_corr[:3, 3] = S[2] * (S[0] @ Tm[:3, 3]) + S[1]
+    pids = cpu._loop_points(2)
+    before = match_best2.launches_by_site.get("loop", 0)
+    kp2lp = card._project_match(21, pids, T_corr, th=2.5)
+    torch.cuda.synchronize()
+    assert match_best2.launches_by_site["loop"] == before + 1
+    assert np.array_equal(kp2lp, cpu._loop_guided[0])
+    card._loop_guided = (kp2lp, pids)
+    cpu._correct(21, 2, S)
+    card._correct(21, 2, S)
+    torch.cuda.synchronize()
+    assert match_best2.launches_by_site["loop"] > before + 1   # fusion
+    a, b = stores
+    K = a.n_kf
+    np.testing.assert_allclose(b.kf_pose[:K, :3, 3], a.kf_pose[:K, :3, 3],
+                               rtol=0, atol=2e-3)
+    assert _angle(a.kf_pose[:K, :3, :3], b.kf_pose[:K, :3, :3]).max() < 1e-3
+    assert (a.kf_pt_ids[:K] == b.kf_pt_ids[:K]).mean() >= 0.999
+    live = a.pt_valid[:a.n_pt] & b.pt_valid[:b.n_pt]
+    err = np.linalg.norm(a.pt_pos[:a.n_pt][live] - b.pt_pos[:b.n_pt][live],
+                         axis=-1)
+    assert np.median(err) < 5e-3
+
+
+def test_loop_solvers_never_wait_for_the_host(dev):
+    """The LM and GN loops of a loop event (the Sim(3) pose graph, 15 x 48
+    CG steps; the Sim3 refinement, 10 GN steps; global BA on the CG path,
+    10 x 64 CG steps) run under CUDA's sync debug mode set to "error": no
+    operation inside them makes the host wait for the card. Their results
+    are finite and reduce their errors."""
+    rng = np.random.default_rng(0)
+    cam = CameraConfig(fx=400.0, fy=400.0, cx=256.0, cy=192.0, bf=200.0,
+                       width=512, height=384).stereo_camera()
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    K = 24
+    xi = np.zeros((K, 6), np.float32)
+    xi[:, 0] = 0.5 * np.arange(K)
+    xi[:, 4] = 0.05 * np.arange(K)
+    T = se3.exp(torch.from_numpy(xi)).numpy()
+    T0 = se3.exp(torch.from_numpy(
+        rng.normal(0, 0.02, (K, 6)).astype(np.float32))).numpy() @ T
+    e_i = np.r_[np.arange(1, K), 0]
+    e_j = np.r_[np.arange(K - 1), K - 1]
+    M = T[e_i] @ np.linalg.inv(T[e_j])
+    g = pose_graph.PoseGraph(
+        R=t(T0[:, :3, :3]), t=t(T0[:, :3, 3]), s=t(np.ones(K, np.float32)),
+        fixed=t(np.arange(K) == 0), e_i=t(e_i), e_j=t(e_j),
+        m_R=t(M[:, :3, :3]), m_t=t(M[:, :3, 3]),
+        m_s=t(np.ones(K, np.float32)), e_valid=t(np.ones(K, bool)))
+
+    n = 100
+    P2 = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
+                   rng.uniform(5, 15, n)], -1).astype(np.float32)
+    R = T[1, :3, :3] @ T[2, :3, :3]
+    P1 = (P2 @ R.T + np.array([0.3, 0.1, 0.5], np.float32)).astype(np.float32)
+    uv = lambda P: np.stack([cam.fx * P[:, 0] / P[:, 2] + cam.cx,
+                             cam.fy * P[:, 1] / P[:, 2] + cam.cy], -1)
+    ones = t(np.ones(n, np.float32))
+    dR = se3.exp(torch.tensor([0.0, 0.0, 0.0, 0.01, -0.005, 0.008])).numpy()
+    S0 = (t(dR[:3, :3] @ R), t(np.array([0.35, 0.05, 0.45], np.float32)),
+          t(np.float32(1.0)))
+    sim3_args = (t(P1), t(P2), t(uv(P1).astype(np.float32)),
+                 t(uv(P2).astype(np.float32)), ones, ones,
+                 t(np.ones(n, bool)))
+
+    Pw = np.stack([rng.uniform(-4, 4, 300), rng.uniform(-2, 2, 300),
+                   rng.uniform(6, 15, 300)], -1).astype(np.float32)
+    kk, pp = (a.ravel() for a in np.meshgrid(np.arange(4), np.arange(300),
+                                             indexing="ij"))
+    Xc = np.einsum("oij,oj->oi", T[kk, :3, :3], Pw[pp]) + T[kk, :3, 3]
+    u = cam.fx * Xc[:, 0] / Xc[:, 2] + cam.cx
+    uvr = np.stack([u, cam.fy * Xc[:, 1] / Xc[:, 2] + cam.cy,
+                    u - cam.bf / Xc[:, 2]], -1).astype(np.float32)
+    problem = ba.BAProblem(
+        poses=t(T0[:4]), points=t(Pw + rng.normal(0, 0.05, Pw.shape)
+                                  .astype(np.float32)),
+        pose_fixed=t(np.arange(4) == 0), point_valid=t(np.ones(300, bool)),
+        obs=ba.BAObs(k=t(kk), p=t(pp), uvr=t(uvr),
+                     inv_sigma2=t(np.ones(len(kk), np.float32)),
+                     is_stereo=t(np.ones(len(kk), bool)),
+                     valid=t(np.ones(len(kk), bool))))
+    chi2_0 = ba._total_cost(cam, problem._replace(
+        obs=problem.obs._replace(k=problem.obs.k.long(),
+                                 p=problem.obs.p.long())))
+    err_0 = pose_graph.total_error(g)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g_opt = pose_graph.optimize_pose_graph(g, iters=15, cg_iters=48)
+        (Rs, ts, ss), _, n_inl = sim3_solver.refine_sim3(cam, cam, S0,
+                                                         *sim3_args)
+        solved, chi2 = ba.ba_solve(cam, problem, iters=10, cg_iters=64)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert float(pose_graph.total_error(g_opt)) < 0.1 * float(err_0)
+    assert torch.isfinite(Rs).all() and torch.isfinite(ts).all()
+    assert int(n_inl) >= 0.9 * n
+    assert torch.isfinite(chi2).all()
+    assert float(ba._total_cost(cam, solved)) < 0.5 * float(chi2_0)

@@ -57,6 +57,45 @@ def test_synthetic_sequence_matches_bench():
             assert (d > 0).mean() <= 1e-4
 
 
+def test_patch_worlds_match_the_jax_tests():
+    """The numpy copies of the end-to-end test worlds: the loop circle of
+    tests/test_loop_e2e.py (world, poses and two rendered frames exact) and
+    the relocalization corridor of tests/test_pipeline.py (world exact,
+    frames exact, poses within 1e-5 of the JAX se3.exp chain)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_loop_e2e as jring
+    import test_pipeline as jcorr
+
+    rcam = jconfig.CameraConfig(fx=400.0, fy=400.0, cx=256.0, cy=192.0,
+                                bf=200.0, fps=10.0, width=512,
+                                height=384).stereo_camera()
+    jpts, jpat = jring._make_ring_world(np.random.default_rng(11))
+    tpts, tpat = synthetic.make_ring_world(np.random.default_rng(11))
+    assert np.array_equal(tpts, jpts) and np.array_equal(tpat, jpat)
+    for i in (0, 40):
+        th = 2 * np.pi * 1.08 * i / 88
+        T = synthetic.circle_pose(th)
+        assert np.array_equal(T, jring._circle_pose(th))
+        for j, t in zip(jring._render(rcam, T, jpts, jpat),
+                        synthetic.render_points(rcam, T, tpts, tpat)):
+            assert np.array_equal(t, j)
+    jpts, jpat = jcorr._make_world(np.random.default_rng(3))
+    tpts, tpat = synthetic.make_points_world(np.random.default_rng(3))
+    assert np.array_equal(tpts, jpts) and np.array_equal(tpat, jpat)
+    T, want = np.eye(4, dtype=np.float32), []
+    for _ in range(34):
+        want.append(T.copy())
+        T = np.asarray(jse3.exp(jnp.asarray(np.array(
+            [0.0, 0.0, -0.25, 0.0, 0.004, 0.0], np.float32)))
+            @ jnp.asarray(T))
+    got = synthetic.corridor_poses(34)
+    np.testing.assert_allclose(np.stack(got), np.stack(want), rtol=0,
+                               atol=1e-5)
+    for j, t in zip(jcorr._render(rcam, want[4], jpts, jpat),
+                    synthetic.render_points(rcam, want[4], tpts, tpat)):
+        assert np.array_equal(t, j)
+
+
 def test_orb_pattern_is_the_jax_table():
     """The port ships its own copy of the BRIEF pattern: byte-equal."""
     a = (ROOT / "lldslam_tpu/ops/orb_pattern.npy").read_bytes()

@@ -1,0 +1,71 @@
+"""End-to-end loop closure through the port's `System` on the CPU: the
+88-frame circle of tests/test_loop_e2e.py (512x384, 600 features, the
+test's caps), with loops on by default and the shipped vocabulary.
+
+The JAX package's CPU run of the same sequence is recorded below instead of
+re-running JAX: 88/88 frames OK, one loop event (query keyframe 28, matched
+keyframe 1, 104 refined Sim3 inliers), unaligned ATE 0.455 m. The port is
+held to that run: the same single event (the same keyframe pair, the
+refined inlier count within 10 of it), and the ATE within 0.05 m of it;
+float sums in another order move the count and the ATE a little (the
+port's CPU run: 102 inliers, 0.443 m). tests/test_loop_e2e.py's own bounds
+hold as well: at most 2 frames lost, the revisit-health ratio, ATE under
+0.60 m.
+"""
+import numpy as np
+import torch
+
+from lldslam_tpu_torch.config import CameraConfig, SlamConfig, TrackingConfig
+from lldslam_tpu_torch.io.synthetic import make_ring_sequence
+from lldslam_tpu_torch.io.trajectory import ate_rmse
+from lldslam_tpu_torch.ops.orb import OrbConfig
+from lldslam_tpu_torch.system import System
+
+torch.set_num_threads(2)
+
+W, H = 512, 384
+# the JAX package's CPU run of this sequence and the port's margins around
+# it (see the docstring)
+JAX_EVENT, JAX_ATE_M = (28, 1, 104), 0.455
+INLIER_TOL, ATE_TOL_M = 10, 0.05
+
+
+def test_circular_loop_closure_through_port():
+    cam_cfg = CameraConfig(fx=400.0, fy=400.0, cx=W / 2, cy=H / 2, bf=200.0,
+                           fps=10.0, width=W, height=H)
+    cfg = SlamConfig(camera=cam_cfg, orb=OrbConfig(n_features=600),
+                     tracking=TrackingConfig(min_init_points=100))
+    frames, gt = make_ring_sequence(cam_cfg.stereo_camera())
+    sys = System(cfg)
+    sys.tracker.mapper.p_cap = 4096
+    sys.tracker.mapper.o_cap = 8192
+    lost = 0
+    for i, (l, r) in enumerate(frames):
+        _, m = sys.track_stereo(l, r, timestamp=i * 0.1)
+        lost += m.state == "LOST"
+    assert lost <= 2, f"lost {lost} frames"
+
+    lc = sys.tracker.loop_closer
+    events = [(e.query_kf, e.matched_kf, e.n_inliers) for e in lc.events]
+    n_kf = sys.map.n_kf
+    assert lc.stage_times["n"] == n_kf
+    assert len(events) >= 1, "no loop closure detected on a full circle"
+    assert len(events) == 1 and events[0][:2] == JAX_EVENT[:2], events
+    assert abs(events[0][2] - JAX_EVENT[2]) <= INLIER_TOL, events
+    # every keyframe's loop step is timed, the event by stage
+    assert len(sys.tracker.kf_timings) == n_kf - 1
+    for k in ("sim3", "pose_graph", "fusion", "global_ba"):
+        assert lc.stage_times[k] > 0
+
+    n_in = np.array([m.n_inliers for m in sys.tracker.metrics], np.float64)
+    mid = np.median(n_in[len(n_in) // 4: len(n_in) // 2])
+    revisit = np.median(n_in[-len(n_in) // 5:])
+    assert revisit >= 0.5 * mid, (revisit, mid)
+
+    _, T_wc = sys.tracker.trajectory()
+    gt_wc = np.stack([gt[0] @ np.linalg.inv(g) for g in gt])
+    ate = ate_rmse(T_wc, gt_wc, align=False)
+    print(f"port: events {events}, lost {lost}, ATE {ate:.4f} m (JAX "
+          f"{JAX_EVENT}, ATE {JAX_ATE_M} m)")
+    assert ate < 0.60, f"ATE {ate:.3f} m too large after loop closure"
+    assert abs(ate - JAX_ATE_M) <= ATE_TOL_M, (ate, JAX_ATE_M)

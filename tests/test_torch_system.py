@@ -1,15 +1,18 @@
 """The synchronous stereo slice of the PyTorch port against the JAX package,
 end to end, plus the port's import guard and its not-yet-ported entries.
 
-The whole-slice test runs 12 frames of the seed-3 synthetic corridor at
+The whole-slice tests run 12 frames of the seed-3 synthetic corridor at
 640x240 with 600 ORB features (the tests/test_pipelined.py camera) through
-both `System`s with loop closing off. Float sums run in another order in
+both `System`s, once with loop closing off and once with the default (loops
+on, the shipped vocabulary). Float sums run in another order in
 the two frameworks, which can flip a Levenberg-Marquardt accept/reject step
 in the pose LM or the local BA, so the trajectories are compared by bounds
 and not bit for bit: every frame OK in both, keyframe frame ids equal up to
 one keyframe, camera centres within 0.05 m per frame, and the port's ATE at
 most max(1.5 x JAX ATE, JAX ATE + 0.01 m).
 """
+import importlib.util
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -32,6 +35,7 @@ from lldslam_tpu.ops.orb import OrbConfig as JOrbConfig  # noqa: E402
 from lldslam_tpu.system import System as JSystem  # noqa: E402
 from lldslam_tpu_torch.config import (CameraConfig, LineConfig,  # noqa: E402
                                       SlamConfig, TrackingConfig)
+from lldslam_tpu_torch.loop.closing import LoopCloser  # noqa: E402
 from lldslam_tpu_torch.ops.orb import OrbConfig  # noqa: E402
 from lldslam_tpu_torch.system import System  # noqa: E402
 
@@ -58,8 +62,9 @@ def _run(system, frames):
     return T_wc, states, kfs
 
 
-@pytest.fixture(scope="module")
-def slice_runs():
+def _slice_runs(**kw):
+    """The corridor through the JAX System and the port's System, both built
+    with the keyword arguments `kw`."""
     jcfg = JSlamConfig(camera=JCameraConfig(**CAM),
                        orb=JOrbConfig(n_features=600),
                        tracking=JTrackingConfig(min_init_points=80))
@@ -67,15 +72,22 @@ def slice_runs():
                                       n_per_m=25.0, seed=3,
                                       return_poses=True)
     gt = np.stack([np.linalg.inv(p) for p in poses])
-    jax_run = _run(JSystem(jcfg, enable_loops=False), frames)
-    port = System(_port_cfg(), enable_loops=False, pipeline=False,
-                  device="cpu")
+    jsys = JSystem(jcfg, **kw)
+    jax_run = _run(jsys, frames)
+    port = System(_port_cfg(), pipeline=False, device="cpu", **kw)
     port_run = _run(port, frames)
-    return gt, jax_run, port_run, port
+    return gt, jax_run, port_run, port, jsys
 
 
-def test_whole_slice_matches_jax(slice_runs):
-    gt, (T_j, st_j, kf_j), (T_t, st_t, kf_t), _ = slice_runs
+@pytest.fixture(scope="module")
+def slice_runs():
+    return _slice_runs(enable_loops=False)
+
+
+def _check_slice(gt, jax_run, port_run):
+    """Both runs OK on every frame, the keyframes equal up to one, camera
+    centres within 0.05 m, the port's ATE within the module's bound."""
+    (T_j, st_j, kf_j), (T_t, st_t, kf_t) = jax_run, port_run
     assert st_j == ["OK"] * N_FRAMES
     assert st_t == ["OK"] * N_FRAMES
     assert abs(len(kf_t) - len(kf_j)) <= 1, (kf_t, kf_j)
@@ -88,11 +100,31 @@ def test_whole_slice_matches_jax(slice_runs):
     assert ate_t <= max(1.5 * ate_j, ate_j + 0.01), (ate_t, ate_j)
 
 
+def test_whole_slice_matches_jax(slice_runs):
+    _check_slice(*slice_runs[:3])
+
+
+def test_whole_slice_with_loops_matches_jax():
+    """The default of both packages, loops on with the shipped vocabulary:
+    the trajectories within the bounds above; in both, every keyframe went
+    through the loop closer, the database holds exactly the valid
+    keyframes, and no loop event fires on the loop-free corridor."""
+    gt, jax_run, port_run, port, jsys = _slice_runs()
+    _check_slice(gt, jax_run, port_run)
+    for sys_ in (jsys, port):
+        lc, s = sys_.tracker.loop_closer, sys_.map
+        assert lc.voc.n_words == 99106
+        assert lc.stage_times["n"] == s.n_kf
+        assert set(lc.db.kf_words) == set(
+            np.nonzero(s.kf_valid[:s.n_kf])[0].tolist())
+        assert not lc.events
+
+
 def test_trajectory_exports(slice_runs, tmp_path):
     """KITTI and TUM files of the port's run: one row per frame (a keyframe
     row per live keyframe), finite, and the KITTI rows are the trajectory's
     top three rows."""
-    *_, port = slice_runs
+    port = slice_runs[3]
     port.save_trajectory_kitti(tmp_path / "kitti.txt")
     port.save_trajectory_tum(tmp_path / "tum.txt")
     port.save_keyframe_trajectory_tum(tmp_path / "kf.txt")
@@ -118,7 +150,14 @@ def test_unported_entries_raise(what, tmp_path):
     cfg = _port_cfg()
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         if what == "loops":
-            System(cfg, enable_loops=True)
+            # loops run; the joint point+line global BA is what stays
+            # unported
+            lc = System(cfg).tracker.loop_closer
+            s = lc.store
+            s.n_ln = 1
+            s.ln_valid[0] = True
+            s.ln_nobs[0] = 4
+            lc.global_ba()
         elif what == "pipeline":
             System(cfg, pipeline=True)
         elif what == "lines":
@@ -132,6 +171,16 @@ def test_unported_entries_raise(what, tmp_path):
              "mono": lambda: s.track_monocular(img),
              "save_map": lambda: s.save_map(tmp_path / "m"),
              "load_map": lambda: s.load_map(tmp_path / "m")}[what]()
+
+
+def test_multi_device_global_ba_has_no_counterpart():
+    """The port runs on one device: the JAX package's multi-device global
+    BA (lldslam_tpu/parallel/dist_schur.py, ROADMAP queue 1 item 7) has no
+    module and no switch in the port."""
+    assert importlib.util.find_spec("lldslam_tpu.parallel.dist_schur")
+    assert importlib.util.find_spec("lldslam_tpu_torch.parallel") is None
+    assert list(inspect.signature(LoopCloser.global_ba).parameters) == [
+        "self"]
 
 
 def test_port_imports_without_jax():
