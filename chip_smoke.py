@@ -6,23 +6,31 @@ Run from the repository root with no arguments:
 
 Phases, each fatal on failure (nonzero exit, no result line):
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
-2. build: both CUDA kernels compiled from lldslam_tpu_torch/csrc with nvcc;
-3. K1 (patch sampling) against its plain PyTorch version, exact, at the
-   shapes the frame build gives it and at the BRIEF/SAD shapes of one level;
-4. K2 (masked Hamming best-2) against its plain version, all four outputs
+2. build: the three CUDA kernels compiled from lldslam_tpu_torch/csrc with
+   nvcc;
+3. K1a (fused ORB describe) and K1b (fused stereo SAD) against their plain
+   PyTorch versions, every output exact, at the frame build's shapes
+   (lldslam_tpu_torch.io.kernel_inputs: 4000 keypoints on 8 levels x 2
+   views, a third within 2 px of the detection margin; 2048 SAD slots with
+   forced SAD ties);
+4. K2g (gated Hamming best-2) against its plain version, all four outputs
    exact, at the tracking (4096 x 2048), fusion (2048 x 2048) and loop /
-   relocalization (8192 x 2048) shapes with forced ties, an empty row and a
-   one-candidate row;
+   relocalization (8192 x 2048) shapes with tied columns, an empty row and
+   a one-candidate row;
+   each of phases 3-4 prints kernel ms, plain ms and bound ms (K1a's and
+   K1b's bytes count the distinct pixels their taps touch in this run);
 5. main path: 30 synthetic KITTI-size stereo frames (1241x376, 2000 ORB
    features, 8 levels x 1.2) through lldslam_tpu_torch.system.System on the
    card with its defaults (loop closing on, the shipped 99106-word
    vocabulary), with asserts on tracking state, keyframes, the loop step of
-   every keyframe, kernel launches and ATE;
+   every keyframe, kernel launches and ATE; it also reports the pairs K2g's
+   gates pass per call at the tracking and fusion sites, and times K1a and
+   K1b again on the last frame's own inputs against their bound;
 6. loop: the 88-frame circle of tests/test_loop_e2e.py (512x384, 600
-   features) through System: a loop event, K2 at the loop call site, ATE
+   features) through System: a loop event, K2g at the loop call site, ATE
    under the test's bound;
 7. reloc: the blackout scenario of tests/test_reloc.py through System, then
-   K2 at the relocalization call site (8192 rows) on the relocalized frame,
+   K2g at the relocalization call site (8192 rows) on the relocalized frame,
    held exactly to the same call on CPU copies.
 Kernel launches are counted per path (counts zeroed just before, read just
 after): main, loop and reloc are System runs; reloc_site is the two direct
@@ -69,6 +77,25 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time (ms) of the kernels one call of fn() launches, summed and
+    averaged over `reps` calls (torch.profiler's CUDA events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return us / 1e3 / reps
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — "
@@ -93,111 +120,187 @@ def phase_build():
         f"(nvcc {cuda_build.last_build_seconds:.1f} s)")
 
 
-def _k1_case(rng, img, n, S, span, label):
-    from lldslam_tpu_torch.ops import patch_sample as ps
-    V, H, W = img.shape
-    dev = img.device
-    meta = np.zeros((n, 4), np.int32)
-    meta[:, 0] = rng.integers(0, V, n)
-    meta[:, 1] = rng.integers(0, H, n)
-    meta[:, 2] = rng.integers(0, W, n)
-    iy = rng.integers(-span, span + 1, (n, S)).astype(np.int32)
-    ix = rng.integers(-span, span + 1, (n, S)).astype(np.int32)
-    # keep the taps inside the image, as every caller does
-    iy = np.clip(meta[:, 1:2] + iy, 0, H - 1) - meta[:, 1:2]
-    ix = np.clip(meta[:, 2:3] + ix, 0, W - 1) - meta[:, 2:3]
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    args = (img, t(meta), t(iy), t(ix))
-    got = ps.sample_patches(*args)
-    want = ps.sample_patches_plain(*args)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if err != 0.0:
-        raise AssertionError(f"K1 {label}: max abs err {err} (want exact)")
-    ms = cuda_ms(lambda: ps.sample_patches(*args))
-    plain_ms = cuda_ms(lambda: ps.sample_patches_plain(*args))
-    log(f"K1 {label}: n={n} S={S} img={tuple(img.shape)} {img.dtype}: exact; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
+F32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 
 
-def phase_k1(dev) -> dict:
-    from lldslam_tpu_torch.ops.orb import OrbConfig, _IC_DX
-    rng = np.random.default_rng(0)
-    cfg = OrbConfig(n_features=2000)
-    # one level's stereo pair as uint8 (the issue's BRIEF/SAD shapes)
-    img8 = torch.from_numpy(rng.integers(0, 256, (2, KITTI_H, KITTI_W),
-                                         dtype=np.uint8)).to(dev)
-    res = [_k1_case(rng, img8, 868, 512, 19, "BRIEF level-0 uint8"),
-           _k1_case(rng, img8, 868, 121, 5, "SAD patch uint8"),
-           _k1_case(rng, img8, 868, 231, 10, "SAD strip uint8")]
-    # the frame build's calls: float32 stack of 8 levels x 2 views
-    stack = torch.from_numpy(np.round(rng.uniform(
-        0, 255, (2 * cfg.n_levels, KITTI_H, KITTI_W))).astype(np.float32)).to(dev)
-    n_kp = cfg.n_features * 2
-    main = [_k1_case(rng, stack, n_kp, len(_IC_DX), 15, "IC-angle main path"),
-            _k1_case(rng, stack, n_kp, 512, 19, "BRIEF main path"),
-            _k1_case(rng, stack, cfg.max_kp, 121, 5, "SAD patch main path"),
-            _k1_case(rng, stack, cfg.max_kp, 231, 10, "SAD strip main path")]
-    res += main
-    return dict(max_abs_err=max(r[0] for r in res),
-                ms=sum(r[1] for r in main), plain_ms=sum(r[2] for r in main))
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes
+    over the memory rate and the operations over the float32 rate."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def _k2_case(rng, dev, M, N, label):
-    from lldslam_tpu_torch.ops import match_best2 as mb
-    a = rng.integers(0, 2**32, (M, 8), dtype=np.uint64).astype(np.uint32)
-    b = rng.integers(0, 2**32, (N, 8), dtype=np.uint64).astype(np.uint32)
-    mask = rng.uniform(size=(M, N)) < 0.02
-    b[N // 2:N // 2 + 16] = b[:16]          # duplicate columns -> exact ties
-    mask[:64, :16] = True
-    mask[:64, N // 2:N // 2 + 16] = True
-    mask[64] = False                        # empty row
-    mask[65] = False
-    mask[65, 7] = True                      # one-candidate row
-    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-    args = (t(a.view(np.int32)), t(b.view(np.int32)), t(mask))
-    got = mb.masked_best2(*args)
-    want = mb.masked_best2_plain(*args)
+def _exact(label, got, want) -> float:
+    """Every output equal, bit for bit; returns the max abs difference (0)."""
     torch.cuda.synchronize()
     err = 0.0
-    for g, w_, nm in zip(got, want, ("best_idx", "best", "second",
-                                     "second_idx")):
-        if not torch.equal(g.to(torch.int64), w_.to(torch.int64)):
-            bad = int((g.to(torch.int64) != w_.to(torch.int64)).sum())
-            raise AssertionError(f"K2 {label}: {nm} differs in {bad} rows")
-        err = max(err, float((g.double() - w_.double()).abs().max()))
-    g = [x.cpu().numpy() for x in got]
-    if not (g[1][64] == 10000 and g[0][64] == 0 and g[3][64] == 0
-            and g[0][65] == 7 and g[2][65] == 10000 and g[3][65] == 0):
-        raise AssertionError(f"K2 {label}: empty / one-candidate row contract")
-    ms = cuda_ms(lambda: mb.masked_best2(*args))
-    plain_ms = cuda_ms(lambda: mb.masked_best2_plain(*args))
-    log(f"K2 {label}: M={M} N={N}: all four outputs exact; kernel {ms:.4f} "
-        f"ms, plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g, w):
+            bad = int((g != w).reshape(g.shape[0], -1).any(-1).sum())
+            raise AssertionError(f"{label}: output {i} differs in {bad} rows")
+        err = max(err, float((g.double() - w.double()).abs().max()))
+    return err
 
 
-def phase_k2(dev) -> dict:
+def _timed(label, fn, plain, bytes_, ops) -> dict:
+    """ms: the kernel's device time; call_ms: one call on the host clock of
+    the stream (CUDA events, launch included); plain_ms, plain_device_ms:
+    the plain version's."""
+    row = dict(ms=device_ms(fn), call_ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
+               plain_device_ms=device_ms(plain))
+    row["bound_ms"], row["bound_by"] = bound(bytes_, ops)
+    log(f"{label}: exact; kernel {row['ms']:.4f} ms on the device "
+        f"({row['call_ms']:.4f} ms a call), plain {row['plain_ms']:.4f} ms "
+        f"({row['plain_device_ms']:.4f} on the device), bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+        f"{100 * row['bound_ms'] / row['ms']:.1f}% of bound")
+    return row
+
+
+def distinct_pixels(shape, *taps) -> int:
+    """How many distinct pixels of an (I, H, W) stack the taps touch; each
+    tap set is (image, row, column), broadcast to one shape. Windows of
+    nearby keypoints overlap, so a kernel that reads every pixel once reads
+    this many."""
+    _, H, W = shape
+    flat = [((i.long() * H + y.long()) * W + x.long()).reshape(-1)
+            for i, y, x in taps]
+    return int(torch.unique(torch.cat(flat)).numel())
+
+
+def _level_hw(shapes, idx):
+    """(h, w) (n, 1) int32 of each keypoint's image."""
+    t = torch.tensor(shapes, dtype=torch.int32, device=idx.device)[idx.long()]
+    return t[:, 0:1], t[:, 1:2]
+
+
+def k1a_work(d, angle) -> tuple[int, int, int, int]:
+    """(bytes, operations, distinct pixels, taps) of K1a on its arguments d
+    and the angles it returned. The pixels: moment taps clamped to the
+    stack, BRIEF taps rotated by those angles and clamped to the level. The
+    bytes: those pixels read once, xy and image index in, the angle and 8
+    words out. The operations: two multiply-adds per moment tap, a rotation
+    (6 ops) and a compare per BRIEF tap."""
+    from lldslam_tpu_torch.ops import orb_describe as od
+    pyr, blur, xy, idx, image_hw = d
+    n, (_, H, W) = xy.shape[0], pyr.shape
+    off = lambda o: torch.tensor(o, dtype=torch.int32, device=xy.device)
+    hk, wk = _level_hw(image_hw, idx)
+    gy, gx = od.rotated_taps(xy, angle, hk[:, 0], wk[:, 0])
+    px = (distinct_pixels(pyr.shape, (
+        idx[:, None], (xy[:, 1:2] + off(od.IC_DY)).clamp(0, H - 1),
+        (xy[:, 0:1] + off(od.IC_DX)).clamp(0, W - 1)))
+        + distinct_pixels(blur.shape, (idx[:, None, None], gy, gx)))
+    n_ic = len(od.IC_DX)
+    return (4 * px + n * (12 + 36), n * (4 * n_ic + 13 * 256), px,
+            n * (n_ic + 512))
+
+
+def k1b_work(s) -> tuple[int, int, int, int]:
+    """(bytes, operations, distinct pixels, taps) of K1b on its arguments s.
+    The pixels: the left patches and right strips, clamped to the level
+    (padding slots all sit at (0, 0) of level 0 and count once). The bytes:
+    those pixels, 4 ints in, 3 values out. The operations: 3 per SAD term."""
+    from lldslam_tpu_torch.ops import stereo_sad as sd
+    stack, shapes, lvl, ul, vl, ur = s
+    n, dev = lvl.shape[0], lvl.device
+    hk, wk = _level_hw(shapes, lvl)
+    wh, sw = sd.W_HALF, sd.W_HALF + sd.L_SWEEP
+    o = torch.arange(-wh, wh + 1, dtype=torch.int32, device=dev)
+    o_s = torch.arange(-sw, sw + 1, dtype=torch.int32, device=dev)
+    clip = lambda c, hi: torch.minimum(c.clamp(min=0), hi - 1)
+    rows = clip(vl[:, None] + o, hk)[:, :, None]
+    left = (2 * lvl)[:, None, None]
+    px = distinct_pixels(
+        stack.shape, (left, rows, clip(ul[:, None] + o, wk)[:, None, :]),
+        (left + 1, rows, clip(ur[:, None] + o_s, wk)[:, None, :]))
+    return 4 * px + n * (16 + 12), n * 11 * 121 * 3, px, n * 352
+
+
+def phase_k1(dev) -> tuple[dict, dict]:
+    from lldslam_tpu_torch.io import kernel_inputs as ki
+    from lldslam_tpu_torch.ops import orb_describe, stereo_sad
+    rng = np.random.default_rng(0)
+    d = ki.describe_inputs(rng, dev)
+    got = orb_describe.describe(*d)
+    err = _exact("K1a orb_describe", got, orb_describe.describe_plain(*d))
+    n_bytes, n_ops, px, taps = k1a_work(d, got[0])
+    k1a = _timed(f"K1a orb_describe n={d[2].shape[0]} stack="
+                 f"{tuple(d[0].shape)}, {px} distinct pixels for {taps} taps",
+                 lambda: orb_describe.describe(*d),
+                 lambda: orb_describe.describe_plain(*d), n_bytes, n_ops)
+    k1a.update(max_abs_err=err, distinct_pixels=px, taps=taps)
+    s = ki.sad_inputs(rng, dev)
+    got = stereo_sad.sad_refine(*s)
+    err = _exact("K1b stereo_sad", got, stereo_sad.sad_refine_plain(*s))
+    ties = int((got[1] == 0).sum())
+    if ties < 32:
+        raise AssertionError(f"K1b: {ties} zero-cost rows, want the 32 forced "
+                             f"ties")
+    n_bytes, n_ops, px, taps = k1b_work(s)
+    k1b = _timed(f"K1b stereo_sad n={s[2].shape[0]} ({ties} tied rows), {px} "
+                 f"distinct pixels for {taps} taps",
+                 lambda: stereo_sad.sad_refine(*s),
+                 lambda: stereo_sad.sad_refine_plain(*s), n_bytes, n_ops)
+    k1b.update(max_abs_err=err, distinct_pixels=px, taps=taps)
+    return k1a, k1b
+
+
+def _k2g_case(rng, dev, M, label) -> dict:
+    from lldslam_tpu_torch.io import kernel_inputs as ki
+    from lldslam_tpu_torch.ops import match_best2 as mb
+    g = ki.gated_best2_inputs(rng, dev, M)
+    N = g[7].shape[0]
+    got = mb.gated_best2(*g)
+    err = _exact(f"K2g {label}", got, mb.gated_best2_plain(*g))
+    h = [x.cpu().numpy() for x in got]
+    e, o, c = ki.EMPTY_ROW, ki.ONE_ROW, ki.ONE_COL
+    if not (h[1][e] == 10000 and h[0][e] == 0 and h[3][e] == 0
+            and h[0][o] == c and h[2][o] == 10000 and h[3][o] == 0):
+        raise AssertionError(f"K2g {label}: empty / one-candidate row contract")
+    tied = int((h[1][:64] == h[2][:64]).sum())
+    if tied < 32 or (h[0][:64][h[1][:64] == h[2][:64]] >= N // 2).any():
+        raise AssertionError(f"K2g {label}: tied rows {tied}, or a tie went "
+                             f"to the higher column")
+    gated = int(mb.gate_mask(*g[1:7], *g[8:]).sum())
+    # row fields and descriptors, column fields and descriptors, 4 outputs;
+    # deciding a pair takes at least a subtraction, an absolute value and a
+    # comparison, and a gated pair 8 XOR, 8 popcounts and 7 adds
+    row = _timed(f"K2g {label}: M={M} N={N}, {gated} gated pairs "
+                 f"({100 * gated / (M * N):.4f}%), {tied} tied rows",
+                 lambda: mb.gated_best2(*g),
+                 lambda: mb.gated_best2_plain(*g),
+                 M * (32 + 16 + 4 + 1 + 16) + N * (32 + 8 + 4 + 4 + 1),
+                 3 * M * N + 23 * gated)
+    row.update(max_abs_err=err, gated_pairs=gated)
+    return row
+
+
+def phase_k2g(dev) -> dict:
     rng = np.random.default_rng(1)
-    track = _k2_case(rng, dev, 4096, 2048, "tracking view")
-    fuse = _k2_case(rng, dev, 2048, 2048, "fusion")
-    loop = _k2_case(rng, dev, 8192, 2048, "loop / reloc")
-    return dict(max_abs_err=max(track[0], fuse[0], loop[0]), ms=track[1],
-                plain_ms=track[2], ms_8192=loop[1], plain_ms_8192=loop[2])
+    cases = dict(tracking=_k2g_case(rng, dev, 4096, "tracking"),
+                 fusion=_k2g_case(rng, dev, 2048, "fusion"),
+                 loop_reloc=_k2g_case(rng, dev, 8192, "loop / reloc"))
+    out = dict(cases["tracking"])
+    out["max_abs_err"] = max(c["max_abs_err"] for c in cases.values())
+    out["by_shape"] = cases
+    return out
 
 
 def reset_counts() -> None:
-    from lldslam_tpu_torch.ops import match_best2, patch_sample
-    patch_sample.launches = 0
+    from lldslam_tpu_torch.ops import match_best2, orb_describe, stereo_sad
+    orb_describe.launches = 0
+    stereo_sad.launches = 0
     match_best2.launches = 0
     match_best2.launches_by_site = {}
 
 
 def read_counts() -> dict:
-    from lldslam_tpu_torch.ops import match_best2, patch_sample
-    return dict(k1=patch_sample.launches, k2=match_best2.launches,
-                k2_sites=dict(match_best2.launches_by_site))
+    from lldslam_tpu_torch.ops import match_best2, orb_describe, stereo_sad
+    return dict(k1a=orb_describe.launches, k1b=stereo_sad.launches,
+                k2g=match_best2.launches,
+                k2g_sites=dict(match_best2.launches_by_site))
 
 
 def kitti_config():
@@ -237,12 +340,68 @@ def track(sys_, frames, t0: float = 0.0, label: str = ""):
 
 
 def need_launches(counts: dict, label: str, sites=()) -> None:
-    if counts["k1"] <= 0 or counts["k2"] <= 0:
+    if min(counts["k1a"], counts["k1b"], counts["k2g"]) <= 0:
         raise AssertionError(f"{label}: a kernel was not launched: {counts}")
     for site in sites:
-        if counts["k2_sites"].get(site, 0) <= 0:
-            raise AssertionError(f"{label}: K2 not launched at the {site} "
+        if counts["k2g_sites"].get(site, 0) <= 0:
+            raise AssertionError(f"{label}: K2g not launched at the {site} "
                                  f"call site: {counts}")
+
+
+def keep_inputs(mod, name: str, sites=None, last_only: bool = False):
+    """Wraps the kernel wrapper mod.<name> so that a copy of the arguments
+    of its calls (those at one of `sites`, where given; the last one only,
+    where `last_only`) is kept as (site, args); returns (kept, restore)."""
+    kernel, kept = getattr(mod, name), []
+
+    def wrapper(*args, **kw):
+        if sites is None or kw.get("site") in sites:
+            if last_only:
+                kept.clear()
+            kept.append((kw.get("site"), tuple(
+                a.clone() if torch.is_tensor(a) else a for a in args)))
+        return kernel(*args, **kw)
+
+    setattr(mod, name, wrapper)
+    return kept, lambda: setattr(mod, name, kernel)
+
+
+def frame_kernels(kept_k1a, kept_k1b) -> dict:
+    """K1a and K1b on the last frame's own inputs: device ms and the bound
+    of the distinct pixels their taps touch."""
+    from lldslam_tpu_torch.ops import orb_describe, stereo_sad
+    (_, d), (_, s) = kept_k1a[-1], kept_k1b[-1]
+    out = {}
+    for key, fn, args, (n_bytes, n_ops, px, taps) in (
+            ("k1a", orb_describe.describe, d,
+             k1a_work(d, orb_describe.describe(*d)[0])),
+            ("k1b", stereo_sad.sad_refine, s, k1b_work(s))):
+        ms = device_ms(lambda: fn(*args))
+        b_ms, by = bound(n_bytes, n_ops)
+        out[key] = dict(n=args[2].shape[0], ms=ms, bound_ms=b_ms, bound_by=by,
+                        distinct_pixels=px, taps=taps)
+        log(f"main path, last frame's own inputs: {key} n={args[2].shape[0]}: "
+            f"{px} distinct pixels for {taps} taps; kernel {ms:.4f} ms on the "
+            f"device, bound {b_ms:.4f} ms ({by}), "
+            f"{100 * b_ms / ms:.1f}% of bound")
+    return out
+
+
+def gate_density(kept) -> dict:
+    """Per site: the rows M, columns N and gated pairs (the pairs the gates
+    pass) of each K2g call, from the kept arguments, and the median share
+    of gated pairs among the M x N."""
+    from lldslam_tpu_torch.ops import match_best2 as mb
+    out = {}
+    for site, g in kept:
+        o = out.setdefault(site, dict(M=[], N=[], pairs=[]))
+        o["M"].append(g[0].shape[0])
+        o["N"].append(g[7].shape[0])
+        o["pairs"].append(int(mb.gate_mask(*g[1:7], *g[8:]).sum()))
+    for o in out.values():
+        o["median_share"] = statistics.median(
+            p / (m * n) for p, m, n in zip(o["pairs"], o["M"], o["N"]))
+    return out
 
 
 def phase_main_path(dev) -> dict:
@@ -263,9 +422,25 @@ def phase_main_path(dev) -> dict:
     tr = sys_.tracker
     if tr.vocabulary is None or tr.vocabulary.n_words != SHIPPED_WORDS:
         raise AssertionError("the shipped vocabulary was not loaded")
-    reset_counts()
-    ms, metrics = track(sys_, frames, label="main path")
-    counts = read_counts()
+    from lldslam_tpu_torch.ops import match_best2, orb_describe, stereo_sad
+    kept_g, restore_g = keep_inputs(match_best2, "gated_best2",
+                                    sites=("tracking", "fusion"))
+    kept_a, restore_a = keep_inputs(orb_describe, "describe", last_only=True)
+    kept_b, restore_b = keep_inputs(stereo_sad, "sad_refine", last_only=True)
+    try:
+        reset_counts()
+        ms, metrics = track(sys_, frames, label="main path")
+        counts = read_counts()
+    finally:
+        restore_g(), restore_a(), restore_b()
+    frame_k = frame_kernels(kept_a, kept_b)
+    gates = gate_density(kept_g)
+    for site, o in gates.items():
+        log(f"main path: K2g at the {site} site, {len(o['M'])} calls of "
+            f"{min(o['M'])}-{max(o['M'])} x {min(o['N'])}-{max(o['N'])}: "
+            f"gated pairs per call median {statistics.median(o['pairs'])} "
+            f"(min {min(o['pairs'])}, max {max(o['pairs'])}), median share "
+            f"{100 * o['median_share']:.4f}% of the M x N pairs")
     states = [m.state for m in metrics]
     kf_frames = [m.frame_id for m in metrics if m.new_kf]
     _, T_wc = tr.trajectory()
@@ -305,7 +480,7 @@ def phase_main_path(dev) -> dict:
     need_launches(counts, "main path", ("tracking", "fusion"))
     if not ate <= ATE_BOUND_M:
         raise AssertionError(f"ATE {ate} m above {ATE_BOUND_M} m")
-    return counts
+    return dict(counts, frame_kernels=frame_k, k2g_gated_pairs=gates)
 
 
 def phase_loop(dev) -> dict:
@@ -418,11 +593,11 @@ def phase_reloc(dev) -> tuple[dict, dict]:
                                  f"from the CPU plain path in "
                                  f"{int((got != want).sum())} features")
         log(f"reloc: direct _project_view_match th={th}: {len(pids)} map "
-            f"points in {PROJECT_CAP} K2 rows, {int((got >= 0).sum())} "
+            f"points in {PROJECT_CAP} K2g rows, {int((got >= 0).sum())} "
             f"matches, equal to the CPU plain path")
-    if site["k2_sites"] != {"reloc": 2} or site["k1"] != 0:
+    if site["k2g_sites"] != {"reloc": 2} or site["k1a"] or site["k1b"]:
         raise AssertionError(f"direct reloc call site launches {site} (want "
-                             f"K2 twice at the reloc site, nothing else)")
+                             f"K2g twice at the reloc site, nothing else)")
     return counts, site
 
 
@@ -430,24 +605,31 @@ def main() -> int:
     name = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    k1 = phase_k1(dev)
-    k2 = phase_k2(dev)
+    k1a, k1b = phase_k1(dev)
+    k2g = phase_k2g(dev)
     paths = dict(main=phase_main_path(dev), loop=phase_loop(dev))
     paths["reloc"], paths["reloc_site"] = phase_reloc(dev)
-    main = paths["main"]
+    by_path = lambda k: {p: c[k] for p, c in paths.items()}
     kernels = [
-        dict(name="sample_patches", route="cuda",
-             source="lldslam_tpu_torch/csrc/patch_sample.cu",
-             replaces="lldslam_tpu/ops/patch_sample.py:68",
-             launches=main["k1"],
-             launches_by_path={p: c["k1"] for p, c in paths.items()}, **k1),
-        dict(name="masked_best2", route="cuda",
+        dict(name="orb_describe", route="cuda",
+             source="lldslam_tpu_torch/csrc/orb_describe.cu",
+             replaces="lldslam_tpu/ops/patch_sample.py:68", exact=True,
+             launches=paths["main"]["k1a"], launches_by_path=by_path("k1a"),
+             main_path_frame=paths["main"]["frame_kernels"]["k1a"],
+             library_ms=None, **k1a),
+        dict(name="stereo_sad", route="cuda",
+             source="lldslam_tpu_torch/csrc/stereo_sad.cu",
+             replaces="lldslam_tpu/ops/patch_sample.py:68", exact=True,
+             launches=paths["main"]["k1b"], launches_by_path=by_path("k1b"),
+             main_path_frame=paths["main"]["frame_kernels"]["k1b"],
+             library_ms=None, **k1b),
+        dict(name="gated_best2", route="cuda",
              source="lldslam_tpu_torch/csrc/match_best2.cu",
-             replaces="lldslam_tpu/ops/pallas_match.py:110",
-             launches=main["k2"],
-             launches_by_path={p: c["k2"] for p, c in paths.items()},
-             launches_by_site={p: c["k2_sites"] for p, c in paths.items()},
-             **k2),
+             replaces="lldslam_tpu/ops/pallas_match.py:110", exact=True,
+             launches=paths["main"]["k2g"], launches_by_path=by_path("k2g"),
+             launches_by_site=by_path("k2g_sites"),
+             main_path_gated_pairs=paths["main"]["k2g_gated_pairs"],
+             library_ms=None, **k2g),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

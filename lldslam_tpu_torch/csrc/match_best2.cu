@@ -1,17 +1,35 @@
-// K2: fused masked Hamming best-2 matching of 256-bit descriptors.
+// K2g: gated Hamming best-2 matching of 256-bit descriptors — the projection
+// gates of ORBmatcher::SearchByProjection evaluated in the kernel, so the
+// (M, N) candidate mask is never built.
 //
 // Replaces the Pallas kernel lldslam_tpu/ops/pallas_match.py:masked_best2
-// (body `_kernel`). The TPU version computed distances on the MXU through the
-// bit-matmul identity |a| + |b| - 2 A.B^T over (256, 256) tiles and folded a
-// running best-2 across a sequential column grid in VMEM scratch. Hopper has a
-// population-count instruction and no sequential grid, so the design here is:
+// (body `_kernel`). The TPU version read an (M, N) mask that XLA built from
+// the projections, computed distances on the MXU through the bit-matmul
+// identity |a| + |b| - 2 A.B^T over (256, 256) tiles and folded a running
+// best-2 across a sequential column grid in VMEM scratch. Hopper has a
+// population-count instruction and no sequential grid, and the mask costs
+// more to build and to read than the matching itself, so the design here is:
 //
-//   * one warp per row; the row's 8 descriptor words live in registers;
-//   * lanes stride over the columns, read the mask row coalesced (one byte per
-//     lane per step) and, only where the mask is set, load the column's 32
-//     descriptor bytes (two 16-byte loads) and take __popc of the 8 XORs;
+//   * each block stages the frame's keypoint fields (x, y, right u, octave;
+//     16 B per keypoint, 32 KB at N = 2048) in shared memory once and serves
+//     kRows rows from it; an invalid keypoint gets x = NaN, which fails every
+//     window test;
+//   * one warp per row: the row's 8 descriptor words and its gate fields
+//     (u, v, ur, radius, predicted octave) live in registers; lanes stride
+//     over the keypoints, test the gate
+//
+//       |u - x| <= r && |v - y| <= r && po - 1 <= oct <= po
+//         && (kp_ur < 0 || |ur - kp_ur| <= r)
+//
+//     and, only where it passes, load the keypoint's 32 descriptor bytes (two
+//     16-byte loads) and take __popc of the 8 XORs; a row outside the
+//     frustum tests nothing;
 //   * each lane keeps its two lexicographically smallest (distance, column)
 //     pairs, and a shuffle reduction merges the 32 lane states.
+//
+// The gates are single IEEE subtractions, absolute values and comparisons
+// (__fsub_rn: no FMA can form), bit for bit those of the plain version
+// (ops/match_best2.py:gate_mask).
 //
 // Tie contract (the XLA sequence of lldslam_tpu/frontend/matching.py, not the
 // Pallas fold): best_idx is the lowest column at the minimum; second and
@@ -19,11 +37,10 @@
 // columns; a row with no candidate (or no second candidate) reports
 // INF_DIST = 10000 and column 0, as XLA argmin of an all-INF row does.
 //
-// What bounds it on an H100: the (M, N) bool mask is the only large operand
-// (8 MB at 4096 x 2048, ~2.5 us at 3.35 TB/s); the descriptors (64-128 KB) sit
-// in L1/L2 and only masked-in columns (~2% in the tracker) are loaded. So the
-// kernel is bound by launch latency; the (M, N) distance matrix is never
-// materialised, which is what the Pallas kernel was for.
+// What bounds it on an H100: the operands are 0.4 MB at M = 4096, N = 2048
+// (0.1 us at 3.35 TB/s) and the M x N gate tests are a few float operations
+// each (8.4 M tests, about 0.4 us at 67 TFLOP/s); it is bound by launch
+// latency.
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -31,6 +48,8 @@
 namespace {
 
 constexpr int kInfDist = 10000;
+constexpr int kWarps = 8;
+constexpr int kRows = 16;  // rows per block, kRows / kWarps per warp
 
 __device__ __forceinline__ void push(int& d1, int& i1, int& d2, int& i2,
                                      int d, int i) {
@@ -45,62 +64,97 @@ __device__ __forceinline__ void push(int& d1, int& i1, int& d2, int& i2,
   }
 }
 
-__global__ void masked_best2_kernel(const uint32_t* __restrict__ a,
-                                    const uint32_t* __restrict__ b,
-                                    const uint8_t* __restrict__ mask, int M,
-                                    int N, int32_t* __restrict__ best_idx,
-                                    int32_t* __restrict__ best,
-                                    int32_t* __restrict__ second,
-                                    int32_t* __restrict__ second_idx) {
-  const int row = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= M) return;  // uniform per warp: blockDim is a multiple of 32
-  const uint4* arow = reinterpret_cast<const uint4*>(a + (size_t)row * 8);
-  const uint4 a0 = __ldg(arow), a1 = __ldg(arow + 1);
-  const uint8_t* mrow = mask + (size_t)row * N;
-  int d1 = kInfDist, i1 = INT_MAX, d2 = kInfDist, i2 = INT_MAX;
-  for (int j = lane; j < N; j += 32) {
-    if (__ldg(mrow + j)) {
-      const uint4* bcol = reinterpret_cast<const uint4*>(b + (size_t)j * 8);
-      const uint4 b0 = __ldg(bcol), b1 = __ldg(bcol + 1);
-      const int d = __popc(a0.x ^ b0.x) + __popc(a0.y ^ b0.y) +
-                    __popc(a0.z ^ b0.z) + __popc(a0.w ^ b0.w) +
-                    __popc(a1.x ^ b1.x) + __popc(a1.y ^ b1.y) +
-                    __popc(a1.z ^ b1.z) + __popc(a1.w ^ b1.w);
-      push(d1, i1, d2, i2, d, j);
+__global__ void __launch_bounds__(kWarps * 32) gated_best2_kernel(
+    const uint32_t* __restrict__ a, const float* __restrict__ u,
+    const float* __restrict__ v, const float* __restrict__ ur,
+    const float* __restrict__ r, const int32_t* __restrict__ pred_oct,
+    const uint8_t* __restrict__ in_frustum, int M,
+    const uint32_t* __restrict__ b, const float2* __restrict__ xy,
+    const float* __restrict__ kp_ur, const int32_t* __restrict__ octave,
+    const uint8_t* __restrict__ valid, int N, int32_t* __restrict__ out) {
+  extern __shared__ float4 cols[];  // (x, y, kp_ur, octave bits) per column
+  for (int j = threadIdx.x; j < N; j += blockDim.x) {
+    const float2 p = __ldg(xy + j);
+    cols[j] = make_float4(__ldg(valid + j) ? p.x : __int_as_float(0x7fc00000),
+                          p.y, __ldg(kp_ur + j), __int_as_float(__ldg(octave + j)));
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row_end = min(M, (int)(blockIdx.x + 1) * kRows);
+  for (int row = blockIdx.x * kRows + warp; row < row_end; row += kWarps) {
+    int d1 = kInfDist, i1 = INT_MAX, d2 = kInfDist, i2 = INT_MAX;
+    if (__ldg(in_frustum + row)) {
+      const uint4* arow = reinterpret_cast<const uint4*>(a + (size_t)row * 8);
+      const uint4 a0 = __ldg(arow), a1 = __ldg(arow + 1);
+      const float ru = __ldg(u + row), rv = __ldg(v + row);
+      const float rur = __ldg(ur + row), rr = __ldg(r + row);
+      const int po = __ldg(pred_oct + row);
+      for (int j = lane; j < N; j += 32) {
+        const float4 c = cols[j];
+        const int o = __float_as_int(c.w);
+        if (fabsf(__fsub_rn(ru, c.x)) <= rr && fabsf(__fsub_rn(rv, c.y)) <= rr &&
+            o >= po - 1 && o <= po &&
+            (c.z < 0.f || fabsf(__fsub_rn(rur, c.z)) <= rr)) {
+          const uint4* bcol = reinterpret_cast<const uint4*>(b + (size_t)j * 8);
+          const uint4 b0 = __ldg(bcol), b1 = __ldg(bcol + 1);
+          const int d = __popc(a0.x ^ b0.x) + __popc(a0.y ^ b0.y) +
+                        __popc(a0.z ^ b0.z) + __popc(a0.w ^ b0.w) +
+                        __popc(a1.x ^ b1.x) + __popc(a1.y ^ b1.y) +
+                        __popc(a1.z ^ b1.z) + __popc(a1.w ^ b1.w);
+          push(d1, i1, d2, i2, d, j);
+        }
+      }
     }
-  }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const int od1 = __shfl_down_sync(0xffffffffu, d1, off);
-    const int oi1 = __shfl_down_sync(0xffffffffu, i1, off);
-    const int od2 = __shfl_down_sync(0xffffffffu, d2, off);
-    const int oi2 = __shfl_down_sync(0xffffffffu, i2, off);
-    push(d1, i1, d2, i2, od1, oi1);
-    push(d1, i1, d2, i2, od2, oi2);
-  }
-  if (lane == 0) {
-    best[row] = d1;
-    best_idx[row] = d1 < kInfDist ? i1 : 0;
-    second[row] = d2;
-    second_idx[row] = d2 < kInfDist ? i2 : 0;
+    for (int off = 16; off > 0; off >>= 1) {
+      const int od1 = __shfl_down_sync(0xffffffffu, d1, off);
+      const int oi1 = __shfl_down_sync(0xffffffffu, i1, off);
+      const int od2 = __shfl_down_sync(0xffffffffu, d2, off);
+      const int oi2 = __shfl_down_sync(0xffffffffu, i2, off);
+      push(d1, i1, d2, i2, od1, oi1);
+      push(d1, i1, d2, i2, od2, oi2);
+    }
+    if (lane == 0) {
+      out[row] = d1 < kInfDist ? i1 : 0;
+      out[M + row] = d1;
+      out[2 * M + row] = d2;
+      out[3 * M + row] = d2 < kInfDist ? i2 : 0;
+    }
   }
 }
 
 }  // namespace
 
-// a (M, 8) and b (N, 8) uint32 descriptors (16-byte aligned rows), mask (M, N)
-// bytes. Outputs (M,) int32 each. Returns cudaGetLastError().
-extern "C" int lld_masked_best2(const void* a, const void* b, const void* mask,
-                                int M, int N, void* best_idx, void* best,
-                                void* second, void* second_idx, void* stream) {
+// Rows: a (M, 8) uint32 descriptors (16-byte aligned rows); u, v, ur, r (M,)
+// float32; pred_oct (M,) int32; in_frustum (M,) bool. Columns: b (N, 8)
+// uint32 descriptors (16-byte aligned rows); xy (N, 2) float32; kp_ur (N,)
+// float32; octave (N,) int32; valid (N,) bool. out (4, M) int32: best_idx,
+// best, second, second_idx. Returns a CUDA error code.
+extern "C" int lld_gated_best2(const void* a, const void* u, const void* v,
+                               const void* ur, const void* r,
+                               const void* pred_oct, const void* in_frustum,
+                               int M, const void* b, const void* xy,
+                               const void* kp_ur, const void* octave,
+                               const void* valid, int N, void* out,
+                               void* stream) {
   if (M == 0) return (int)cudaGetLastError();
-  const int threads = 256;  // 8 rows per block
-  const unsigned blocks = (unsigned)(((long long)M * 32 + threads - 1) / threads);
-  masked_best2_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
-      static_cast<const uint8_t*>(mask), M, N, static_cast<int32_t*>(best_idx),
-      static_cast<int32_t*>(best), static_cast<int32_t*>(second),
-      static_cast<int32_t*>(second_idx));
+  const size_t smem = (size_t)N * sizeof(float4);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gated_best2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const unsigned blocks = (unsigned)((M + kRows - 1) / kRows);
+  gated_best2_kernel<<<blocks, kWarps * 32, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(a), static_cast<const float*>(u),
+      static_cast<const float*>(v), static_cast<const float*>(ur),
+      static_cast<const float*>(r), static_cast<const int32_t*>(pred_oct),
+      static_cast<const uint8_t*>(in_frustum), M,
+      static_cast<const uint32_t*>(b), static_cast<const float2*>(xy),
+      static_cast<const float*>(kp_ur), static_cast<const int32_t*>(octave),
+      static_cast<const uint8_t*>(valid), N, static_cast<int32_t*>(out));
   return (int)cudaGetLastError();
 }

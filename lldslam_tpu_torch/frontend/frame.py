@@ -31,8 +31,7 @@ def build_frame_pair(pair: torch.Tensor, cam: StereoCamera,
     pyr_stack = orb.stack_levels(pyr)            # (L*2, H0, W0), index 2l+v
     kp = orb.extract_stack_pyr(pyr, cfg, pyr_stack=pyr_stack)
     kp_l, kp_r = kp.view_of(0), kp.view_of(1)
-    level_hw = torch.tensor([p.shape[-2:] for p in pyr], dtype=torch.int32,
-                            device=pair.device)
+    level_hw = [tuple(p.shape[-2:]) for p in pyr]
     u_right, depth = stereo.match_stereo(kp_l, kp_r, pyr_stack, level_hw, cam,
                                          cfg)
     feats = FrameFeatures(xy=kp_l.xy, ur=u_right, octave=kp_l.octave,

@@ -5,11 +5,13 @@ association of projected map points (or last-frame points) with the frame's
 keypoints, with the frustum, predicted-octave, search-window, stereo
 right-u and ratio gates of ORBmatcher::SearchByProjection.
 
-`search_by_projection` goes through K2 (ops/match_best2.py) on every call:
-the (P, N) distance matrix is never built on the card.
+`search_by_projection` goes through K2g (ops/match_best2.py) on every call:
+the gates are evaluated in the kernel, so neither the (P, N) candidate mask
+nor the distance matrix is built on the card.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -41,9 +43,17 @@ class FrameFeatures(NamedTuple):
     valid: torch.Tensor    # (N,) bool
 
 
+@functools.lru_cache(maxsize=None)
 def _level_scales(scale: float, n_levels: int, device) -> torch.Tensor:
-    return torch.tensor(scale, dtype=torch.float32, device=device) ** \
+    """float32 scale ** l, l < n_levels, as the JAX package computes it;
+    built on the device from fills (no host-to-device copy), once."""
+    return torch.full((), scale, dtype=torch.float32, device=device) ** \
         torch.arange(n_levels, dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _log_scale(scale: float, device) -> torch.Tensor:
+    return torch.log(torch.full((), scale, dtype=torch.float32, device=device))
 
 
 def predict_octave(dist: torch.Tensor, max_dist: torch.Tensor, n_levels: int,
@@ -86,10 +96,10 @@ def search_by_projection(cam: StereoCamera, T_cw: torch.Tensor,
                          site: str = "tracking"):
     """Associate map points to frame keypoints. Returns (pt2kp (P,) int32,
     kp2pt (N,) int32, uvr_pred (P, 3), in_frustum (P,) bool). `site`
-    labels the caller in K2's launch counts."""
+    labels the caller in K2g's launch counts."""
     dev = T_cw.device
     scales = _level_scales(scale, n_levels, dev)
-    log_scale = torch.log(torch.tensor(scale, dtype=torch.float32, device=dev))
+    log_scale = _log_scale(scale, dev)
     Xc = se3.apply(T_cw, pts.pos)
     z = Xc[..., 2]
     uv_z = torch.clamp(z, min=1e-6)
@@ -107,17 +117,11 @@ def search_by_projection(cam: StereoCamera, T_cw: torch.Tensor,
     pred_oct = predict_octave(dist, pts.max_dist / 1.2, n_levels, log_scale)
     r = torch.where(viewcos > 0.998, 2.5, 4.0) * th * scales[pred_oct]
 
-    du = (u[:, None] - frame.xy[None, :, 0]).abs()
-    dv = (v[:, None] - frame.xy[None, :, 1]).abs()
-    win = (du <= r[:, None]) & (dv <= r[:, None])
-    oct_f = frame.octave[None, :].long()
-    oct_ok = (oct_f >= pred_oct[:, None] - 1) & (oct_f <= pred_oct[:, None])
-    dur = (ur[:, None] - frame.ur[None, :]).abs()
-    ur_ok = (frame.ur[None, :] < 0) | (dur <= r[:, None])
-    cand = win & oct_ok & ur_ok & in_frustum[:, None] & frame.valid[None, :]
-
-    best_kp, best, second, second_kp = match_best2.masked_best2(
-        pts.desc, frame.desc, cand.contiguous(), site=site)
+    best_kp, best, second, second_kp = match_best2.gated_best2(
+        pts.desc.contiguous(), u, v, ur, r, pred_oct.to(torch.int32),
+        in_frustum, frame.desc.contiguous(), frame.xy.contiguous(),
+        frame.ur.contiguous(), frame.octave.contiguous(),
+        frame.valid.contiguous(), site=site)
     best_kp = best_kp.long()
     same_lvl = frame.octave[best_kp] == frame.octave[second_kp.long()]
     ratio_ok = (~same_lvl) | (best.to(torch.float32)

@@ -1,0 +1,160 @@
+"""Seeded inputs for the port's three CUDA kernels at the shapes the main
+path gives them, with the cases that reach their edges.
+
+- K1a (`ops/orb_describe.describe`): the two float32 level stacks of a
+  KITTI-size stereo frame (8 levels x 2 views, 376x1241 padded), one
+  keypoint budget per level and view, a third of the keypoints within 2 px
+  of the 16-px detection margin at each border (the BRIEF taps reach 18 px,
+  so they are clamped to the level).
+- K1b (`ops/stereo_sad.sad_refine`): the same stack and the frame's 2048
+  left-keypoint slots (padding slots at (0, 0) of level 0), keypoints near
+  the margins on every level, and 32 keypoints on a flat block whose SADs
+  all tie.
+- K2g (`ops/match_best2.gated_best2`): M projected map points against the
+  2048 keypoints of a KITTI frame, 60% of the rows near a keypoint, so
+  that a row has about one candidate, as a 2.5-4 px x 1.2^octave window at
+  the KITTI keypoint density holds (0.03% of the pairs; `chip_smoke.py`
+  counts the main path's own share per call beside it); tied columns
+  (copies of keypoints 0-15 at the same position with the same descriptor)
+  under rows 0-63, an empty row (64, outside the frustum) and a row with
+  one candidate (65, keypoint 20).
+
+`chip_smoke.py` and `tests/test_torch_cuda.py` hold each kernel to its plain
+version on these inputs. Everything is made with numpy from `rng` and moved
+to `device` once.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import image
+from ..ops.orb import EDGE_MARGIN, OrbConfig
+
+KITTI_HW = (376, 1241)
+EMPTY_ROW, ONE_ROW, ONE_COL = 64, 65, 20
+
+
+def _t(a, device):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _coords(rng, size: int, n: int) -> np.ndarray:
+    """A third within 2 px of the margin at the low border, a third at the
+    high border, a third inside."""
+    lo = EDGE_MARGIN + rng.integers(-2, 3, n)
+    hi = size - 1 - EDGE_MARGIN + rng.integers(-2, 3, n)
+    mid = rng.integers(EDGE_MARGIN, size - EDGE_MARGIN, n)
+    pick = rng.integers(0, 3, n)
+    return np.where(pick == 0, lo, np.where(pick == 1, hi, mid))
+
+
+def _stack(rng, shapes, views: int, hw) -> np.ndarray:
+    """Integer-valued float32 (L*V, H, W) stack, level l view v at l*V + v,
+    zero outside each level."""
+    out = np.zeros((len(shapes) * views,) + tuple(hw), np.float32)
+    for l, (h, w) in enumerate(shapes):
+        for v in range(views):
+            out[l * views + v, :h, :w] = rng.integers(0, 256, (h, w))
+    return out
+
+
+def describe_inputs(rng, device, cfg: OrbConfig = OrbConfig(n_features=2000),
+                    hw=KITTI_HW, views: int = 2):
+    """(pyr_stack, blur_stack, xy, img_idx, image_hw) as the frame build
+    passes them to K1a."""
+    shapes = image.pyramid_shapes(*hw, cfg.n_levels, cfg.scale)
+    xy, idx = [], []
+    for v in range(views):
+        for l, ((h, w), n_l) in enumerate(zip(shapes, cfg.per_level_budget())):
+            xy.append(np.stack([_coords(rng, w, n_l), _coords(rng, h, n_l)], -1))
+            idx.append(np.full(n_l, l * views + v))
+    return (_t(_stack(rng, shapes, views, hw), device),
+            _t(_stack(rng, shapes, views, hw), device),
+            _t(np.concatenate(xy).astype(np.int32), device),
+            _t(np.concatenate(idx).astype(np.int32), device),
+            [s for s in shapes for _ in range(views)])
+
+
+def sad_inputs(rng, device, cfg: OrbConfig = OrbConfig(n_features=2000),
+               hw=KITTI_HW):
+    """(pyr_stack, level_hw, lvl, ul, vl, ur) as stereo.match_stereo passes
+    them to K1b: the left keypoints' level coords, the matched right u at
+    a disparity of 0-60 level px."""
+    shapes = image.pyramid_shapes(*hw, cfg.n_levels, cfg.scale)
+    stack = _stack(rng, shapes, 2, hw)
+    lvl, ul, vl = [], [], []
+    for l, ((h, w), n_l) in enumerate(zip(shapes, cfg.per_level_budget())):
+        lvl.append(np.full(n_l, l))
+        ul.append(_coords(rng, w, n_l))
+        vl.append(_coords(rng, h, n_l))
+    lvl, ul, vl = (np.concatenate(x) for x in (lvl, ul, vl))
+    ur = ul - rng.integers(0, 61, len(ul))
+    # flat block on level 0 of both views: every SAD of these keypoints is 0
+    stack[0:2, 100:160, 300:700] = 77.0
+    flat = np.nonzero(lvl == 0)[0][:32]
+    ul[flat] = rng.integers(330, 670, 32)
+    vl[flat] = rng.integers(110, 150, 32)
+    ur[flat] = ul[flat] - 10
+    pad = cfg.max_kp - len(lvl)          # padding slots: level 0 at (0, 0)
+    z = np.zeros(pad, np.int64)
+    lvl, ul, vl, ur = (np.concatenate([x, z]).astype(np.int32)
+                       for x in (lvl, ul, vl, ur))
+    return (_t(stack, device), shapes, _t(lvl, device), _t(ul, device),
+            _t(vl, device), _t(ur, device))
+
+
+def gated_best2_inputs(rng, device, M: int, N: int = 2048, th: float = 1.0,
+                       cfg: OrbConfig = OrbConfig(n_features=2000), hw=KITTI_HW):
+    """The arguments of gated_best2 (a, u, v, ur, r, pred_oct, in_frustum,
+    b, xy, kp_ur, octave, valid) for M projected map points and N frame
+    keypoints."""
+    H, W = hw
+    desc = lambda n: rng.integers(0, 2**32, (n, 8), dtype=np.uint64) \
+        .astype(np.uint32)
+    b = desc(N)
+    xy = np.stack([rng.uniform(0, W, N), rng.uniform(0, H, N)], -1) \
+        .astype(np.float32)
+    octave = rng.integers(0, cfg.n_levels, N).astype(np.int32)
+    kp_ur = np.where(rng.uniform(size=N) < 0.6,
+                     xy[:, 0] - rng.uniform(1, 80, N), -1.0).astype(np.float32)
+    valid = rng.uniform(size=N) < 0.97
+    half = N // 2
+    b[half:half + 16], xy[half:half + 16] = b[:16], xy[:16]
+    kp_ur[half:half + 16], octave[half:half + 16] = kp_ur[:16], octave[:16]
+    valid[:16] = valid[half:half + 16] = valid[ONE_COL] = True
+
+    # rows: 60% near a keypoint (the same point re-observed), the rest anywhere
+    near = rng.integers(0, N, M)
+    near[:64] = np.arange(64) % 16
+    near[ONE_ROW] = ONE_COL
+    at = rng.uniform(size=M) < 0.6
+    at[:66] = True
+    u = np.where(at, xy[near, 0] + rng.normal(0, 1.5, M), rng.uniform(0, W, M))
+    v = np.where(at, xy[near, 1] + rng.normal(0, 1.5, M), rng.uniform(0, H, M))
+    u[:64] = xy[near[:64], 0] + 0.5
+    v[:64] = xy[near[:64], 1] - 0.5
+    ur = u - rng.uniform(1, 80, M)
+    ur[at] = np.where(kp_ur[near[at]] >= 0,
+                      kp_ur[near[at]] + rng.normal(0, 1.0, at.sum()), ur[at])
+    pred_oct = np.where(at, octave[near], rng.integers(0, cfg.n_levels, M))
+    scale = np.float32(cfg.scale) ** np.arange(cfg.n_levels, dtype=np.float32)
+    r = (np.where(rng.uniform(size=M) < 0.3, 2.5, 4.0) * th
+         * scale[pred_oct]).astype(np.float32)
+    in_frustum = rng.uniform(size=M) < 0.9
+    in_frustum[:66] = True
+    in_frustum[EMPTY_ROW] = False
+    a = desc(M)
+    flips = rng.uniform(size=(M, 8, 32)) < 0.1
+    a[at] = b[near[at]] ^ (flips[at] * (1 << np.arange(32, dtype=np.uint64))
+                          ).sum(-1).astype(np.uint32)
+    # the one-candidate row: exactly on keypoint ONE_COL, a quarter-pixel window
+    u[ONE_ROW], v[ONE_ROW] = xy[ONE_COL]
+    ur[ONE_ROW] = kp_ur[ONE_COL]
+    pred_oct[ONE_ROW] = octave[ONE_COL]
+    r[ONE_ROW] = 0.25
+    f32 = lambda x: _t(np.asarray(x, np.float32), device)
+    return (_t(a.view(np.int32), device), f32(u), f32(v), f32(ur), f32(r),
+            _t(pred_oct.astype(np.int32), device), _t(in_frustum, device),
+            _t(b.view(np.int32), device), _t(xy, device), _t(kp_ur, device),
+            _t(octave, device), _t(valid, device))

@@ -93,12 +93,16 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.lld_sample_patches.argtypes = [vp, i32, i32, i32, i32, vp, vp, vp,
-                                           vp, i32, i32, vp]
-        lib.lld_sample_patches.restype = i32
-        lib.lld_masked_best2.argtypes = [vp, vp, vp, i32, i32, vp, vp, vp, vp,
-                                         vp]
-        lib.lld_masked_best2.restype = i32
+        ints = ctypes.POINTER(ctypes.c_int)
+        lib.lld_orb_describe.argtypes = [vp, vp, i32, i32, i32, ints, ints,
+                                         vp, vp, i32, vp, vp, vp]
+        lib.lld_stereo_sad.argtypes = [vp, i32, i32, i32, ints, ints, vp, vp,
+                                       vp, vp, i32, vp, vp, vp, vp]
+        lib.lld_gated_best2.argtypes = [vp] * 7 + [i32] + [vp] * 5 + [i32,
+                                                                      vp, vp]
+        for fn in (lib.lld_orb_describe, lib.lld_stereo_sad,
+                   lib.lld_gated_best2):
+            fn.restype = i32
         _lib = lib
     return _lib
 

@@ -5,58 +5,23 @@ dense FAST score maps per level, per-cell top-k then per-level top-n
 selection, intensity-centroid orientation over the radius-15 circular patch,
 and rotated BRIEF-256 on the 7x7 blurred level packed into 8 int32 words.
 
-The two gathers of the frame build go through K1 (ops/patch_sample.py), one
-launch per consumer over a padded stack of every pyramid level of both views
-(`stack_levels`): the orientation moments (the JAX package computes them as
-dense prefix-sum maps; summing the 31x31 circular patch at each keypoint
-gives the same integers with one gather) and the 512 BRIEF taps.
+Orientation and descriptor are one launch of K1a (ops/orb_describe.py) over
+padded stacks of every pyramid level of both views (`stack_levels`): the
+orientation moments (the JAX package computes them as dense prefix-sum maps;
+summing the 31x31 circular patch at each keypoint gives the same integers)
+and the 512 BRIEF taps, compared and packed in the kernel.
 """
 from __future__ import annotations
 
-import functools
-import math
 from dataclasses import dataclass
-from pathlib import Path
 from typing import NamedTuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import fast, hamming, image, patch_sample
+from . import consts, fast, hamming, image, orb_describe
 
 EDGE_MARGIN = 16  # detection border, EDGE_THRESHOLD-3
-
-
-
-@functools.cache
-def _pattern() -> np.ndarray:
-    """The rotated-BRIEF point pairs (256, 2, 2): this package's copy of
-    lldslam_tpu/ops/orb_pattern.npy, read at first use."""
-    return np.load(Path(__file__).parent / "orb_pattern.npy")
-
-
-def _umax_mask() -> np.ndarray:
-    """31x31 boolean mask of the IC_Angle circular patch (the reference's
-    umax table)."""
-    HALF = 15
-    umax = np.zeros(HALF + 2, dtype=np.int32)
-    vmax = int(math.floor(HALF * math.sqrt(2.0) / 2 + 1))
-    vmin = int(math.ceil(HALF * math.sqrt(2.0) / 2))
-    for v in range(vmax + 1):
-        umax[v] = int(round(math.sqrt(HALF * HALF - v * v)))
-    v0 = 0
-    for v in range(HALF, vmin - 1, -1):
-        while umax[v0] == umax[v0 + 1]:
-            v0 += 1
-        umax[v] = v0
-        v0 += 1
-    ys, xs = np.mgrid[-HALF: HALF + 1, -HALF: HALF + 1]
-    return np.abs(xs) <= umax[np.abs(ys)]
-
-
-_IC_MASK = _umax_mask()                                   # (31, 31) bool
-_IC_DY, _IC_DX = (np.nonzero(_IC_MASK)[0] - 15, np.nonzero(_IC_MASK)[1] - 15)
 
 
 @dataclass(frozen=True)
@@ -158,65 +123,11 @@ def _select_level_keypoints(score: torch.Tensor, n_out: int, cfg: OrbConfig):
     return xy, top_s
 
 
-def _ic_angle_stack(img_stack: torch.Tensor, xy: torch.Tensor,
-                    img_idx: torch.Tensor) -> torch.Tensor:
-    """Intensity-centroid orientation (IC_Angle) of keypoints spread over an
-    image stack: xy (n, 2) integer level coords, img_idx (n,). Moments
-    m10 = sum dx*I, m01 = sum dy*I over the radius-15 circular patch, read
-    with one K1 gather. Integer images keep both sums exact in float32
-    (|m| < 2^24), equal to the JAX package's int32 prefix-sum maps (whose
-    -128 intensity shift cancels over the symmetric patch). Returns (n,)
-    radians."""
-    dev = img_stack.device
-    dy = torch.from_numpy(_IC_DY.astype(np.int32)).to(dev)
-    dx = torch.from_numpy(_IC_DX.astype(np.int32)).to(dev)
-    n = xy.shape[0]
-    iy = (xy[:, 1:2].to(torch.int32) + dy[None, :]).contiguous()
-    ix = (xy[:, 0:1].to(torch.int32) + dx[None, :]).contiguous()
-    meta = F.pad(img_idx.to(torch.int32)[:, None], (0, 3)).contiguous()
-    vals = patch_sample.sample_patches(img_stack, meta, iy, ix)   # (n, S)
-    m10 = (vals * dx.to(torch.float32)).sum(dim=-1)
-    m01 = (vals * dy.to(torch.float32)).sum(dim=-1)
-    return torch.atan2(m01, m10).reshape(n)
-
-
 def _ic_angle(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
-    """IC_Angle for one (h, w) image; xy (n, 2) integer level coords."""
+    """IC_Angle for one (h, w) image; xy (n, 2) integer level coords (the
+    plain moments of K1a)."""
     idx = torch.zeros(xy.shape[0], dtype=torch.int32, device=img.device)
-    return _ic_angle_stack(img[None].contiguous(), xy, idx)
-
-
-def _rotated_taps(xy: torch.Tensor, angle: torch.Tensor, h, w):
-    """Rotated-BRIEF tap coordinates (GET_VALUE): (gy, gx) each
-    (n, 256, 2) int32, clipped into the image. h, w are ints or per-keypoint
-    (n,) tensors."""
-    pat = torch.from_numpy(_pattern().astype(np.float32)).to(xy.device)
-    ca, sa = torch.cos(angle), torch.sin(angle)
-    px = pat[None, :, :, 0]
-    py = pat[None, :, :, 1]
-    rx = torch.round(px * ca[:, None, None] - py * sa[:, None, None]).to(torch.int32)
-    ry = torch.round(px * sa[:, None, None] + py * ca[:, None, None]).to(torch.int32)
-    if not torch.is_tensor(h):
-        h = torch.full((xy.shape[0],), h, dtype=torch.int32, device=xy.device)
-        w = torch.full((xy.shape[0],), w, dtype=torch.int32, device=xy.device)
-    gx = torch.minimum(torch.clamp(xy[:, None, None, 0].to(torch.int32) + rx, min=0),
-                       (w - 1)[:, None, None])
-    gy = torch.minimum(torch.clamp(xy[:, None, None, 1].to(torch.int32) + ry, min=0),
-                       (h - 1)[:, None, None])
-    return gy, gx
-
-
-def _brief_desc_stack(blur_stack: torch.Tensor, xy: torch.Tensor,
-                      img_idx: torch.Tensor, angle: torch.Tensor, h, w):
-    """Rotated BRIEF-256 for keypoints spread over a stack of blurred level
-    images, the 512 taps (256 'a' then 256 'b') read with one K1 gather.
-    Returns (n, 8) int32."""
-    gy, gx = _rotated_taps(xy, angle, h, w)
-    iy = torch.cat([gy[:, :, 0], gy[:, :, 1]], dim=1).contiguous()
-    ix = torch.cat([gx[:, :, 0], gx[:, :, 1]], dim=1).contiguous()
-    meta = F.pad(img_idx.to(torch.int32)[:, None], (0, 3)).contiguous()
-    vals = patch_sample.sample_patches(blur_stack, meta, iy, ix)
-    return hamming.pack_bits(vals[:, :256] < vals[:, 256:])
+    return orb_describe.ic_angle_plain(img[None].contiguous(), xy, idx)
 
 
 def extract_stack_pyr(pyr, cfg: OrbConfig = OrbConfig(),
@@ -229,7 +140,7 @@ def extract_stack_pyr(pyr, cfg: OrbConfig = OrbConfig(),
     dev = pyr[0].device
     budgets = cfg.per_level_budget()
     scales = cfg.scale_factors()
-    xy_l, resp, octv, blurs, hs, ws = [], [], [], [], [], []
+    xy_l, resp, octv, blurs = [], [], [], []
     for l, (im_l, n_l) in enumerate(zip(pyr, budgets)):
         h, w = im_l.shape[-2:]
         score = fast.nms3x3(fast.fast_score_map(im_l, cfg.min_th))
@@ -242,25 +153,22 @@ def extract_stack_pyr(pyr, cfg: OrbConfig = OrbConfig(),
         xy_l.append(xy)
         resp.append(r)
         octv.append(torch.full((V, n_l), l, dtype=torch.int32, device=dev))
-        hs.append(torch.full((V, n_l), h, dtype=torch.int32, device=dev))
-        ws.append(torch.full((V, n_l), w, dtype=torch.int32, device=dev))
         # the oracle blurs uint8 -> uint8: integer rounding gives bit-exact
         # BRIEF comparisons
         blurs.append(torch.round(image.gaussian_blur(im_l)))
     # per-keypoint image index into the (L*V, H0, W0) stacks: l*V + v
     octave = torch.cat(octv, dim=1)
     img_idx = (octave * V + torch.arange(V, device=dev, dtype=torch.int32)[:, None])
-    xy_lvl = torch.cat(xy_l, dim=1).reshape(-1, 2)
-    flat_idx = img_idx.reshape(-1)
+    xy_lvl = torch.cat(xy_l, dim=1)
     if pyr_stack is None:
         pyr_stack = stack_levels(pyr)
-    angle = _ic_angle_stack(pyr_stack, xy_lvl, flat_idx)
-    desc = _brief_desc_stack(stack_levels(blurs), xy_lvl, flat_idx, angle,
-                             torch.cat(hs, dim=1).reshape(-1),
-                             torch.cat(ws, dim=1).reshape(-1))
+    image_hw = [tuple(p.shape[-2:]) for p in pyr for _ in range(V)]
+    angle, desc = orb_describe.describe(
+        pyr_stack, stack_levels(blurs), xy_lvl.reshape(-1, 2).to(torch.int32),
+        img_idx.reshape(-1), image_hw)
     resp = torch.cat(resp, dim=1)
-    scale_kp = torch.tensor(scales, dtype=torch.float32, device=dev)[octave.long()]
-    xy0 = torch.cat(xy_l, dim=1).to(torch.float32) * scale_kp[..., None]
+    scale_kp = consts.table(tuple(scales), torch.float32, dev)[octave.long()]
+    xy0 = xy_lvl.to(torch.float32) * scale_kp[..., None]
     n = xy0.shape[1]
     kp = Keypoints(xy0, resp, octave, angle.reshape(V, n),
                    desc.reshape(V, n, 8), resp > 0)

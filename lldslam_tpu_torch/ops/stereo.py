@@ -4,9 +4,9 @@ Counterpart of lldslam_tpu/ops/stereo.py (`match_stereo`): candidates in a
 +-2*scale row band, octave within +-1 and disparity in [0, bf/baseline]; best
 Hamming match under TH_HIGH; 11x11 SAD over a +-5 disparity sweep on the
 left keypoint's octave images with a parabola fit; outlier sweep at twice
-the median SAD cost. The SAD windows (patch from the left level image, strip
-from the right) are read by K1 (ops/patch_sample.py), one launch each over
-the padded stack of all levels of both views.
+the median SAD cost. The SAD stage (windows, sweep, argmin, parabola) is
+K1b (ops/stereo_sad.py), one launch over the padded stack of all levels of
+both views.
 
 Output per left keypoint: `u_right` (level-0 px, subpixel) and `depth`, -1
 for unmatched.
@@ -14,14 +14,10 @@ for unmatched.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..geometry.camera import StereoCamera
-from . import hamming, patch_sample
+from . import consts, hamming, stereo_sad
 from .orb import Keypoints, OrbConfig
-
-W_HALF = 5   # 11x11 SAD window
-L_SWEEP = 5  # disparity sweep +-5
 
 
 def _nanmedian_of(vals: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
@@ -34,42 +30,15 @@ def _nanmedian_of(vals: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
     return torch.where(cnt > 0, (lo + hi) / 2, torch.full_like(lo, float("inf")))
 
 
-def _sample_windows(pyr_stack: torch.Tensor, level_hw: torch.Tensor,
-                    lvl: torch.Tensor, ul, vl, ur):
-    """SAD windows via K1. pyr_stack (L*2, H0, W0) with left level l at 2l,
-    right at 2l+1; level_hw (L, 2) level shapes. Returns (patch (n, 11, 11)
-    from the left, strip (n, 11, 11 + 2L) from the right); coordinates are
-    clipped into each keypoint's level image."""
-    W, L = W_HALF, L_SWEEP
-    dev = pyr_stack.device
-    hk = level_hw[lvl, 0][:, None]
-    wk = level_hw[lvl, 1][:, None]
-    oy = torch.arange(-W, W + 1, dtype=torch.int32, device=dev)
-    ox_p = torch.arange(-W, W + 1, dtype=torch.int32, device=dev)
-    ox_s = torch.arange(-W - L, W + L + 1, dtype=torch.int32, device=dev)
-    yy = torch.minimum(torch.clamp(vl[:, None] + oy[None], min=0), hk - 1)
-
-    def taps(u, ox, view):
-        xx = torch.minimum(torch.clamp(u[:, None] + ox[None], min=0), wk - 1)
-        iy = yy[:, :, None].expand(-1, -1, len(ox)).reshape(len(u), -1)
-        ix = xx[:, None, :].expand(-1, len(oy), -1).reshape(len(u), -1)
-        meta = F.pad((lvl * 2 + view).to(torch.int32)[:, None], (0, 3))
-        vals = patch_sample.sample_patches(pyr_stack, meta.contiguous(),
-                                           iy.contiguous(), ix.contiguous())
-        return vals.reshape(len(u), len(oy), len(ox))
-
-    return taps(ul, ox_p, 0), taps(ur, ox_s, 1)
-
-
 def match_stereo(kp_l: Keypoints, kp_r: Keypoints, pyr_stack: torch.Tensor,
-                 level_hw: torch.Tensor, cam: StereoCamera,
-                 cfg: OrbConfig = OrbConfig()):
+                 level_hw, cam: StereoCamera, cfg: OrbConfig = OrbConfig()):
     """Returns (u_right (N,), depth (N,)) float32 with -1 for unmatched.
-    kp_l / kp_r are single-view Keypoints; pyr_stack / level_hw as in
-    `_sample_windows`."""
-    W, L = W_HALF, L_SWEEP
+    kp_l / kp_r are single-view Keypoints; pyr_stack (L*2, H0, W0) holds
+    left level l at 2l and right level l at 2l + 1; level_hw the L level
+    shapes (h, w) as host ints."""
+    L = stereo_sad.L_SWEEP
     dev = kp_l.xy.device
-    scales = torch.tensor(cfg.scale_factors(), dtype=torch.float32, device=dev)
+    scales = consts.table(tuple(cfg.scale_factors()), torch.float32, dev)
     oct_l = kp_l.octave.long()
     sl = scales[oct_l]
     # --- candidate gating (row band, octave band, disparity range) ---
@@ -87,22 +56,9 @@ def match_stereo(kp_l: Keypoints, kp_r: Keypoints, pyr_stack: torch.Tensor,
     ul = torch.round(kp_l.xy[:, 0] * inv_s).to(torch.int32)
     vl = torch.round(kp_l.xy[:, 1] * inv_s).to(torch.int32)
     ur = torch.round(kp_r.xy[idx, 0] * inv_s).to(torch.int32)
-    lvl = torch.clamp(oct_l, 0, level_hw.shape[0] - 1)
-    patch, strip = _sample_windows(pyr_stack, level_hw, lvl, ul, vl, ur)
-    patch_c = patch - patch[:, W, W][:, None, None]
-    wins = strip.unfold(2, 2 * W + 1, 1).permute(0, 2, 1, 3)   # (n, d, 11, 11)
-    wins_c = wins - wins[:, :, W, W][:, :, None, None]
-    sad = (patch_c[:, None] - wins_c).abs().sum(dim=(2, 3))    # (n, 2L+1)
-
-    best_d = torch.argmin(sad, dim=-1)
-    best_c = torch.gather(sad, -1, best_d[:, None])[:, 0]
-    interior = (best_d > 0) & (best_d < 2 * L)
-    cm1 = torch.gather(sad, -1, torch.clamp(best_d - 1, min=0)[:, None])[:, 0]
-    cp1 = torch.gather(sad, -1, torch.clamp(best_d + 1, max=2 * L)[:, None])[:, 0]
-    denom = torch.clamp(2.0 * (cm1 + cp1 - 2.0 * best_c), min=1e-6)
-    delta = (cm1 - cp1) / denom
-    delta = torch.clamp(torch.where(interior, delta, torch.zeros_like(delta)),
-                        -1.0, 1.0)
+    lvl = torch.clamp(kp_l.octave, 0, len(level_hw) - 1).to(torch.int32)
+    best_d, best_c, delta = stereo_sad.sad_refine(pyr_stack, level_hw, lvl,
+                                                  ul, vl, ur)
     u_r_ref = (ur.to(torch.float32) + (best_d - L).to(torch.float32) + delta) * sl
 
     disparity = kp_l.xy[:, 0] - u_r_ref

@@ -165,7 +165,7 @@ class StereoTracker:
     def __init__(self, cfg: SlamConfig, store: MapStore | None = None,
                  enable_loops: bool = True,
                  vocabulary: Vocabulary | None = None,
-                 pipeline: bool = False, device="cpu"):
+                 pipeline: bool = False, device="cuda"):
         if pipeline:
             raise NotImplementedError(
                 "the pipelined tracker is not ported to lldslam_tpu_torch "

@@ -42,10 +42,12 @@ def _default_vocabulary() -> Vocabulary | None:
 class System:
     def __init__(self, cfg: SlamConfig | str | Path, sequence: str | None = None,
                  vocabulary=None, enable_loops: bool = True,
-                 pipeline: bool = False, device="cpu"):
+                 pipeline: bool = False, device="cuda"):
         """vocabulary: a `Vocabulary`, a path to an `.npz` vocabulary or an
         ORBvoc.txt-format file, or None (the shipped vocabulary, else one
-        trained from the first keyframe)."""
+        trained from the first keyframe). `device`: the card by default;
+        pass "cpu" to run the plain PyTorch versions on the CPU (without a
+        card the default raises at the first allocation)."""
         if not isinstance(cfg, SlamConfig):
             cfg = load_config(cfg, sequence=sequence)
         self.cfg = cfg

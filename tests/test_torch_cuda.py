@@ -7,9 +7,11 @@ run on a machine that has only PyTorch and the CUDA toolkit:
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py
 
 Each kernel is held to its plain PyTorch version on the same device tensors
-(exact: K1 gathers integer intensities, K2 computes integer distances under
-one tie contract), and the frame build on the card to the frame build on the
-CPU (integer pipeline exact; descriptors and stereo through the same
+at the main path's shapes (lldslam_tpu_torch.io.kernel_inputs; exact: K1a
+and K1b sum integer intensities and round as eager PyTorch does, K2g
+computes integer distances under one tie contract), the three kernels and
+the projection search run without a host synchronisation, and the frame
+build on the card is held to the frame build on the CPU (integer pipeline exact; descriptors and stereo through the same
 tolerances as the JAX parity tests, since sin/cos/atan2 may differ by an ulp
 between the card's and the CPU's math libraries). One loop correction on the
 card is held to the same correction on the CPU within the tolerances the
@@ -22,10 +24,13 @@ import torch
 
 from lldslam_tpu_torch.config import CameraConfig, SlamConfig
 from lldslam_tpu_torch.frontend import frame
+from lldslam_tpu_torch.frontend.matching import (FrameFeatures, MapPointView,
+                                                 search_by_projection)
 from lldslam_tpu_torch.geometry import se3
 from lldslam_tpu_torch.io.synthetic import make_loop_map, make_sequence
 from lldslam_tpu_torch.loop.closing import LoopCloser
-from lldslam_tpu_torch.ops import match_best2, patch_sample
+from lldslam_tpu_torch.io import kernel_inputs
+from lldslam_tpu_torch.ops import match_best2, orb_describe, stereo_sad
 from lldslam_tpu_torch.ops.orb import OrbConfig
 from lldslam_tpu_torch.optim import ba, pose_graph, sim3_solver
 from lldslam_tpu_torch.slammap.map_store import MapStore
@@ -42,60 +47,56 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("dtype,S", [(torch.uint8, 512), (torch.float32, 121),
-                                     (torch.float32, 749)])
-def test_k1_equals_plain(dev, dtype, S):
-    rng = np.random.default_rng(0)
-    V, H, W, n = 16, 376, 1241, 1000
-    img = torch.from_numpy(rng.integers(0, 256, (V, H, W)).astype(np.uint8)) \
-        .to(dev).to(dtype)
-    meta = np.stack([rng.integers(0, V, n), rng.integers(0, H, n),
-                     rng.integers(0, W, n), np.zeros(n, int)], -1)
-    iy = rng.integers(-20, 21, (n, S))
-    ix = rng.integers(-20, 21, (n, S))
-    t = lambda a: torch.from_numpy(a.astype(np.int32)).to(dev)
-    before = patch_sample.launches
-    got = patch_sample.sample_patches(img, t(meta), t(iy), t(ix))
-    want = patch_sample.sample_patches_plain(img, t(meta), t(iy), t(ix))
+def _equal(got, want):
     torch.cuda.synchronize()
-    assert patch_sample.launches == before + 1
-    assert torch.equal(got, want)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_orb_describe_equals_plain(dev):
+    """K1a at the frame build's shapes: angles and descriptors exact."""
+    args = kernel_inputs.describe_inputs(np.random.default_rng(0), dev)
+    before = orb_describe.launches
+    got = orb_describe.describe(*args)
+    assert orb_describe.launches == before + 1
+    _equal(got, orb_describe.describe_plain(*args))
+
+
+def test_stereo_sad_equals_plain(dev):
+    """K1b at the frame build's shapes with forced SAD ties: exact."""
+    args = kernel_inputs.sad_inputs(np.random.default_rng(1), dev)
+    before = stereo_sad.launches
+    got = stereo_sad.sad_refine(*args)
+    assert stereo_sad.launches == before + 1
+    _equal(got, stereo_sad.sad_refine_plain(*args))
+    assert int((got[1] == 0).sum()) >= 32
 
 
 @pytest.mark.parametrize("M,N", [(4096, 2048), (2048, 2048), (8192, 2048),
                                  (300, 77)])
-def test_k2_equals_plain(dev, M, N):
-    rng = np.random.default_rng(1)
-    a = rng.integers(0, 2**32, (M, 8), dtype=np.uint64).astype(np.uint32)
-    b = rng.integers(0, 2**32, (N, 8), dtype=np.uint64).astype(np.uint32)
-    b[N // 2:N // 2 + 8] = b[:8]
-    mask = rng.uniform(size=(M, N)) < 0.02
-    mask[:32, :8] = True
-    mask[:32, N // 2:N // 2 + 8] = True
-    mask[40] = False
-    mask[41] = False
-    mask[41, 3] = True
-    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-    args = (t(a.view(np.int32)), t(b.view(np.int32)), t(mask))
+def test_gated_best2_equals_plain(dev, M, N):
+    """K2g: all four outputs exact, tied columns go to the lower index, an
+    empty row and a one-candidate row follow the XLA contract."""
+    args = kernel_inputs.gated_best2_inputs(np.random.default_rng(2), dev, M,
+                                            N)
     before = match_best2.launches
-    got = match_best2.masked_best2(*args)
-    want = match_best2.masked_best2_plain(*args)
-    torch.cuda.synchronize()
+    got = match_best2.gated_best2(*args, site="test")
     assert match_best2.launches == before + 1
-    for g, w in zip(got, want):
-        assert torch.equal(g.to(torch.int64), w.to(torch.int64))
-    assert int(got[1][40]) == 10000 and int(got[0][41]) == 3
+    _equal(got, match_best2.gated_best2_plain(*args))
+    e, o = kernel_inputs.EMPTY_ROW, kernel_inputs.ONE_ROW
+    assert int(got[1][e]) == 10000 and int(got[0][e]) == 0
+    assert int(got[0][o]) == kernel_inputs.ONE_COL
+    assert int(got[2][o]) == 10000
 
 
-def test_k2_rejects_bad_inputs(dev):
-    a = torch.zeros((4, 8), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError):
-        match_best2.masked_best2(a, a, torch.zeros((4, 5), dtype=torch.bool,
-                                                   device=dev))
-    with pytest.raises(ValueError):
-        match_best2.masked_best2(a.float(), a, torch.zeros((4, 4),
-                                                           dtype=torch.bool,
-                                                           device=dev))
+def test_gated_best2_rejects_bad_inputs(dev):
+    args = list(kernel_inputs.gated_best2_inputs(np.random.default_rng(3), dev,
+                                                 300, 77))
+    bad = dict(a=(0, args[0][:, :4]), pred_oct=(5, args[5].long()),
+               xy=(8, args[8].t().contiguous().t()),
+               valid=(11, args[11][:10]))
+    for i, t in bad.values():
+        with pytest.raises(ValueError):
+            match_best2.gated_best2(*args[:i], t, *args[i + 1:])
 
 
 def test_frame_build_on_card_matches_cpu(dev):
@@ -103,10 +104,11 @@ def test_frame_build_on_card_matches_cpu(dev):
     frames = make_sequence(cam, 1, seed=3)
     pair = np.stack(frames[0])
     cfg = OrbConfig(n_features=2000)
-    k1 = patch_sample.launches
+    k1 = orb_describe.launches, stereo_sad.launches
     g = frame.build_frame_pair(torch.from_numpy(pair).to(dev), cam, cfg)
     torch.cuda.synchronize()
-    assert patch_sample.launches - k1 == 4   # orientation, BRIEF, 2 SAD
+    assert (orb_describe.launches - k1[0], stereo_sad.launches - k1[1]) \
+        == (1, 1)
     c = frame.build_frame_pair(torch.from_numpy(pair), cam, cfg)
     gf, cf = g.feats, c.feats
     assert torch.equal(gf.xy.cpu(), cf.xy)
@@ -253,3 +255,40 @@ def test_loop_solvers_never_wait_for_the_host(dev):
     assert int(n_inl) >= 0.9 * n
     assert torch.isfinite(chi2).all()
     assert float(ba._total_cost(cam, solved)) < 0.5 * float(chi2_0)
+
+
+def test_kernels_and_projection_search_never_wait_for_the_host(dev):
+    """The three kernel wrappers and search_by_projection (through K2g)
+    under CUDA's sync debug mode set to "error": no host sync."""
+    rng = np.random.default_rng(4)
+    d = kernel_inputs.describe_inputs(rng, dev)
+    s = kernel_inputs.sad_inputs(rng, dev)
+    g = kernel_inputs.gated_best2_inputs(rng, dev, 4096)
+    cam = CameraConfig(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157,
+                       bf=386.1448, width=1241, height=376).stereo_camera()
+    P, N = 4096, 2048
+    pos = np.stack([rng.uniform(-10, 10, P), rng.uniform(-2, 2, P),
+                    rng.uniform(4, 40, P)], -1).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    dist = np.linalg.norm(pos, axis=-1).astype(np.float32)
+    view = MapPointView(pos=t(pos), desc=g[0], normal=t(pos / dist[:, None]),
+                        min_dist=t(0.5 * dist), max_dist=t(2.0 * dist),
+                        valid=t(np.ones(P, bool)))
+    feats = FrameFeatures(xy=g[8], ur=g[9], octave=g[10],
+                          angle=t(rng.uniform(-3, 3, N).astype(np.float32)),
+                          desc=g[7], valid=g[11])
+    T = t(np.eye(4, dtype=np.float32))
+    search_by_projection(cam, T, view, feats)      # builds cached constants
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        orb_describe.describe(*d)
+        stereo_sad.sad_refine(*s)
+        match_best2.gated_best2(*g, site="test")
+        pt2kp, kp2pt, _, _ = search_by_projection(cam, T, view, feats,
+                                                  check_rot=True,
+                                                  ref_angle=feats.angle[:1]
+                                                  .expand(P).contiguous())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int((pt2kp >= 0).sum()) == int((kp2pt >= 0).sum())

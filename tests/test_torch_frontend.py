@@ -171,7 +171,7 @@ def test_stereo_on_identical_keypoints(jax_pyr):
     from lldslam_tpu_torch import interop
     tk = interop.keypoints(kp)
     tpyr = [torch.from_numpy(p) for p in jax_pyr]
-    hw = torch.tensor([p.shape[-2:] for p in jax_pyr], dtype=torch.int32)
+    hw = [p.shape[-2:] for p in jax_pyr]
     tu, _ = tstereo.match_stereo(tk.view_of(0), tk.view_of(1),
                                  torb.stack_levels(tpyr), hw,
                                  StereoCamera(*CAM), TCFG)

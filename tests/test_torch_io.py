@@ -30,7 +30,7 @@ from lldslam_tpu_torch import config, interop  # noqa: E402
 from lldslam_tpu_torch.geometry import camera, se3  # noqa: E402
 from lldslam_tpu_torch.io import synthetic  # noqa: E402
 from lldslam_tpu_torch.io import trajectory as traj  # noqa: E402
-from lldslam_tpu_torch.ops import orb  # noqa: E402
+from lldslam_tpu_torch.ops import orb_describe  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -101,7 +101,7 @@ def test_orb_pattern_is_the_jax_table():
     a = (ROOT / "lldslam_tpu/ops/orb_pattern.npy").read_bytes()
     b = (ROOT / "lldslam_tpu_torch/ops/orb_pattern.npy").read_bytes()
     assert a == b
-    assert orb._pattern().shape == (256, 2, 2)
+    assert orb_describe._pattern().shape == (256, 2, 2)
 
 
 def test_se3_matches_jax():

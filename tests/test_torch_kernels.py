@@ -1,11 +1,13 @@
 """CPU parity of the PyTorch port's kernel modules with the JAX package.
 
-The port's two kernels (K1 patch sampling, K2 masked Hamming best-2) run as
-CUDA only on the card; on the CPU their wrappers take the plain PyTorch
-versions, which are held here against the JAX package: K1 against the Pallas
-kernel in interpret mode, K2 against the XLA best-2 sequence (exact) and the
-Pallas kernel in interpret mode (exact distances, indices up to ties). Inputs
-are made with numpy from a seed and handed to both sides.
+The port's three kernels (K1a ORB describe, K1b stereo SAD, K2g gated
+Hamming best-2) run as CUDA only on the card; on the CPU their wrappers take
+the plain PyTorch versions. Their building blocks are held here against the
+JAX package: the gather against the Pallas kernel in interpret mode, the
+masked best-2 against the XLA best-2 sequence (exact) and the Pallas kernel
+in interpret mode (exact distances, indices up to ties). Inputs are made
+with numpy from a seed and handed to both sides. The fused plain versions
+are held to the JAX functions in tests/test_torch_fused.py.
 """
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ from lldslam_tpu.ops import hamming as jham  # noqa: E402
 from lldslam_tpu.ops import pallas_match  # noqa: E402
 from lldslam_tpu.ops import patch_sample as jps  # noqa: E402
 from lldslam_tpu_torch.ops import hamming, match_best2  # noqa: E402
+from lldslam_tpu_torch.ops import orb_describe, stereo_sad  # noqa: E402
 from lldslam_tpu_torch.ops import patch_sample as tps  # noqa: E402
 
 torch.set_num_threads(2)
@@ -61,22 +64,55 @@ def test_k1_plain_equals_pallas_interpret(dtype):
     np.testing.assert_array_equal(got, want)
 
 
-def test_k1_wrapper_takes_plain_version_on_cpu():
-    """A CPU tensor goes to the plain version; the kernel counter only counts
-    CUDA launches. Unaligned origins and out-of-image taps are clamped."""
+def _wrapper_case(name):
+    """(wrapper, plain version, CPU arguments, launch counter module) of one
+    fused kernel, at a small size with out-of-image taps."""
     rng = np.random.default_rng(1)
-    img = rng.integers(0, 256, (3, 50, 70), dtype=np.uint8)
-    n, S = 13, 37
-    meta = np.stack([rng.integers(0, 3, n), rng.integers(-5, 55, n),
-                     rng.integers(-5, 75, n), np.zeros(n, int)], -1).astype(np.int32)
-    iy = rng.integers(-8, 8, (n, S)).astype(np.int32)
-    ix = rng.integers(-8, 8, (n, S)).astype(np.int32)
-    before = tps.launches
-    got = tps.sample_patches(_t(img), _t(meta), _t(iy), _t(ix)).numpy()
-    assert tps.launches == before
-    y = np.clip(meta[:, 1:2] + iy, 0, 49)
-    x = np.clip(meta[:, 2:3] + ix, 0, 69)
-    np.testing.assert_array_equal(got, img[meta[:, :1], y, x].astype(np.float32))
+    hw = [(50, 70), (42, 58)]
+    stack = _t(np.round(rng.uniform(0, 255, (4, 50, 70))).astype(np.float32))
+    if name == "orb_describe":
+        n = 13
+        xy = np.stack([rng.integers(0, 58, n), rng.integers(0, 42, n)], -1)
+        args = (stack, stack.flip(-1).contiguous(), _t(xy.astype(np.int32)),
+                _t(rng.integers(0, 4, n).astype(np.int32)),
+                [hw[0], hw[0], hw[1], hw[1]])
+        return orb_describe.describe, orb_describe.describe_plain, args, \
+            orb_describe
+    if name == "stereo_sad":
+        n = 17
+        lvl = rng.integers(0, 2, n).astype(np.int32)
+        cols = [_t(rng.integers(-3, 60, n).astype(np.int32)) for _ in "uvr"]
+        return stereo_sad.sad_refine, stereo_sad.sad_refine_plain, \
+            (stack, hw, _t(lvl), *cols), stereo_sad
+    M, N = 40, 30
+    a, b = _desc(rng, M), _desc(rng, N)
+    b[10:14] = b[:4]
+    xy = rng.uniform(0, 40, (N, 2)).astype(np.float32)
+    xy[10:14] = xy[:4]
+    f32 = lambda *s: _t(rng.uniform(0, 40, s).astype(np.float32))
+    args = (_t(a.view(np.int32)), f32(M), f32(M), f32(M),
+            _t(np.full(M, 12.0, np.float32)),
+            _t(rng.integers(0, 3, M).astype(np.int32)),
+            _t(rng.uniform(size=M) < 0.9), _t(b.view(np.int32)), _t(xy),
+            _t(np.where(rng.uniform(size=N) < 0.5, -1.0, 20.0).astype(np.float32)),
+            _t(rng.integers(0, 3, N).astype(np.int32)),
+            _t(rng.uniform(size=N) < 0.9))
+    return match_best2.gated_best2, match_best2.gated_best2_plain, args, \
+        match_best2
+
+
+@pytest.mark.parametrize("name", ["orb_describe", "stereo_sad",
+                                  "gated_best2"])
+def test_wrapper_takes_plain_version_on_cpu(name):
+    """A CPU tensor goes to the plain version; the kernel counter only counts
+    CUDA launches. Taps outside the image are clamped."""
+    wrapper, plain, args, mod = _wrapper_case(name)
+    before = mod.launches
+    got = wrapper(*args)
+    assert mod.launches == before
+    for g, w in zip(got, plain(*args)):
+        assert g.device.type == "cpu"
+        assert torch.equal(g, w)
 
 
 def _k2_fixture(seed, M, N, density):
@@ -111,7 +147,7 @@ def test_k2_plain_equals_xla_sequence(shape, density):
     empty row (INF_DIST, column 0) and a one-candidate row."""
     a, b, mask = _k2_fixture(2, *shape, density)
     want = _xla_best2(a, b, mask)
-    got = [x.numpy() for x in match_best2.masked_best2(
+    got = [x.numpy() for x in match_best2.masked_best2_plain(
         _t(a.view(np.int32)), _t(b.view(np.int32)), _t(mask))]
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.astype(np.int64), w.astype(np.int64))

@@ -579,7 +579,7 @@ def test_culled_keyframe_leaves_database(shipped):
     relocalization query returns a keyframe whose `kf_valid` is False; the
     hook follows the database through a full reset."""
     _, tv = shipped
-    tr = StereoTracker(PORT_CFG, vocabulary=tv)
+    tr = StereoTracker(PORT_CFG, vocabulary=tv, device="cpu")
     lc, s = tr.loop_closer, tr.store
     assert tr.mapper.on_kf_culled == lc.db.erase
     rng = np.random.default_rng(4)
@@ -619,13 +619,13 @@ def test_system_loads_shipped_vocabulary():
     """System(cfg) turns loops on with the shipped vocabulary (read by path
     from the JAX package's directory, no copy in the port)."""
     cfg = PORT_CFG
-    s = System(cfg)
+    s = System(cfg, device="cpu")
     tr = s.tracker
     assert tr.enable_loops and tr.loop_closer is not None
     assert tr.vocabulary.n_words == 99106
     assert DEFAULT_VOCABULARY == ROOT / "lldslam_tpu" / "loop" / "vocab_synth.npz"
     assert not list((ROOT / "lldslam_tpu_torch").rglob("*.npz"))
-    off = System(cfg, enable_loops=False)
+    off = System(cfg, enable_loops=False, device="cpu")
     assert off.tracker.loop_closer is None
     s.reset()
     assert s.tracker.loop_closer is not tr.loop_closer

@@ -36,7 +36,7 @@ def test_circular_loop_closure_through_port():
     cfg = SlamConfig(camera=cam_cfg, orb=OrbConfig(n_features=600),
                      tracking=TrackingConfig(min_init_points=100))
     frames, gt = make_ring_sequence(cam_cfg.stereo_camera())
-    sys = System(cfg)
+    sys = System(cfg, device="cpu")
     sys.tracker.mapper.p_cap = 4096
     sys.tracker.mapper.o_cap = 8192
     lost = 0

@@ -149,7 +149,8 @@ def test_reloc_project_view_match_exact():
     ts = interop.map_store(js, PORT_CFG.camera.stereo_camera(), PORT_CFG.orb)
     jtr = JTracker(JSlamConfig(camera=jcc, orb=jorb), store=js,
                    enable_loops=False)
-    ttr = StereoTracker(PORT_CFG, store=ts, enable_loops=False)
+    ttr = StereoTracker(PORT_CFG, store=ts, enable_loops=False,
+                        device="cpu")
     feats = dict(xy=js.kf_xy[21], ur=js.kf_ur[21], octave=js.kf_oct[21],
                  angle=js.kf_angle[21], desc=js.kf_desc[21],
                  valid=js.kf_kp_valid[21])
@@ -174,7 +175,7 @@ def blackout():
     pts, patches = make_points_world(np.random.default_rng(3))
     cam = PORT_CFG.camera.stereo_camera()
     gt = corridor_poses(34)
-    sys = System(PORT_CFG)
+    sys = System(PORT_CFG, device="cpu")
     sys.tracker.mapper.p_cap = 2048
     sys.tracker.mapper.o_cap = 6144
     states = []

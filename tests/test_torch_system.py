@@ -152,25 +152,40 @@ def test_unported_entries_raise(what, tmp_path):
         if what == "loops":
             # loops run; the joint point+line global BA is what stays
             # unported
-            lc = System(cfg).tracker.loop_closer
+            lc = System(cfg, device="cpu").tracker.loop_closer
             s = lc.store
             s.n_ln = 1
             s.ln_valid[0] = True
             s.ln_nobs[0] = 4
             lc.global_ba()
         elif what == "pipeline":
-            System(cfg, pipeline=True)
+            System(cfg, pipeline=True, device="cpu")
         elif what == "lines":
             System(SlamConfig(camera=cfg.camera, orb=cfg.orb,
                               line=LineConfig(ld_type="LBDFloat"),
-                              tracking=cfg.tracking))
+                              tracking=cfg.tracking), device="cpu")
         else:
-            s = System(cfg)
+            s = System(cfg, device="cpu")
             img = np.zeros((240, 640), np.uint8)
             {"rgbd": lambda: s.track_rgbd(img, img.astype(np.float32)),
              "mono": lambda: s.track_monocular(img),
              "save_map": lambda: s.save_map(tmp_path / "m"),
              "load_map": lambda: s.load_map(tmp_path / "m")}[what]()
+
+
+def test_system_defaults_to_the_card():
+    """System(cfg) with no device argument runs on the card: with one, its
+    tracker sits on cuda; without one it raises at its first allocation
+    instead of coming up on the CPU."""
+    cfg = _port_cfg()
+    if torch.cuda.is_available():
+        s = System(cfg, enable_loops=False)
+        assert s.tracker.device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            System(cfg, enable_loops=False)
+        with pytest.raises((RuntimeError, AssertionError)):
+            System(cfg)
 
 
 def test_multi_device_global_ba_has_no_counterpart():
