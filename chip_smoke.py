@@ -26,16 +26,27 @@ Phases, each fatal on failure (nonzero exit, no result line):
    every keyframe, kernel launches and ATE; it also reports the pairs K2g's
    gates pass per call at the tracking and fusion sites, and times K1a and
    K1b again on the last frame's own inputs against their bound;
-6. loop: the 88-frame circle of tests/test_loop_e2e.py (512x384, 600
+6. lines: the stored-line world of the JAX bench's lines section (30
+   seed-2 KITTI-size frames with lines painted on the walls, stored
+   detections written by lldslam_tpu_torch.io.synthetic.gen_stored_lines
+   into a temporary directory, ldType LBDFloat, mdThr 0.6) through System
+   with loops on: asserts on states, keyframes, ATE, line matches per
+   frame, valid map lines, stored-line capacity events and kernel
+   launches; per-frame ms, the line step's, stereo matcher's and joint
+   local BA's ms (wrapped functions) and the keyframe line stages; the last
+   frame's stereo line match on the card against the CPU and its host
+   syncs; the loop closer's joint global BA once on the final map; then the
+   same frames with lines off (ATE with lines on against off);
+7. loop: the 88-frame circle of tests/test_loop_e2e.py (512x384, 600
    features) through System: a loop event, K2g at the loop call site, ATE
    under the test's bound;
-7. reloc: the blackout scenario of tests/test_reloc.py through System, then
+8. reloc: the blackout scenario of tests/test_reloc.py through System, then
    K2g at the relocalization call site (8192 rows) on the relocalized frame,
    held exactly to the same call on CPU copies.
 Kernel launches are counted per path (counts zeroed just before, read just
-after): main, loop and reloc are System runs; reloc_site is the two direct
-calls of the relocalization call site. The second-to-last line is the
-kernel table as JSON, the last line the device summary as JSON.
+after): main, lines, loop and reloc are System runs; reloc_site is the two
+direct calls of the relocalization call site. The second-to-last line is
+the kernel table as JSON, the last line the device summary as JSON.
 """
 from __future__ import annotations
 
@@ -55,6 +66,13 @@ ATE_BOUND_M = 0.03      # JAX-CPU run of this sequence: 0.0084 m, + 0.02 m
 RING_ATE_BOUND_M = 0.60   # tests/test_loop_e2e.py (JAX-CPU run: 0.455 m)
 RELOC_BOUND = (0.1, 0.02)   # m, rad: tests/test_reloc.py (JAX: 0.0298, 0.00088)
 SHIPPED_WORDS = 99106
+# the JAX package's CPU run of the lines world (its System on the same 30
+# frames, synchronous, loops on): line matches per frame median 232, 383
+# valid map lines, ATE 0.00635 m with lines and 0.00697 m without, 60
+# capacity events dropping 1864 stored lines
+LINES_JAX = dict(ate_on=0.00635, ate_off=0.00697, cap=(60, 1864))
+LINE_MATCH_RANGE = (209, 255)      # 232 +- 10%
+LINE_MAP_RANGE = (326, 440)        # 383 +- 15%
 
 
 def log(msg: str) -> None:
@@ -483,6 +501,298 @@ def phase_main_path(dev) -> dict:
     return dict(counts, frame_kernels=frame_k, k2g_gated_pairs=gates)
 
 
+def timed_calls(mod, name: str, times: list, keep: list | None = None):
+    """Wraps mod.<name> so that each call's host milliseconds, the device
+    finished (torch.cuda.synchronize), go to `times`, and, where `keep` is
+    given, the last call's arguments to it; returns the restore function."""
+    fn = getattr(mod, name)
+
+    def wrapper(*args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+        if keep is not None:
+            keep[:] = [args, kw]
+        return out
+
+    setattr(mod, name, wrapper)
+    return lambda: setattr(mod, name, fn)
+
+
+def stereo_lines_on_cpu(args, kw) -> dict:
+    """The stereo line match of the lines run's last frame, on the card
+    again and on CPU copies of its inputs: flipped matches (a descriptor
+    distance at the mdThr gate may round differently in cuBLAS), the
+    largest difference of the matched lines, and the host syncs one call
+    makes (sync debug mode "warn")."""
+    from lldslam_tpu_torch.frontend import line_match
+    cam, kl, kr = args
+    card = line_match.match_stereo_lines(cam, kl, kr, **kw)
+    cpu = line_match.match_stereo_lines(
+        cam, type(kl)(*(x.cpu() for x in kl)),
+        type(kr)(*(x.cpu() for x in kr)), **kw)
+    syncs = host_syncs(lambda: line_match.match_stereo_lines(cam, kl, kr,
+                                                             **kw))
+    both = card.has_stereo.cpu() & cpu.has_stereo
+    sign = torch.where((card.d.cpu() * cpu.d).sum(-1, keepdim=True) < 0,
+                       -1.0, 1.0)
+    out = dict(
+        flips=int((card.r_idx.cpu() != cpu.r_idx).sum()),
+        matched=int(cpu.has_stereo.sum()),
+        max_x0_diff=float((card.X0.cpu() - cpu.X0)[both].abs().max()),
+        max_d_diff=float((sign * card.d.cpu() - cpu.d)[both].abs().max()),
+        syncs=syncs,
+        ms=cuda_ms(lambda: line_match.match_stereo_lines(cam, kl, kr, **kw)))
+    log(f"lines: stereo match of the last frame on the card against the CPU: "
+        f"{out['flips']} of {kl.p1.shape[0]} matches differ ({out['matched']} "
+        f"matched on the CPU), matched lines within {out['max_x0_diff']:.2e} m "
+        f"(X0) and {out['max_d_diff']:.2e} (+-d); {out['syncs']} host syncs "
+        f"per call; {out['ms']:.3f} ms a call")
+    return out
+
+
+def host_syncs(fn) -> int:
+    """Host syncs one call of fn() makes (sync debug mode "warn")."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def eigh_against_power(dev) -> dict:
+    """The stereo line fit's top eigenvector two ways on 256 seeded 3x3
+    covariances of 8 collinear samples each (the matcher's shape): the JAX
+    package's route `torch.linalg.eigh` and the port's power iteration
+    (`line_match._top_eigvec`): host syncs per call, ms a call (CUDA
+    events) and the largest difference of the vectors up to sign."""
+    from lldslam_tpu_torch.frontend.line_match import _top_eigvec
+    g = torch.Generator(device="cpu").manual_seed(0)
+    d = torch.nn.functional.normalize(torch.randn(256, 3, generator=g), dim=-1)
+    t = torch.linspace(0.0, 2.0, 8)[None, :, None]
+    X = (torch.randn(256, 1, 3, generator=g) + t * d[:, None, :]
+         + 1e-3 * torch.randn(256, 8, 3, generator=g)).to(dev)
+    Xc = X - X.mean(1, keepdim=True)
+    cov = torch.einsum("lsi,lsj->lij", Xc, Xc) / 8
+    chord = X[:, -1] - X[:, 0]
+    e = torch.linalg.eigh(cov)[1][..., -1]
+    p = _top_eigvec(cov, chord)
+    sign = torch.where((e * p).sum(-1, keepdim=True) < 0, -1.0, 1.0)
+    out = dict(eigh_syncs=host_syncs(lambda: torch.linalg.eigh(cov)),
+               power_syncs=host_syncs(lambda: _top_eigvec(cov, chord)),
+               eigh_ms=cuda_ms(lambda: torch.linalg.eigh(cov)),
+               power_ms=cuda_ms(lambda: _top_eigvec(cov, chord)),
+               max_diff=float((sign * p - e).abs().max()))
+    log(f"lines: stereo line fit, 256 3x3: eigh {out['eigh_syncs']} host "
+        f"syncs, {out['eigh_ms']:.4f} ms; power iteration "
+        f"{out['power_syncs']} syncs, {out['power_ms']:.4f} ms; vectors "
+        f"within {out['max_diff']:.2e}")
+    return out
+
+
+def jacobians_against_jacfwd(dev, cam) -> dict:
+    """The line Jacobians the line step and the joint BA use, written out
+    (`residuals.line_pose_jacobian`, `residuals.line_jacobians`), against
+    forward-mode differentiation of the same residuals (`torch.func.jacfwd`,
+    the JAX package's route) on seeded lines at the line step's shape (256
+    lines) and the joint local BA's grid (24 keyframes x 512 lines): the
+    largest difference relative to the largest entry, and ms a call."""
+    from lldslam_tpu_torch.geometry import lines as gl, se3
+    from lldslam_tpu_torch.optim import residuals as res
+    g = torch.Generator(device="cpu").manual_seed(1)
+    out = {}
+    for label, n in (("line_step", 256), ("joint_ba", 24 * 512)):
+        r = lambda *s: torch.randn(*s, generator=g)
+        T = se3.exp(0.1 * r(n, 6)).to(dev)
+        X0, d = gl.closest_point_form(3.0 * r(n, 3) + torch.tensor(
+            [0.0, 0.0, 12.0]), r(n, 3))
+        q, a = (x.to(dev) for x in gl.minimal_from_x0dir(X0, d))
+        x1 = (300.0 + 100.0 * r(n, 2)).to(dev)
+        x2 = x1 + 40.0
+
+        def fwd():
+            def f(ep, el):
+                q2 = res._quat_mul(res._quat_increment(el[..., :3]), q)
+                Tr = gl.right_camera_pose(se3.exp(ep) @ T, cam.baseline)
+                return res.line_residual(cam, Tr, q2, a + el[..., 3], x1, x2)
+            z6 = torch.zeros(1, 6, device=dev)
+            z4 = torch.zeros(1, 4, device=dev)
+            return (torch.func.jacfwd(lambda e: f(e, z4))(z6)[..., 0, :],
+                    torch.func.jacfwd(lambda e: f(z6, e))(z4)[..., 0, :])
+
+        an = lambda: res.line_jacobians(cam, T, q, a, x1, x2,
+                                        baseline=cam.baseline)
+        err = max(float((x - y).abs().max() / y.abs().max())
+                  for x, y in zip(an(), fwd()))
+        out[label] = dict(n=n, rel_err=err, analytic_ms=cuda_ms(an),
+                          jacfwd_ms=cuda_ms(fwd))
+        log(f"lines: line Jacobians (pose and line, right camera), {n} "
+            f"observations: analytic {out[label]['analytic_ms']:.3f} ms, "
+            f"torch.func.jacfwd {out[label]['jacfwd_ms']:.3f} ms a call; "
+            f"largest difference {err:.2e} of the largest entry")
+    return out
+
+
+def run_lines(dev, cfg, frames, poses, world, label: str) -> dict:
+    """Stored detections of the frames' world written to a temporary
+    directory, then the frames through System(cfg with lines) on `dev`:
+    kernel launches (counts zeroed just before, read just after), per-frame
+    ms, the line step's, the stereo matcher's and the joint local BA's ms
+    (found by wrapping the functions), line matches, map lines, capacity
+    events, ATE; then the loop closer's global BA once on the final map."""
+    import dataclasses
+    import tempfile
+    from lldslam_tpu_torch.config import LineConfig
+    from lldslam_tpu_torch.frontend import line_match
+    from lldslam_tpu_torch.io.synthetic import gen_stored_lines
+    from lldslam_tpu_torch.io.trajectory import ate_rmse
+    from lldslam_tpu_torch.pipeline import mapper_fast, tracker as tmod
+    from lldslam_tpu_torch.system import System
+
+    cam = cfg.camera.stereo_camera()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lines_")
+    t0 = time.perf_counter()
+    per_frame = gen_stored_lines(cam, poses, world, f"{tmp}/left",
+                                 f"{tmp}/right")
+    log(f"{label}: wrote stored detections in "
+        f"{time.perf_counter() - t0:.1f} s, {statistics.median(per_frame)} "
+        f"per frame median ({min(per_frame)}-{max(per_frame)})")
+    # the stored-line route as the JAX bench's lines section sets it
+    # (bench.py:554-558)
+    sys_ = System(dataclasses.replace(cfg, line=LineConfig(
+        ld_type="LBDFloat", md_thr=0.6, detections_path=f"{tmp}/left",
+        descriptors_path=f"{tmp}/right")), device=dev)
+    sys_.warmup()
+    tr = sys_.tracker
+    step_ms, stereo_ms, jba_ms, last_stereo = [], [], [], []
+    restore = [timed_calls(tmod, "_line_step", step_ms),
+               timed_calls(line_match, "match_stereo_lines", stereo_ms,
+                           keep=last_stereo),
+               timed_calls(mapper_fast, "joint_ba_view_cached", jba_ms)]
+    try:
+        reset_counts()
+        ms, metrics = track(sys_, frames, label=label)
+        counts = read_counts()
+    finally:
+        for r in restore:
+            r()
+    states = [m.state for m in metrics]
+    kf_frames = [m.frame_id for m in metrics if m.new_kf]
+    _, T_wc = tr.trajectory()
+    gt = np.stack([np.linalg.inv(p) for p in poses])
+    lm = [m.n_line_matches for m in metrics]
+    src = tr._line_source
+    s = tr.store
+    out = dict(
+        counts=counts, states=states, kf_frames=kf_frames,
+        ate=ate_rmse(T_wc, gt), ms=ms, step_ms=step_ms, stereo_ms=stereo_ms,
+        jba_ms=jba_ms, line_matches=lm, n_lines=int(s.ln_valid.sum()),
+        n_lines_created=int(s.n_ln),
+        cap=(src[0].cap_events + src[1].cap_events,
+             src[0].cap_dropped + src[1].cap_dropped),
+        line_kf_ms={k: (v if k == "n" else 1e3 * v)
+                    for k, v in tr.line_kf_times.items()},
+        dropped={k: tr.mapper.stage_times.get(k, 0)
+                 for k in ("ln_obs_dropped", "line_view_dropped")},
+        events=len(tr.loop_closer.events), stereo=stereo_lines_on_cpu(
+            *last_stereo))
+    steady = ms[1:]
+    log(f"{label}: keyframes at {kf_frames}; ATE {out['ate']:.5f} m; "
+        f"launches {counts}")
+    log(f"{label}: line matches per frame {lm}; median (frames 1-) "
+        f"{statistics.median(lm[1:])}; valid map lines {out['n_lines']} of "
+        f"{out['n_lines_created']} created; cap events / lines dropped "
+        f"{out['cap']}; {out['dropped']}")
+    log(f"{label}: ms/frame median {statistics.median(steady):.1f} p90 "
+        f"{float(np.percentile(steady, 90)):.1f} (first frame {ms[0]:.1f}); "
+        f"line step ms median {statistics.median(step_ms):.2f} (max "
+        f"{max(step_ms):.2f}); stereo line match ms median "
+        f"{statistics.median(stereo_ms):.2f}; joint local BA ms per keyframe "
+        f"{[round(x, 1) for x in jba_ms]}; keyframe line stages ms "
+        + json.dumps({k: round(v, 2) for k, v in out["line_kf_ms"].items()}))
+
+    # the joint global BA once on the final map
+    lc = tr.loop_closer
+    if lc._gather_line_problem() is None:
+        raise AssertionError(f"{label}: no map line has >= 4 observations")
+    poses_before = s.kf_pose[:s.n_kf].copy()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lc.global_ba()
+    torch.cuda.synchronize()
+    gba_ms = 1e3 * (time.perf_counter() - t)
+    c0 = np.einsum("kji,kj->ki", poses_before[:, :3, :3], poses_before[:, :3, 3])
+    K = s.n_kf
+    c1 = np.einsum("kji,kj->ki", s.kf_pose[:K, :3, :3], s.kf_pose[:K, :3, 3])
+    moved = float(np.linalg.norm(c1 - c0, axis=-1).max())
+    live = s.ln_valid[:s.n_ln]
+    finite = bool(np.isfinite(s.ln_x0[:s.n_ln][live]).all()
+                  and np.isfinite(s.ln_dir[:s.n_ln][live]).all())
+    out.update(global_ba_ms=gba_ms, global_ba_centre_moved=moved,
+               global_ba_lines_finite=finite)
+    log(f"{label}: joint global BA (10 LM x 64 CG) {gba_ms:.1f} ms over {K} "
+        f"keyframes and {int(live.sum())} lines; camera centres moved "
+        f"{moved:.4f} m at most; line states finite: {finite}")
+    return out
+
+
+def phase_lines(dev) -> dict:
+    """The stored-line world of the JAX bench's lines section (bench.py
+    `_bench_lines`): 30 seed-2 frames with lines painted on the walls, KITTI
+    size, 2000 features, loops on; then the same frames with lines off."""
+    from lldslam_tpu_torch.io.synthetic import make_sequence
+    from lldslam_tpu_torch.io.trajectory import ate_rmse
+    from lldslam_tpu_torch.system import System
+
+    cfg = kitti_config()
+    frames, poses, world = make_sequence(cfg.camera.stereo_camera(), N_FRAMES,
+                                         seed=2, with_lines=True,
+                                         return_poses=True)
+    out = run_lines(dev, cfg, frames, poses, world, "lines")
+    out["line_fit"] = eigh_against_power(dev)
+    out["jacobians"] = jacobians_against_jacfwd(dev, cfg.camera.stereo_camera())
+    off = System(cfg, device=dev)
+    ms_off, m_off = track(off, frames, label="lines off")
+    _, T_off = off.tracker.trajectory()
+    gt = np.stack([np.linalg.inv(p) for p in poses])
+    out.update(ate_off=ate_rmse(T_off, gt), ms_off=ms_off,
+               states_off=[m.state for m in m_off],
+               kf_frames_off=[m.frame_id for m in m_off if m.new_kf])
+    log(f"lines: ATE lines on {out['ate']:.5f} m, off {out['ate_off']:.5f} m "
+        f"(JAX-CPU run {LINES_JAX['ate_on']} / {LINES_JAX['ate_off']} m); "
+        f"lines off: keyframes {out['kf_frames_off']}, ms/frame median "
+        f"{statistics.median(ms_off[1:]):.1f}")
+    lm = statistics.median(out["line_matches"][1:])
+    checks = [
+        (all(x == "OK" for x in out["states"]), f"states {out['states']}"),
+        (len(out["kf_frames"]) >= 5, f"keyframes {out['kf_frames']}"),
+        (out["ate"] <= ATE_BOUND_M, f"ATE {out['ate']} m"),
+        (LINE_MATCH_RANGE[0] <= lm <= LINE_MATCH_RANGE[1],
+         f"line matches median {lm}"),
+        (LINE_MAP_RANGE[0] <= out["n_lines"] <= LINE_MAP_RANGE[1],
+         f"valid map lines {out['n_lines']}"),
+        (out["cap"] == LINES_JAX["cap"], f"cap events {out['cap']}"),
+        (out["global_ba_lines_finite"], "non-finite line after global BA"),
+        (out["global_ba_centre_moved"] < 0.05,
+         f"global BA moved a camera {out['global_ba_centre_moved']} m"),
+        (all(x == "OK" for x in out["states_off"]),
+         f"lines off: states {out['states_off']}"),
+        (out["ate_off"] <= ATE_BOUND_M, f"lines off: ATE {out['ate_off']} m"),
+    ]
+    bad = [msg for ok, msg in checks if not ok]
+    if bad:
+        raise AssertionError("lines: " + "; ".join(bad))
+    need_launches(out["counts"], "lines", ("tracking", "fusion"))
+    return out
+
+
 def phase_loop(dev) -> dict:
     from lldslam_tpu_torch.io.synthetic import make_ring_sequence
     from lldslam_tpu_torch.io.trajectory import ate_rmse
@@ -607,7 +917,9 @@ def main() -> int:
     phase_build()
     k1a, k1b = phase_k1(dev)
     k2g = phase_k2g(dev)
-    paths = dict(main=phase_main_path(dev), loop=phase_loop(dev))
+    paths = dict(main=phase_main_path(dev))
+    paths["lines"] = phase_lines(dev)["counts"]
+    paths["loop"] = phase_loop(dev)
     paths["reloc"], paths["reloc_site"] = phase_reloc(dev)
     by_path = lambda k: {p: c[k] for p, c in paths.items()}
     kernels = [

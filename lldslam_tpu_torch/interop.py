@@ -6,9 +6,10 @@ with `np.asarray`, and results go back as numpy arrays. uint32 descriptors
 become int32 views (torch.uint32 has no bitwise ops on the CPU) and back.
 
 Covered: FrameFeatures and FrameData, MapPointView, the MapStore arrays,
-StereoCamera / OrbConfig / SlamConfig given as field dicts, and for loop
+StereoCamera / OrbConfig / SlamConfig given as field dicts, for loop
 closing a Vocabulary, a PoseGraph, a sparse BAProblem/BAObs and the
-contents of a KeyFrameDatabase.
+contents of a KeyFrameDatabase, and for lines KeyLines, FrameLines,
+LinePoseObs, LineBAObs and JointProblem.
 """
 from __future__ import annotations
 
@@ -19,12 +20,16 @@ import torch
 
 from .config import CameraConfig, LineConfig, SlamConfig, TrackingConfig
 from .frontend.frame import FrameData
+from .frontend.line_extract import KeyLines
+from .frontend.line_match import FrameLines
 from .frontend.matching import FrameFeatures, MapPointView
 from .geometry.camera import StereoCamera
 from .loop.bow import Vocabulary
 from .loop.database import KeyFrameDatabase
 from .ops.orb import Keypoints, OrbConfig
 from .optim.ba import BAObs, BAProblem
+from .optim.lines_ba import JointProblem, LineBAObs
+from .optim.pose_opt import LinePoseObs
 from .optim.pose_graph import PoseGraph
 from .slammap.map_store import MapStore
 
@@ -132,6 +137,38 @@ def ba_problem(src, device="cpu") -> BAProblem:
     return BAProblem(poses=t("poses"), points=t("points"),
                      pose_fixed=t("pose_fixed"), point_valid=t("point_valid"),
                      obs=_int64_fields(BAObs, get("obs"), ("k", "p"), device))
+
+
+def key_lines(src, device="cpu") -> KeyLines:
+    """JAX KeyLines (or a dict of its fields) -> port tensors."""
+    return _convert(KeyLines, src, device)
+
+
+def frame_lines(src, device="cpu") -> FrameLines:
+    """JAX FrameLines (its KeyLines included) -> port tensors."""
+    get = src.get if isinstance(src, dict) else (lambda k: getattr(src, k))
+    return FrameLines(kl=key_lines(get("kl"), device), **{
+        k: _to_tensor(k, get(k), device) for k in FrameLines._fields[1:]})
+
+
+def line_pose_obs(src, device="cpu") -> LinePoseObs:
+    """JAX LinePoseObs -> port tensors."""
+    return _convert(LinePoseObs, src, device)
+
+
+def line_ba_obs(src, device="cpu") -> LineBAObs:
+    """JAX LineBAObs -> port tensors (indices as int64)."""
+    return _int64_fields(LineBAObs, src, ("k", "l"), device)
+
+
+def joint_problem(src, device="cpu") -> JointProblem:
+    """JAX JointProblem (BAProblem, line state, LineBAObs) -> port tensors."""
+    get = src.get if isinstance(src, dict) else (lambda k: getattr(src, k))
+    t = lambda k: torch.from_numpy(np.ascontiguousarray(
+        np.asarray(get(k)))).to(device)
+    return JointProblem(base=ba_problem(get("base"), device), q=t("q"),
+                        alpha=t("alpha"), line_valid=t("line_valid"),
+                        lobs=line_ba_obs(get("lobs"), device))
 
 
 def keyframe_database(src, voc: Vocabulary) -> KeyFrameDatabase:

@@ -10,6 +10,11 @@
    tests/test_loop_e2e.py (`_make_ring_world`, `_circle_pose`);
    `make_points_world` and `corridor_poses` are the forward corridor of
    tests/test_pipeline.py (`_make_world`) that tests/test_reloc.py blinds.
+3. `gen_stored_lines`: stored line detections of the corridor of
+   `make_sequence` (bench.py `_gen_stored_lines_ref_scale`), written in the
+   stored-line format.
+4. `make_loop_map` fills a MapStore with a drifting circle for loop-closer
+   tests; `add_loop_lines` adds the map lines its keyframes observe.
 
 Motion increments come from this package's `se3.exp`, so the machine
 without JAX generates the same frames; for one seed the images and poses
@@ -165,6 +170,71 @@ def make_sequence(cam, n_frames: int, n_per_m: float = 40.0, seed: int = 0,
         return frames, poses, dict(half_w=half_w, cam_h=cam_h,
                                    length=length, wall_top=wall_top)
     return frames
+
+
+def gen_stored_lines(cam, poses, world: dict, left, right, seed: int = 5,
+                     dz: float = 0.32, desc_dim: int = 40) -> list[int]:
+    """Stored line detections of the `make_sequence` corridor (`world` is
+    its third return value with `return_poses`), generated geometrically:
+    vertical wall segments every `dz` metres and horizontal rails, projected
+    with the true poses into both views, one unit descriptor per segment
+    plus per-observation noise (sigma 0.008) well inside the match gate.
+    Writes one file per frame per view into `left` / `right`; returns the
+    left view's line count per frame."""
+    from .stored_lines import save_frame_lines
+
+    rng = np.random.default_rng(seed)
+    half_w, cam_h = world["half_w"], world["cam_h"]
+    length, wall_top = world["length"], world["wall_top"]
+    segs, descs = [], []
+    for x in (-half_w, half_w):
+        for z in np.arange(1.0, length, dz):
+            y0 = rng.uniform(wall_top + 1.0, 0.2)
+            y1 = min(y0 + rng.uniform(1.2, 3.0), cam_h - 0.1)
+            segs.append(((x, y0, z + rng.uniform(-0.15, 0.15)),
+                         (x, y1, z + rng.uniform(-0.15, 0.15))))
+            d = rng.normal(size=desc_dim).astype(np.float32)
+            descs.append(d / np.linalg.norm(d))
+        # horizontal rails every 7.5 dz
+        for z in np.arange(2.0, length, 7.5 * dz):
+            y = rng.uniform(wall_top + 1.5, 0.8)
+            segs.append(((x, y, z), (x, y, z + rng.uniform(2.0, 4.0))))
+            d = rng.normal(size=desc_dim).astype(np.float32)
+            descs.append(d / np.linalg.norm(d))
+    P1 = np.array([s[0] for s in segs], np.float32)
+    P2 = np.array([s[1] for s in segs], np.float32)
+    D = np.array(descs, np.float32)
+    W, H = cam.width, cam.height
+
+    def project(T_cw, off_x=0.0):
+        R, t = T_cw[:3, :3], T_cw[:3, 3].copy()
+        # right camera: the centre shifted by the baseline along camera x
+        t = t - np.array([off_x, 0.0, 0.0], np.float32)
+        X1 = P1 @ R.T + t
+        X2 = P2 @ R.T + t
+        ok = (X1[:, 2] > 0.5) & (X2[:, 2] > 0.5)
+        u1 = cam.fx * X1[:, 0] / np.maximum(X1[:, 2], 1e-6) + cam.cx
+        v1 = cam.fy * X1[:, 1] / np.maximum(X1[:, 2], 1e-6) + cam.cy
+        u2 = cam.fx * X2[:, 0] / np.maximum(X2[:, 2], 1e-6) + cam.cx
+        v2 = cam.fy * X2[:, 1] / np.maximum(X2[:, 2], 1e-6) + cam.cy
+        m = 2.0
+        ok &= (u1 > m) & (u1 < W - m) & (v1 > m) & (v1 < H - m)
+        ok &= (u2 > m) & (u2 < W - m) & (v2 > m) & (v2 < H - m)
+        ok &= np.hypot(u2 - u1, v2 - v1) > 26.0
+        return np.stack([u1, v1], -1), np.stack([u2, v2], -1), ok
+
+    counts = []
+    for i, T_cw in enumerate(poses):
+        for out, off in ((left, 0.0), (right, cam.baseline)):
+            p1, p2, ok = project(T_cw, off)
+            idx = np.nonzero(ok)[0]
+            nz = rng.normal(0, 0.008, (len(idx), desc_dim)).astype(np.float32)
+            save_frame_lines(out, i, p1[idx], p2[idx],
+                             np.zeros(len(idx), np.int32), D[idx] + nz,
+                             valid=np.ones(len(idx), bool))
+            if off == 0.0:
+                counts.append(len(idx))
+    return counts
 
 
 PATCH = 41       # side of a stamped patch (pixels)
@@ -344,3 +414,70 @@ def make_loop_map(store, n_kf: int = 24, seed: int = 0):
     store.refresh_obs_counts()
     store._update_point_geometry(np.nonzero(store.pt_valid[:store.n_pt])[0])
     return true_poses
+
+
+def add_loop_lines(store, true_poses, n_lines: int = 240, seed: int = 1,
+                   desc_dim: int = 40):
+    """Add map lines to a map made by `make_loop_map` (either package's
+    MapStore), as a stereo line tracker would: vertical segments on the
+    ring band, observed in both views of every keyframe that sees both
+    endpoints (pixel noise 0.3, octave 0, a unit descriptor per segment
+    plus noise 0.008 per observation). A line keeps its id while
+    consecutive keyframes see it and is created again when it comes back
+    into view, in the estimated frame of the creating keyframe (the frame
+    its points are placed in). Returns the number of lines created."""
+    rng = np.random.default_rng(seed)
+    cam = store.cam
+    th = rng.uniform(0, 2 * np.pi, n_lines)
+    r = rng.uniform(18.0, 45.0, n_lines)
+    y0 = rng.uniform(-5.0, -1.0, n_lines)
+    y1 = y0 + rng.uniform(2.0, 5.0, n_lines)
+    P1 = np.stack([r * np.cos(th), y0, r * np.sin(th)], -1)
+    P2 = np.stack([r * np.cos(th), y1, r * np.sin(th)], -1)
+    base = rng.normal(size=(n_lines, desc_dim))
+    base /= np.linalg.norm(base, axis=-1, keepdims=True)
+    LD, m = store.n_ln_det, 20.0
+
+    def project(T, P, off=0.0):
+        Xc = P @ T[:3, :3].T + T[:3, 3] - np.array([off, 0.0, 0.0])
+        z = np.maximum(Xc[:, 2], 1e-6)
+        uv = np.stack([cam.fx * Xc[:, 0] / z + cam.cx,
+                       cam.fy * Xc[:, 1] / z + cam.cy], -1)
+        ok = (Xc[:, 2] > 0.5) & (uv[:, 0] > m) & (uv[:, 0] < cam.width - m) \
+            & (uv[:, 1] > m) & (uv[:, 1] < cam.height - m)
+        return uv, ok
+
+    prev, n_new = {}, 0
+    for kf, T in enumerate(true_poses):
+        a1, ok1 = project(T, P1)
+        a2, ok2 = project(T, P2)
+        b1, ok3 = project(T, P1, cam.baseline)
+        b2, ok4 = project(T, P2, cam.baseline)
+        seen = np.nonzero(ok1 & ok2 & ok3 & ok4 & (
+            np.linalg.norm(a2 - a1, axis=-1) > 30.0))[0][:LD]
+        n = len(seen)
+        noisy = lambda a: np.zeros((LD, 2), np.float32) if n == 0 else \
+            np.concatenate([a[seen] + rng.normal(0, 0.3, (n, 2)),
+                            np.zeros((LD - n, 2))]).astype(np.float32)
+        desc = np.zeros((LD, desc_dim), np.float32)
+        desc[:n] = base[seen] + rng.normal(0, 0.008, (n, desc_dim))
+        lines_np = dict(p1=noisy(a1), p2=noisy(a2), p1r=noisy(b1),
+                        p2r=noisy(b2), has_r=np.arange(LD) < n,
+                        octave=np.zeros(LD, np.int32), desc=desc,
+                        valid=np.arange(LD) < n)
+        ids = np.full(LD, -1, np.int32)
+        old = np.array([w in prev for w in seen], bool)
+        ids[np.nonzero(old)[0]] = [prev[w] for w in seen[old]]
+        store.add_keyframe_lines(kf, lines_np, ids)
+        f_new = np.nonzero(~old)[0]
+        T_wc = np.linalg.inv(store.kf_pose[kf]) @ T
+        q1 = P1[seen[f_new]] @ T_wc[:3, :3].T + T_wc[:3, 3]
+        q2 = P2[seen[f_new]] @ T_wc[:3, :3].T + T_wc[:3, 3]
+        d = (q2 - q1) / np.linalg.norm(q2 - q1, axis=-1, keepdims=True)
+        X0 = q1 - np.sum(q1 * d, axis=-1, keepdims=True) * d
+        new_ids = store.create_lines(kf, f_new, X0.astype(np.float32),
+                                     d.astype(np.float32))
+        n_new += len(new_ids)
+        prev = dict(zip(seen[old].tolist(), ids[np.nonzero(old)[0]].tolist()))
+        prev.update(zip(seen[f_new].tolist(), new_ids.tolist()))
+    return n_new

@@ -1,5 +1,4 @@
-"""Loop closing: detection, Sim(3) verification and map-wide correction,
-points only.
+"""Loop closing: detection, Sim(3) verification and map-wide correction.
 
 Counterpart of lldslam_tpu/loop/closing.py, a deterministic per-keyframe
 step the tracker calls after local mapping:
@@ -13,16 +12,18 @@ step the tracker calls after local mapping:
    points into the current keyframe through K2 at 8192 rows, accepted at
    >= 40 matched features;
 3. correction: essential-graph optimization (spanning tree, past loop
-   edges, covisibility >= 100, the new loop edge), point remap through
-   each point's anchor keyframe, loop fusion into the corrected group
-   (K2 again, per group keyframe), then global BA on the matrix-free CG
-   path (10 iterations, 64 CG steps).
+   edges, covisibility >= 100, the new loop edge), point and map-line
+   remap through each landmark's anchor keyframe, loop fusion into the
+   corrected group (K2 again, per group keyframe), then global BA on the
+   matrix-free CG path (10 iterations, 64 CG steps): points only, or the
+   joint point+line problem (`lines_ba.joint_ba_solve_cg`) when the map
+   holds lines with >= 4 (stereo-weighted) observations.
 
 Scale stays fixed (stereo). Host numpy bookkeeping is ported line for line;
-the solvers run on the loop closer's device. The RANSAC draw uses a
-`torch.Generator` seeded 0 on that device. Lines in the global problem
-raise NotImplementedError. Global BA runs on one device: the JAX package's
-multi-device path (parallel/dist_schur.py) has no counterpart here.
+the solvers run on the loop closer's device (the card by default). The
+RANSAC draw uses a `torch.Generator` seeded 0 on that device. Global BA
+runs on one device: the JAX package's multi-device path
+(parallel/dist_schur.py) has no counterpart here.
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ import torch
 from ..config import SlamConfig
 from ..frontend import matching
 from ..ops import hamming
-from ..optim import ba, pose_graph, sim3_solver
+from ..geometry import lines as glines
+from ..optim import ba, lines_ba, pose_graph, sim3_solver
 from ..pipeline.mapper_fast import view_from_store
 from ..slammap.map_store import MapStore
 from .bow import Vocabulary
@@ -79,7 +81,7 @@ def project_match(store: MapStore, feats: matching.FrameFeatures,
 
 class LoopCloser:
     def __init__(self, store: MapStore, voc: Vocabulary, cfg: SlamConfig,
-                 device="cpu"):
+                 device="cuda"):
         self.store = store
         self.device = torch.device(device)
         self.voc = voc.to(self.device)
@@ -276,10 +278,6 @@ class LoopCloser:
         tt = time.perf_counter()
         s = self.store
         K = s.n_kf
-        if s.ln_valid[: s.n_ln].any():
-            raise NotImplementedError(
-                "loop correction of map lines is not ported to "
-                "lldslam_tpu_torch yet; see ROADMAP queue 1 item 5")
         R_cm, t_cm, s_cm = S_cm
         poses_old = s.kf_pose[:K].copy()
 
@@ -359,6 +357,7 @@ class LoopCloser:
         Xw = np.einsum("nji,nj->ni", R_new[anchors],
                        (Xa - t_new[anchors]) / s_new[anchors][:, None])
         s.pt_pos[pids] = Xw.astype(np.float32)
+        self._remap_lines(poses_old, R_new, t_new, s_new)
         s.kf_pose[:K] = T_new
 
         # loop fusion: the guided matches bind into the current KF, then the
@@ -380,6 +379,27 @@ class LoopCloser:
         self.global_ba()
         self._time("global_ba", t2)
         self.stage_times["n_events"] = self.stage_times.get("n_events", 0) + 1
+
+    def _remap_lines(self, poses_old, R_new, t_new, s_new):
+        """Map lines through their anchor keyframe like the points:
+        X0' = S_new^-1 (T_old X0), d' = R_new^T (R_old d), then the
+        X0-perpendicular-to-d form restored."""
+        s = self.store
+        lids = np.nonzero(s.ln_valid[: s.n_ln])[0]
+        if len(lids) == 0:
+            return
+        a = np.clip(s.ln_first_kf[lids], 0, len(poses_old) - 1)
+        To = poses_old[a]
+        X0a = np.einsum("nij,nj->ni", To[:, :3, :3], s.ln_x0[lids]) \
+            + To[:, :3, 3]
+        da = np.einsum("nij,nj->ni", To[:, :3, :3], s.ln_dir[lids])
+        X0w = np.einsum("nji,nj->ni", R_new[a],
+                        (X0a - t_new[a]) / s_new[a][:, None])
+        dw = np.einsum("nji,nj->ni", R_new[a], da)
+        dw /= np.maximum(np.linalg.norm(dw, axis=-1, keepdims=True), 1e-9)
+        X0w = X0w - np.sum(X0w * dw, axis=-1, keepdims=True) * dw
+        s.ln_x0[lids] = X0w.astype(np.float32)
+        s.ln_dir[lids] = dw.astype(np.float32)
 
     def _fuse_into_kf(self, kf: int, kp2pid: np.ndarray):
         """Bind matched loop points into one keyframe: a hit on a feature
@@ -432,12 +452,10 @@ class LoopCloser:
     def global_ba(self):
         """Full-map BA on the matrix-free CG path (10 LM iterations of 64 CG
         steps), single device: every valid point, one observation per
-        (KF, point), subsampled evenly above GBA_OBS_CAP, KF 0 fixed."""
+        (KF, point), subsampled evenly above GBA_OBS_CAP, KF 0 fixed; with
+        every observation of the lines that have >= 4 (stereo-weighted)
+        observations as a second landmark class when there are any."""
         s = self.store
-        if (s.ln_valid[: s.n_ln] & (s.ln_nobs[: s.n_ln] >= 4)).any():
-            raise NotImplementedError(
-                "the joint point+line global BA is not ported to "
-                "lldslam_tpu_torch yet; see ROADMAP queue 1 item 5")
         K = s.n_kf
         pids = np.nonzero(s.pt_valid[: s.n_pt])[0]
         if K < 2 or len(pids) == 0:
@@ -473,6 +491,58 @@ class LoopCloser:
                 uvr=self._t(uvr.astype(np.float32)),
                 inv_sigma2=self._t(self._inv_sigma2[s.kf_oct[kf_idx, feat_idx]]),
                 is_stereo=self._t(ur >= 0), valid=ones(len(kf_idx))))
-        solved, _ = ba.ba_solve(s.cam, problem, iters=10, cg_iters=64)
+        lp = self._gather_line_problem()
+        if lp is None:
+            solved, _ = ba.ba_solve(s.cam, problem, iters=10, cg_iters=64)
+        else:
+            lids, q, alpha, lobs = lp
+            joint, _, _ = lines_ba.joint_ba_solve_cg(
+                s.cam, lines_ba.JointProblem(
+                    base=problem, q=q, alpha=alpha,
+                    line_valid=ones(len(lids)), lobs=lobs),
+                iters=10, cg_iters=64, gamma=float(self.cfg.line.gamma))
+            solved = joint.base
+            self._write_back_lines(lids, joint.q, joint.alpha)
         s.kf_pose[:K] = solved.poses.cpu().numpy()
         s.pt_pos[pids] = solved.points.cpu().numpy()
+
+    def _gather_line_problem(self, min_obs: int = 4):
+        """The line half of the global problem: the valid lines with
+        >= min_obs observations and every keyframe observation of them.
+        Returns (lids, q, alpha, LineBAObs) or None when there is none."""
+        s = self.store
+        K = s.n_kf
+        lids = np.nonzero(s.ln_valid[: s.n_ln]
+                          & (s.ln_nobs[: s.n_ln] >= min_obs))[0]
+        if len(lids) == 0:
+            return None
+        kf_idx, det_idx = np.nonzero(s.kf_ln_ids[:K] >= 0)
+        obs_l = s.kf_ln_ids[kf_idx, det_idx]
+        keep = np.isin(obs_l, lids)
+        kf_idx, det_idx, obs_l = kf_idx[keep], det_idx[keep], obs_l[keep]
+        if len(kf_idx) == 0:
+            return None
+        ln_lut = np.full(s.max_ln, -1, np.int64)
+        ln_lut[lids] = np.arange(len(lids))
+        t = self._t
+        lobs = lines_ba.LineBAObs(
+            k=t(kf_idx.astype(np.int64)), l=t(ln_lut[obs_l]),
+            x1l=t(s.kf_ln_p1[kf_idx, det_idx]),
+            x2l=t(s.kf_ln_p2[kf_idx, det_idx]),
+            x1r=t(s.kf_ln_p1r[kf_idx, det_idx]),
+            x2r=t(s.kf_ln_p2r[kf_idx, det_idx]),
+            octave=t(s.kf_ln_oct[kf_idx, det_idx]),
+            has_r=t(s.kf_ln_has_r[kf_idx, det_idx]),
+            valid=torch.ones(len(kf_idx), dtype=torch.bool,
+                             device=self.device))
+        q, alpha = glines.minimal_from_x0dir(t(s.ln_x0[lids]),
+                                             t(s.ln_dir[lids]))
+        return lids, q, alpha, lobs
+
+    def _write_back_lines(self, lids: np.ndarray, q, alpha):
+        """Solved minimal line states back into the store, where finite."""
+        s = self.store
+        X0, d = (x.cpu().numpy() for x in glines.x0dir_from_minimal(q, alpha))
+        fin = np.isfinite(X0).all(-1) & np.isfinite(d).all(-1)
+        s.ln_x0[lids[fin]] = X0[fin]
+        s.ln_dir[lids[fin]] = d[fin]

@@ -1,12 +1,18 @@
 """Pose-only optimization: Levenberg-Marquardt with Huber IRLS and
-round-based inlier reclassification, points only.
+round-based inlier reclassification, with point and line edges.
 
-Counterpart of lldslam_tpu/optim/pose_opt.py (`optimize_pose` without line
-edges): 4 rounds x 10 LM iterations on the frame pose, stereo/mono point
-edges with per-octave information, a damped 6x6 solve per iteration, and
-after each round every edge is reclassified against chi2 5.991 (mono) /
-7.815 (stereo). Accept/reject stays on the device (`torch.where`), so the
-solver never waits for the host.
+Counterpart of lldslam_tpu/optim/pose_opt.py (`optimize_pose`): `rounds` x
+`iters` LM iterations on the frame pose (4 x 10 by default; the tracker's
+line step runs 2 x 6), a damped 6x6 solve per iteration, and after each
+round every edge is reclassified:
+- stereo/mono point edges with per-octave information, against chi2 5.991
+  (mono) / 7.815 (stereo);
+- line edges of fixed 3D lines, two per stereo line observation (left and
+  right camera), information gamma^2 / 1.44^(2 octave), Huber delta and
+  threshold gamma^2-scaled, inliers at twice the threshold, with analytic
+  Jacobians (`residuals.line_pose_jacobian`).
+Accept/reject stays on the device (`torch.where`), so the solver never
+waits for the host.
 """
 from __future__ import annotations
 
@@ -14,9 +20,11 @@ from typing import NamedTuple
 
 import torch
 
-from ..geometry import se3
+from ..geometry import lines as glines, se3
 from ..geometry.camera import StereoCamera
 from . import residuals as res
+
+LINE_PYR_FACTOR = 1.44
 
 
 class PointPoseObs(NamedTuple):
@@ -27,6 +35,20 @@ class PointPoseObs(NamedTuple):
     inv_sigma2: torch.Tensor  # (N,) per-octave information
     is_stereo: torch.Tensor   # (N,) bool
     valid: torch.Tensor       # (N,) bool
+
+
+class LinePoseObs(NamedTuple):
+    """Fixed-capacity line observations (fixed 3D geometry) for one frame."""
+
+    X0: torch.Tensor          # (M, 3) world closest point
+    d: torch.Tensor           # (M, 3) world unit direction
+    x1_l: torch.Tensor        # (M, 2) observed left endpoints
+    x2_l: torch.Tensor
+    x1_r: torch.Tensor        # (M, 2) observed right endpoints
+    x2_r: torch.Tensor
+    octave: torch.Tensor      # (M,) int32
+    has_right: torch.Tensor   # (M,) bool: stereo observation present
+    valid: torch.Tensor       # (M,) bool
 
 
 def _row_weights(is_stereo: torch.Tensor) -> torch.Tensor:
@@ -52,23 +74,64 @@ def _point_terms(cam, T, p: PointPoseObs, inlier, delta_m2, delta_s2,
     return H, b, cost, chi2
 
 
+def _line_terms(cam, T, l: LinePoseObs, inlier, gamma: float,
+                need_system: bool = True):
+    """Left and right line edges: (H, b, cost, chi2 (M,), delta_sq (M,));
+    H and b are None without `need_system`."""
+    info = (gamma * gamma) / (LINE_PYR_FACTOR
+                              ** (2.0 * l.octave.to(torch.float32)))
+    delta_sq = torch.where(l.has_right, res.CHI2_STEREO * gamma * gamma,
+                           res.CHI2_MONO * gamma * gamma)
+    T_r = glines.right_camera_pose(T, cam.baseline)
+    right = l.has_right.to(torch.float32)
+    H = b = None
+    cost = torch.zeros((), dtype=T.dtype, device=T.device)
+    chi2 = []
+    for T_cam, x1, x2, active in ((T, l.x1_l, l.x2_l, inlier),
+                                  (T_r, l.x1_r, l.x2_r, inlier * right)):
+        r = glines.endpoint_residual(cam, T_cam, l.X0, l.d, x1, x2)  # (M, 2)
+        c2 = info * torch.sum(r * r, dim=-1)
+        chi2.append(c2)
+        cost = cost + torch.sum(res.huber_rho(c2, delta_sq) * active)
+        if need_system:
+            # (M, 2, 6), the increment applied to this camera's pose as in
+            # the JAX package (exp(xi) T_cam, also for the right camera)
+            J = res.line_pose_jacobian(cam, T_cam, l.X0, l.d, x1, x2)
+            w = info * res.huber_weight(c2, delta_sq) * active
+            Hc = torch.einsum("mri,m,mrj->ij", J, w, J)
+            bc = -torch.einsum("mri,m,mr->i", J, w, r)
+            H, b = (Hc, bc) if H is None else (H + Hc, b + bc)
+    chi2 = chi2[0] + torch.where(l.has_right, chi2[1], torch.zeros_like(chi2[1]))
+    return H, b, cost, chi2, delta_sq
+
+
 def optimize_pose(cam: StereoCamera, T_init: torch.Tensor, pts: PointPoseObs,
+                  lns: LinePoseObs | None = None, gamma: float = 0.5,
                   rounds: int = 4, iters: int = 10):
-    """Returns (T_opt (4, 4), point_inlier_mask (N,), n_inliers (0-d))."""
+    """Returns (T_opt (4, 4), point inlier mask (N,), line inlier mask (M,)
+    (empty without lines), n_inliers (0-d): the point inliers)."""
     delta_m2, delta_s2 = res.CHI2_MONO, res.CHI2_STEREO
     dev, dt = T_init.device, T_init.dtype
     eye6 = torch.eye(6, dtype=dt, device=dev)
     T = T_init
     pt_in = pts.valid.to(torch.float32)
+    ln_in = (lns.valid.to(torch.float32) if lns is not None
+             else torch.zeros(0, dtype=torch.float32, device=dev))
     for _ in range(rounds):
         lam = torch.full((), 1e-5, dtype=dt, device=dev)
         for _ in range(iters):
             H, b, cost, _ = _point_terms(cam, T, pts, pt_in, delta_m2, delta_s2)
+            if lns is not None:
+                Hl, bl, cl, _, _ = _line_terms(cam, T, lns, ln_in, gamma)
+                H, b, cost = H + Hl, b + bl, cost + cl
             Hd = H + lam * torch.diag(torch.diagonal(H)) + 1e-8 * eye6
             dx = torch.linalg.solve_ex(Hd, b)[0]
             T_new = se3.exp(dx) @ T
             _, _, cost_new, _ = _point_terms(cam, T_new, pts, pt_in, delta_m2,
                                              delta_s2, need_system=False)
+            if lns is not None:
+                cost_new = cost_new + _line_terms(
+                    cam, T_new, lns, ln_in, gamma, need_system=False)[2]
             accept = cost_new < cost
             T = torch.where(accept, T_new, T)
             lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0),
@@ -78,4 +141,9 @@ def optimize_pose(cam: StereoCamera, T_init: torch.Tensor, pts: PointPoseObs,
                                      delta_m2, delta_s2, need_system=False)
         th = torch.where(pts.is_stereo, delta_s2, delta_m2)
         pt_in = (pts.valid & (chi2 <= th)).to(torch.float32)
-    return T, pt_in > 0, pt_in.sum().to(torch.int32)
+        if lns is not None:
+            _, _, _, chi2_l, th_l = _line_terms(
+                cam, T, lns, lns.valid.to(torch.float32), gamma,
+                need_system=False)
+            ln_in = (lns.valid & (chi2_l <= 2.0 * th_l)).to(torch.float32)
+    return T, pt_in > 0, ln_in > 0, pt_in.sum().to(torch.int32)

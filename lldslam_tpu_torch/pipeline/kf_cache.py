@@ -27,7 +27,7 @@ class CacheArrays(NamedTuple):
 
 
 class KfCache:
-    def __init__(self, n_slots: int, n_kp: int, device="cpu"):
+    def __init__(self, n_slots: int, n_kp: int, device="cuda"):
         self.n_slots = n_slots
         self.n_kp = n_kp
         S, N = n_slots, n_kp

@@ -1,13 +1,17 @@
 """Deterministic local mapping: the keyframe-rate map update + local BA.
 
-Counterpart of lldslam_tpu/pipeline/local_mapping.py, synchronous path and
-points only. `process_keyframe` runs, in the reference LocalMapping order:
+Counterpart of lldslam_tpu/pipeline/local_mapping.py, synchronous path.
+`process_keyframe` runs, in the reference LocalMapping order:
 
     recent-point culling -> epipolar triangulation + duplicate fusion
     (one device stage, `mapper_fast.kf_stage_cached`) -> host writeback
     -> windowed local BA with on-device tracking-view assembly
-    (`mapper_fast.ba_view_cached`) -> outlier observation erasure
-    -> keyframe culling.
+    (`mapper_fast.ba_view_cached`; with lines on, the joint point+line BA
+    `mapper_fast.joint_ba_view_cached` over the window's map lines, at most
+    `l_cap` lines and `lo_cap` line observations, the overflow counted in
+    `stage_times["ln_obs_dropped"]`) -> outlier observation erasure (line
+    observations too) -> keyframe culling (a culled keyframe's line
+    observations go with its point observations).
 
 The JAX package's dispatch/absorb pairs, IO thread pools, packed buffers and
 adaptive BA cadence serve its pipelined tracker over a slow host link; here
@@ -26,6 +30,7 @@ import torch
 
 from ..config import SlamConfig
 from ..frontend import matching
+from ..optim import lines_ba
 from ..slammap.map_store import MapStore
 from . import mapper_fast
 from .kf_cache import KfCache
@@ -44,7 +49,7 @@ def view_capacity(n_points: int) -> int:
 class LocalMapper:
     def __init__(self, store: MapStore, cfg: SlamConfig, k_local: int = 16,
                  k_fixed: int = 8, p_cap: int = 8192, o_cap: int = 24576,
-                 cache: KfCache | None = None, device="cpu"):
+                 cache: KfCache | None = None, device="cuda"):
         self.store = store
         self.cfg = cfg
         self.cam = store.cam
@@ -54,6 +59,10 @@ class LocalMapper:
         self.k_cap = k_local + k_fixed
         self.p_cap = p_cap
         self.o_cap = o_cap
+        # joint BA window: at most 512 lines and 2048 line observations
+        self.l_cap = 512
+        self.lo_cap = 2048
+        self.enable_lines = cfg.line.enabled
         # point-capacity buckets, grown monotonically as the map grows
         self.p_buckets = [b for b in (1024, 2048, 4096, 8192) if b <= p_cap]
         if not self.p_buckets or self.p_buckets[-1] != p_cap:
@@ -305,22 +314,99 @@ class LocalMapper:
             tv=mapper_fast.view_from_store(s, view_pids, tv_cap, self.device),
             vp=np.concatenate([view_pids,
                                np.full(tv_cap - len(view_pids), -1, np.int64)]))
+        if self.enable_lines:
+            prep["lmeta"] = lmeta = self._line_obs_np(window)
+            prep["lines"] = self._line_tensors(window, lmeta)
         self._time("dba_build", t0)
         return prep
+
+    def _line_tensors(self, window: np.ndarray, lmeta: dict):
+        """Device tensors of the line half of the window: (x0, dir, valid)
+        padded to l_cap rows, and the LineBAObs padded to lo_cap rows."""
+        s = self.store
+        LC, LO = self.l_cap, self.lo_cap
+        lids, O = lmeta["lids"], lmeta["n_lobs"]
+        x0 = np.zeros((LC, 3), np.float32)
+        dr = np.tile(np.array([1, 0, 0], np.float32), (LC, 1))
+        x0[:len(lids)] = s.ln_x0[lids]
+        dr[:len(lids)] = s.ln_dir[lids]
+        k, l = np.zeros(LO, np.int64), np.zeros(LO, np.int64)
+        k[:O], l[:O] = lmeta["wk"], lmeta["l_idx"]
+        kf, det = window[lmeta["wk"]], lmeta["wd"]
+        xs = np.zeros((4, LO, 2), np.float32)
+        for i, a in enumerate((s.kf_ln_p1, s.kf_ln_p2, s.kf_ln_p1r,
+                               s.kf_ln_p2r)):
+            xs[i, :O] = a[kf, det]
+        oct_ = np.zeros(LO, np.int32)
+        oct_[:O] = s.kf_ln_oct[kf, det]
+        hasr = np.zeros(LO, bool)
+        hasr[:O] = s.kf_ln_has_r[kf, det]
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        xs = t(xs)
+        lobs = lines_ba.LineBAObs(
+            k=t(k), l=t(l), x1l=xs[0], x2l=xs[1], x1r=xs[2], x2r=xs[3],
+            octave=t(oct_), has_r=t(hasr), valid=t(np.arange(LO) < O))
+        return t(x0), t(dr), t(np.arange(LC) < len(lids)), lobs
+
+    def _line_obs_np(self, window: np.ndarray) -> dict:
+        """Line half of the BA window: the valid lines the window keyframes
+        observe (the last l_cap), one observation per (keyframe, line), at
+        most lo_cap of them."""
+        s = self.store
+        lids = np.unique(s.kf_ln_ids[window])
+        lids = lids[lids >= 0]
+        lids = lids[s.ln_valid[lids]][-self.l_cap:]
+        ln_lut = np.full(s.max_ln, -1, np.int32)
+        ln_lut[lids] = np.arange(len(lids), dtype=np.int32)
+        ids = s.kf_ln_ids[window]
+        wk, wd = np.nonzero((ids >= 0) & (ln_lut[ids.clip(0)] >= 0))
+        _, first = np.unique(
+            wk.astype(np.int64) * s.max_ln + s.kf_ln_ids[window[wk], wd],
+            return_index=True)
+        wk, wd = wk[np.sort(first)], wd[np.sort(first)]
+        l_idx = ln_lut[s.kf_ln_ids[window[wk], wd]]
+        O = min(len(wk), self.lo_cap)
+        if len(wk) > O:
+            self.stage_times["ln_obs_dropped"] = self.stage_times.get(
+                "ln_obs_dropped", 0) + (len(wk) - O)
+        return dict(lids=lids, wk=wk[:O], wd=wd[:O], l_idx=l_idx[:O],
+                    n_lobs=O)
 
     def _run_ba(self, kf_id: int, prep: dict):
         """Windowed BA on the device, then writeback + outlier erasure +
         keyframe culling. Returns (post-BA view, view point ids)."""
         t0 = time.perf_counter()
         obs = prep["obs"]
-        poses, points, keep, view = mapper_fast.ba_view_cached(
-            self.cam, self.cache.arrays, prep["slots"], prep["poses"],
-            prep["fixed"], prep["points"], prep["pvalid"], obs[0], obs[1],
-            obs[2], prep["n_obs"], self._lut_dev, prep["tv_pidx"], prep["tv"])
+        args = (self.cam, self.cache.arrays, prep["slots"], prep["poses"],
+                prep["fixed"], prep["points"], prep["pvalid"], obs[0], obs[1],
+                obs[2], prep["n_obs"], self._lut_dev, prep["tv_pidx"],
+                prep["tv"])
+        if "lines" in prep:
+            poses, points, X0, d, keep, keep_l, view = \
+                mapper_fast.joint_ba_view_cached(
+                    *args, *prep["lines"], gamma=float(self.cfg.line.gamma))
+            self._writeback_lines(prep["meta"]["window"], prep["lmeta"],
+                                  X0.cpu().numpy(), d.cpu().numpy(),
+                                  keep_l.cpu().numpy())
+        else:
+            poses, points, keep, view = mapper_fast.ba_view_cached(*args)
         self._writeback_ba(kf_id, prep["meta"], poses.cpu().numpy(),
                            points.cpu().numpy(), keep.cpu().numpy())
         self._time("ba", t0)
         return view, prep["vp"]
+
+    def _writeback_lines(self, window, lmeta: dict, X0, d, keep_l):
+        """Solved line geometry where finite; outlier line observations
+        detach from their keyframes."""
+        s = self.store
+        lids = lmeta["lids"]
+        X0, d = X0[:len(lids)], d[:len(lids)]
+        fin = np.isfinite(X0).all(-1) & np.isfinite(d).all(-1)
+        s.ln_x0[lids[fin]] = X0[fin]
+        s.ln_dir[lids[fin]] = d[fin]
+        bad = ~keep_l[:lmeta["n_lobs"]]
+        if bad.any():
+            s.kf_ln_ids[window[lmeta["wk"][bad]], lmeta["wd"][bad]] = -1
 
     def _writeback_ba(self, kf_id: int, meta: dict, poses, points, keep):
         """BA writeback + outlier erasure + keyframe culling."""

@@ -1,9 +1,9 @@
 """Device stages of the keyframe-rate mapping path.
 
 Counterpart of the tensor math of lldslam_tpu/pipeline/mapper_fast.py
-(`kf_stage_cached` and `ba_view_cached`) without its packed upload/readback
-buffers, which existed to amortise a slow host link: here the stages take
-and return tensors.
+(`kf_stage_cached`, `ba_view_cached` and `joint_ba_view_cached`) without its
+packed upload/readback buffers, which existed to amortise a slow host link:
+here the stages take and return tensors.
 
 1. `kf_stage_cached`: triangulation of the new keyframe against its
    covisible neighbours and fusion of its points into the fuse neighbours,
@@ -11,6 +11,8 @@ and return tensors.
 2. `ba_view_cached`: the windowed local BA with observations gathered from
    the cache by (slot, feature) index, plus the tracker's post-BA local-map
    view (solved position where the point is in the problem).
+3. `joint_ba_view_cached`: the same windowed BA with the map lines of the
+   window as a second landmark class (`lines_ba.local_joint_ba`).
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ import torch
 
 from ..frontend import matching
 from ..geometry.camera import StereoCamera
-from ..optim import ba
+from ..geometry import lines as glines
+from ..optim import ba, lines_ba
 from . import mapping_ops
 from .kf_cache import CacheArrays
 
@@ -78,6 +81,31 @@ def kf_stage_cached(cam: StereoCamera, cache: CacheArrays,
     return tri, fuse
 
 
+def _cached_problem(cache: CacheArrays, slots, poses, fixed, points, pvalid,
+                    obs_k, obs_fe, obs_p, n_obs: int,
+                    inv_sigma2_lut) -> ba.BAProblem:
+    """The window's BAProblem, its observations gathered from the cache."""
+    O = obs_k.shape[0]
+    slot = slots[obs_k]
+    ur = cache.ur[slot, obs_fe]
+    obs = ba.BAObs(
+        k=obs_k, p=obs_p,
+        uvr=torch.cat([cache.xy[slot, obs_fe], ur[:, None]], dim=-1),
+        inv_sigma2=inv_sigma2_lut[cache.octave[slot, obs_fe].long()],
+        is_stereo=ur >= 0,
+        valid=torch.arange(O, device=obs_k.device) < n_obs)
+    return ba.BAProblem(poses=poses, points=points, pose_fixed=fixed,
+                        point_valid=pvalid, obs=obs)
+
+
+def _post_ba_view(tv: matching.MapPointView, tv_pidx: torch.Tensor,
+                  points: torch.Tensor) -> matching.MapPointView:
+    """Solved position where the view's point is in the problem."""
+    pos = torch.where((tv_pidx >= 0)[:, None],
+                      points[torch.clamp(tv_pidx, min=0)], tv.pos)
+    return tv._replace(pos=pos)
+
+
 def ba_view_cached(cam: StereoCamera, cache: CacheArrays,
                    slots: torch.Tensor, poses: torch.Tensor,
                    fixed: torch.Tensor, points: torch.Tensor,
@@ -91,19 +119,35 @@ def ba_view_cached(cam: StereoCamera, cache: CacheArrays,
     point index, the first n_obs real; tv_pidx (V,) problem point index per
     view slot or -1. Returns (poses (K,4,4), points (P,3), keep (O,),
     MapPointView)."""
-    O = obs_k.shape[0]
-    slot = slots[obs_k]
-    ur = cache.ur[slot, obs_fe]
-    obs = ba.BAObs(
-        k=obs_k, p=obs_p,
-        uvr=torch.cat([cache.xy[slot, obs_fe], ur[:, None]], dim=-1),
-        inv_sigma2=inv_sigma2_lut[cache.octave[slot, obs_fe].long()],
-        is_stereo=ur >= 0,
-        valid=torch.arange(O, device=obs_k.device) < n_obs)
-    problem = ba.BAProblem(poses=poses, points=points, pose_fixed=fixed,
-                           point_valid=pvalid, obs=obs)
+    problem = _cached_problem(cache, slots, poses, fixed, points, pvalid,
+                              obs_k, obs_fe, obs_p, n_obs, inv_sigma2_lut)
     solved, keep = ba.local_ba(cam, problem)
-    in_ba = tv_pidx >= 0
-    pos = torch.where(in_ba[:, None],
-                      solved.points[torch.clamp(tv_pidx, min=0)], tv.pos)
-    return solved.poses, solved.points, keep, tv._replace(pos=pos)
+    return (solved.poses, solved.points, keep,
+            _post_ba_view(tv, tv_pidx, solved.points))
+
+
+def joint_ba_view_cached(cam: StereoCamera, cache: CacheArrays,
+                         slots: torch.Tensor, poses: torch.Tensor,
+                         fixed: torch.Tensor, points: torch.Tensor,
+                         pvalid: torch.Tensor, obs_k: torch.Tensor,
+                         obs_fe: torch.Tensor, obs_p: torch.Tensor,
+                         n_obs: int, inv_sigma2_lut: torch.Tensor,
+                         tv_pidx: torch.Tensor, tv: matching.MapPointView,
+                         ln_x0: torch.Tensor, ln_dir: torch.Tensor,
+                         ln_valid: torch.Tensor, lobs: lines_ba.LineBAObs,
+                         gamma: float):
+    """`ba_view_cached` with the window's map lines (ln_* (LC, ...), world
+    x0dir, padding rows invalid) and their observations `lobs` (window
+    index, line index, padded to a fixed capacity) as a second landmark
+    class. Returns (poses, points, X0 (LC, 3), d (LC, 3), keep (O,),
+    keep_l (LO,), MapPointView)."""
+    problem = _cached_problem(cache, slots, poses, fixed, points, pvalid,
+                              obs_k, obs_fe, obs_p, n_obs, inv_sigma2_lut)
+    q, alpha = glines.minimal_from_x0dir(ln_x0, ln_dir)
+    joint = lines_ba.JointProblem(base=problem, q=q, alpha=alpha,
+                                  line_valid=ln_valid, lobs=lobs)
+    solved, keep, keep_l = lines_ba.local_joint_ba(cam, joint, gamma)
+    X0, d = glines.x0dir_from_minimal(solved.q, solved.alpha)
+    sb = solved.base
+    return (sb.poses, sb.points, X0, d, keep, keep_l,
+            _post_ba_view(tv, tv_pidx, sb.points))

@@ -1,12 +1,17 @@
-"""Deterministic per-frame stereo tracking, synchronous path, points only.
+"""Deterministic per-frame stereo tracking, synchronous path, points and
+lines.
 
 Counterpart of lldslam_tpu/pipeline/tracker.py (`StereoTracker` with
 `pipeline=False`). Every frame runs
 
-    build_frame_pair -> (LOST: relocalization) -> motion-model match
-    (radius 7, else 14) -> pose LM -> local-map projection search (K2)
-    -> pose LM -> keyframe decision -> (on a keyframe) point creation
-    + LocalMapper.process_keyframe + LoopCloser.process_keyframe
+    build_frame_pair (+ with lines: both views' stored detections, stereo
+    line match and triangulation) -> (LOST: relocalization) -> motion-model
+    match (radius 7, else 14) -> pose LM -> local-map projection search
+    (K2) -> pose LM -> (with lines: association with the local map lines,
+    joint point+line pose LM) -> keyframe decision -> (on a keyframe) point
+    creation, line observations, new map lines, retriangulation, culling
+    and descriptor update + LocalMapper.process_keyframe
+    + LoopCloser.process_keyframe
 
 with the reference semantics the JAX package keeps: stereo initialization
 above `min_init_points` depth'd keypoints, TrackReferenceKeyFrame fallback
@@ -21,24 +26,28 @@ relocalizes through the loop closer's vocabulary and keyframe database
 rounds through K2 at 8192 rows). `localization_only` suppresses keyframes
 and the auto-reset.
 
-Not ported yet (each raises NotImplementedError, see ROADMAP queue 1): the
-pipelined tracker (and with it the provisional point identities and the
-on-device keyframe decision), lines, monocular and RGB-D input.
+Lines run on the stored-line route (`ldType: LBDFloat` with
+`lineDetectionsPath`). Not ported yet (each raises NotImplementedError, see
+ROADMAP queue 1): the native line detector, the pipelined tracker (and with
+it the provisional point identities and the on-device keyframe decision),
+monocular and RGB-D input.
 """
 from __future__ import annotations
 
 import enum
 import time
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..config import SlamConfig
-from ..frontend import matching
+from ..frontend import line_match, matching
 from ..frontend.frame import FrameData, build_frame_pair
 from ..geometry.camera import backproject
 from ..io import trajectory as traj
+from ..io.stored_lines import StoredLineSource, stage_stored_pair
 from ..ops import hamming
 from ..loop.bow import Vocabulary
 from ..loop.closing import LoopCloser, project_match
@@ -95,7 +104,7 @@ def _track_core(cam, T_pred: torch.Tensor, last_feats: matching.FrameFeatures,
     pobs1 = pose_opt.PointPoseObs(X=last_ptpos[li], obs=obs, inv_sigma2=lut,
                                   is_stereo=is_stereo,
                                   valid=(kp2last >= 0) & cur.valid)
-    T1, pt_in1, _ = pose_opt.optimize_pose(cam, T_pred, pobs1)
+    T1, pt_in1, _, _ = pose_opt.optimize_pose(cam, T_pred, pobs1)
     T1 = torch.where(has_mm, T1, T_pred)
     kp2last = torch.where(pt_in1 & has_mm, kp2last, -1)
     li = torch.clamp(kp2last, min=0).long()
@@ -110,7 +119,7 @@ def _track_core(cam, T_pred: torch.Tensor, last_feats: matching.FrameFeatures,
     valid2 = (use_l | (kp2last >= 0)) & cur.valid
     pobs2 = pose_opt.PointPoseObs(X=X2, obs=obs, inv_sigma2=lut,
                                   is_stereo=is_stereo, valid=valid2)
-    T2, pt_in2, _ = pose_opt.optimize_pose(cam, T1, pobs2)
+    T2, pt_in2, _, _ = pose_opt.optimize_pose(cam, T1, pobs2)
 
     final_ok = valid2 & pt_in2
     # map-only association: a local-view hit is a map point; a last-frame
@@ -127,9 +136,29 @@ def _track_core(cam, T_pred: torch.Tensor, last_feats: matching.FrameFeatures,
     Xw_depth = Xc @ T_wc[:3, :3].T + T_wc[:3, 3]
     return dict(
         T=T2, stats=stats, kp2last=kp2last, kp2pt_l=kp2pt_l, ok=map_ok,
-        in_frustum=in_frustum,
+        in_frustum=in_frustum, final=final_ok,
         ptpos=torch.where(final_ok[:, None], X2, Xw_depth),
         haspt=final_ok | close, ismap=map_ok)
+
+
+def _line_step(cam, T: torch.Tensor, view, fl: line_match.FrameLines,
+               pobs: pose_opt.PointPoseObs, gamma: float, md_thr: float):
+    """Association of the frame's lines with the local map lines `view`
+    (x0, dir, desc, octave, valid), then the joint point+line pose LM from
+    T (2 rounds x 6 iterations). Returns (T (4, 4), det2ln (L,) view index
+    of each line inlier, -1 elsewhere, n_line (0-d))."""
+    x0, dr, desc, oct_, valid = view
+    _, det2ln = line_match.associate_lines(cam, T, x0, dr, desc, oct_, valid,
+                                           fl, md_thr=md_thr)
+    idx = torch.clamp(det2ln, min=0).long()
+    lobs = pose_opt.LinePoseObs(
+        X0=x0[idx], d=dr[idx], x1_l=fl.kl.p1, x2_l=fl.kl.p2, x1_r=fl.p1_r,
+        x2_r=fl.p2_r, octave=fl.kl.octave, has_right=fl.has_stereo,
+        valid=(det2ln >= 0) & fl.kl.valid)
+    T3, _, ln_in, _ = pose_opt.optimize_pose(cam, T, pobs, lobs, gamma=gamma,
+                                             rounds=2, iters=6)
+    det2ln = torch.where(ln_in, det2ln, -1)
+    return T3, det2ln, (det2ln >= 0).sum()
 
 
 @dataclass
@@ -156,6 +185,8 @@ class TrackMetrics:
     reloc_kf: int = -1      # keyframe relocalized against on this frame
     n_points: int = 0
     n_kfs: int = 0
+    n_line_matches: int = 0   # line inliers of the joint pose LM
+    n_lines: int = 0          # valid map lines
     t_build: float = 0.0
     t_step: float = 0.0
     t_kf: float = 0.0
@@ -170,10 +201,6 @@ class StereoTracker:
             raise NotImplementedError(
                 "the pipelined tracker is not ported to lldslam_tpu_torch "
                 "yet; see ROADMAP queue 1 item 4")
-        if cfg.line.enabled:
-            raise NotImplementedError(
-                "line features are not ported to lldslam_tpu_torch yet; see "
-                "ROADMAP queue 1 item 5")
         self.cfg = cfg
         self.device = torch.device(device)
         self.cam = cfg.camera.stereo_camera()
@@ -204,6 +231,33 @@ class StereoTracker:
         self._has_velocity = False
         self._view = None
         self._view_pid = None
+        # line pipeline: stored detections (<detections_path>/{left,right},
+        # or detections_path and descriptors_path as the two views), the
+        # configured mdThr applying directly on their descriptor scale
+        self.enable_lines = cfg.line.enabled
+        self.line_view_cap = 512
+        self.line_kf_times: dict[str, float] = {}
+        self._cur_fl = None
+        self._cur_det2ln = None
+        if self.enable_lines:
+            if not (cfg.line.ld_type.lower() == "lbdfloat"
+                    and cfg.line.detections_path):
+                raise NotImplementedError(
+                    "the native line detector (no lineDetectionsPath) is not "
+                    "ported to lldslam_tpu_torch yet; see ROADMAP queue 1 "
+                    "item 5")
+            base = Path(cfg.line.detections_path)
+            if (base / "left").is_dir():
+                left, right = base / "left", base / "right"
+            else:
+                left, right = base, Path(cfg.line.descriptors_path or base)
+            dim = self.store.ln_desc.shape[1]
+            self._line_source = (
+                StoredLineSource(left, cap=self.store.n_ln_det, desc_dim=dim),
+                StoredLineSource(right, cap=self.store.n_ln_det,
+                                 desc_dim=dim))
+            self._md_gate = float(cfg.line.md_thr)
+            self._refresh_line_view()
         self.kf_cache = KfCache(n_slots=32, n_kp=self.store.n_kp,
                                 device=self.device)
         self.mapper = local_mapping.LocalMapper(
@@ -236,6 +290,12 @@ class StereoTracker:
             img_l, img_r = img_l.astype(np.uint8), img_r.astype(np.uint8)
         fd = build_frame_pair(self._t(np.stack([img_l, img_r])), self.cam,
                               self.orb)
+        if self.enable_lines:
+            kl, kr = stage_stored_pair(*self._line_source, self.frame_id,
+                                       device=self.device)
+            self._cur_fl = line_match.match_stereo_lines(
+                self.cam, kl, kr, md_thr=self._md_gate,
+                min_len=self.cfg.line.min_line_len)
         m.t_build = time.perf_counter() - t0
         return self._process_fd(fd, timestamp, m)
 
@@ -250,6 +310,7 @@ class StereoTracker:
             m.state = self.state.name
         m.n_points = int(self.store.pt_valid.sum())
         m.n_kfs = self.store.n_kf
+        m.n_lines = int(self.store.ln_valid.sum())
         self.metrics.append(m)
         return self.T_cw.copy(), m
 
@@ -285,6 +346,9 @@ class StereoTracker:
                        (uv[:, 1] - cam.cy) * z / cam.fy, z], -1).astype(np.float32)
         ids = self.store.create_points(kf, good, Xw)
         self.T_cw = T0
+        if self.enable_lines:
+            self._cur_det2ln = None
+            self._create_kf_lines(kf)
         self.velocity = np.eye(4, dtype=np.float32)
         self.ref_kf = kf
         self.last_kf_frame = fid
@@ -301,6 +365,8 @@ class StereoTracker:
         kp2pt[good] = ids
         self._refresh_local_view()
         self._refresh_ref_matches()
+        if self.enable_lines:
+            self._refresh_line_view()
         self._remember_frame(fd, kp2pt)
         self._log_frame(timestamp)
         m.new_kf = True
@@ -369,7 +435,8 @@ class StereoTracker:
         rows = np.where(kp2pt_ref >= 0, np.arange(len(X)), -1)
         pobs = _gather_pose_obs(self.cam, self._t(X), self._t(rows),
                                 fd.feats, self._inv_sigma2_lut)
-        T_fb, _, _ = pose_opt.optimize_pose(self.cam, self._t(self.T_cw), pobs)
+        T_fb, _, _, _ = pose_opt.optimize_pose(self.cam, self._t(self.T_cw),
+                                               pobs)
         T_fb = T_fb.cpu().numpy()
         return T_fb if np.isfinite(T_fb).all() else None
 
@@ -470,7 +537,7 @@ class StereoTracker:
         rows = np.where(kp2pt >= 0, np.arange(len(X)), -1)
         pobs = _gather_pose_obs(self.cam, self._t(X), self._t(rows),
                                 fd.feats, self._inv_sigma2_lut)
-        T2, _, n_in = pose_opt.optimize_pose(self.cam, T, pobs)
+        T2, _, _, n_in = pose_opt.optimize_pose(self.cam, T, pobs)
         return T2, int(n_in)
 
     def _project_view_match(self, fd: FrameData, pids: np.ndarray,
@@ -497,6 +564,8 @@ class StereoTracker:
         self.logs.clear()
         self._view = None
         self._view_pid = None
+        if self.enable_lines:
+            self._refresh_line_view()
 
     def _track(self, fd: FrameData, timestamp: float, m: TrackMetrics):
         fid = self.frame_id
@@ -562,6 +631,9 @@ class StereoTracker:
             return
 
         T_np = host["T"]
+        self._cur_det2ln = None
+        if self.enable_lines:
+            T_np = self._track_lines(fd, step, m)
         self.state = TrackState.OK
         self.velocity = (T_np @ np.linalg.inv(self.T_cw)).astype(np.float32)
         self._has_velocity = True
@@ -577,6 +649,63 @@ class StereoTracker:
             m.new_kf = True
         self._remember_frame(fd, kp2pt, None if new_kf else step)
         self._log_frame(timestamp)
+
+    def _track_lines(self, fd: FrameData, step: dict,
+                     m: TrackMetrics) -> np.ndarray:
+        """The line step after point tracking: association with the local
+        map lines and the joint point+line pose LM from the step's pose, on
+        the step's association inliers (the freshly depth-seeded rows would
+        anchor the refinement at the step's pose). Records the global map
+        line id per detection; returns the refined T_cw."""
+        cur = fd.feats
+        pobs = pose_opt.PointPoseObs(
+            X=step["ptpos"], obs=torch.cat([cur.xy, cur.ur[:, None]], dim=-1),
+            inv_sigma2=self._inv_sigma2_lut[cur.octave.long()],
+            is_stereo=cur.ur >= 0, valid=step["final"])
+        T3, det2ln, n_line = _line_step(
+            self.cam, step["T"], self._line_view, self._cur_fl, pobs,
+            float(self.cfg.line.gamma), self._md_gate)
+        det2ln = det2ln.cpu().numpy()
+        self._cur_det2ln = np.where(
+            det2ln >= 0, self._line_view_ids[np.maximum(det2ln, 0)],
+            -1).astype(np.int32)
+        m.n_line_matches = int(n_line)
+        return T3.cpu().numpy()
+
+    def _refresh_line_view(self):
+        """The local map lines on the device, padded to line_view_cap: the
+        valid lines the reference keyframe and its 19 most covisible
+        keyframes observe (the highest ids when there are more, the excess
+        counted in the mapper's stage_times["line_view_dropped"])."""
+        s = self.store
+        cap = self.line_view_cap
+        if self.ref_kf >= 0:
+            covis, _ = s.covisible_kfs(self.ref_kf, min_shared=15, top=19)
+            local_kfs = np.concatenate([[self.ref_kf], covis]).astype(np.int32)
+            ids = np.unique(s.kf_ln_ids[local_kfs])
+            ids = ids[ids >= 0]
+            ids = ids[s.ln_valid[ids]]
+            if len(ids) > cap:
+                st = self.mapper.stage_times
+                st["line_view_dropped"] = st.get("line_view_dropped", 0) \
+                    + len(ids) - cap
+                ids = ids[-cap:]
+        else:
+            ids = np.zeros(0, np.int32)
+        n, pad = len(ids), cap - len(ids)
+        self._line_view_ids = np.concatenate(
+            [ids, np.full(pad, -1, np.int32)]).astype(np.int32)
+        D = s.ln_desc.shape[1]
+        dr = np.tile(np.array([1, 0, 0], np.float32), (cap, 1))
+        dr[:n] = s.ln_dir[ids]
+        x0 = np.zeros((cap, 3), np.float32)
+        x0[:n] = s.ln_x0[ids]
+        de = np.zeros((cap, D), np.float32)
+        de[:n] = s.ln_desc[ids]
+        oc = np.zeros(cap, np.int32)
+        oc[:n] = s.ln_oct[ids]
+        self._line_view = (self._t(x0), self._t(dr), self._t(de), self._t(oc),
+                           self._t(np.arange(cap) < n))
 
     # ------------------------------------------------------------------
 
@@ -619,6 +748,8 @@ class StereoTracker:
                            (uv[:, 1] - cam.cy) * zz / cam.fy, zz], -1)
             Xw = (T_wc[:3, :3] @ Xc.T).T + T_wc[:3, 3]
             kp2pt[sel] = s.create_points(kf, sel, Xw.astype(np.float32))
+        if self.enable_lines:
+            self._create_kf_lines(kf)
         s.set_parent_from_covisibility(kf)
         self.ref_kf = kf
         self.last_kf_frame = fid
@@ -637,9 +768,60 @@ class StereoTracker:
         else:
             self._refresh_local_view()
         self._refresh_ref_matches()
+        if self.enable_lines:
+            self._refresh_line_view()
         self.kf_timings.append(dict(mapper=t1 - t0, loop=t2 - t1,
                                     view=time.perf_counter() - t2))
         return corrected
+
+    def _create_kf_lines(self, kf: int):
+        """Line half of keyframe creation: the frame's lines become the
+        keyframe's line snapshot with its map-line associations, valid
+        stereo-triangulated lines of 28 px or more without one become new
+        map lines (world frame at the current pose), then retriangulation,
+        culling and the distinctive-descriptor update. Seconds per stage
+        accumulate in `line_kf_times`."""
+        lt = self.line_kf_times
+        t_prev = time.perf_counter()
+
+        def mark(key):
+            nonlocal t_prev
+            now = time.perf_counter()
+            lt[key] = lt.get(key, 0.0) + (now - t_prev)
+            t_prev = now
+
+        s = self.store
+        fl = self._cur_fl
+        h = lambda x: x.cpu().numpy()
+        lines_np = dict(p1=h(fl.kl.p1), p2=h(fl.kl.p2), p1r=h(fl.p1_r),
+                        p2r=h(fl.p2_r), has_r=h(fl.has_stereo),
+                        octave=h(fl.kl.octave), desc=h(fl.kl.desc),
+                        valid=h(fl.kl.valid))
+        X0c, dc = h(fl.X0), h(fl.d)
+        mark("snap")
+        det2ln = (self._cur_det2ln if self._cur_det2ln is not None
+                  else np.full(s.n_ln_det, -1, np.int32))
+        s.add_keyframe_lines(kf, lines_np, det2ln.copy())
+        lengths = np.linalg.norm(lines_np["p2"] - lines_np["p1"], axis=-1)
+        newsel = np.nonzero(lines_np["valid"] & lines_np["has_r"]
+                            & (det2ln < 0) & (lengths >= 28.0))[0]
+        newsel = newsel[: s.room_for_lines(len(newsel))]
+        if len(newsel):
+            T_wc = np.linalg.inv(self.T_cw)
+            Pw = (T_wc[:3, :3] @ X0c[newsel].T).T + T_wc[:3, 3]
+            dw = (T_wc[:3, :3] @ dc[newsel].T).T
+            dw /= np.maximum(np.linalg.norm(dw, axis=-1, keepdims=True), 1e-9)
+            X0w = Pw - np.sum(Pw * dw, axis=-1, keepdims=True) * dw
+            s.create_lines(kf, newsel, X0w.astype(np.float32),
+                           dw.astype(np.float32))
+        mark("create")
+        s.retriangulate_lines(device=self.device)
+        mark("retri")
+        s.cull_lines()
+        mark("cull")
+        s.update_line_descriptors()
+        mark("desc")
+        lt["n"] = lt.get("n", 0) + 1
 
     def trajectory(self):
         """(timestamps, T_wc stack) replayed through reference keyframes."""

@@ -1,9 +1,10 @@
 """The SLAM map as a struct-of-arrays store with fixed capacities.
 
 Counterpart of lldslam_tpu/slammap/map_store.py: host-side numpy, copied
-from the JAX package except that line retriangulation raises (lines are not
-part of this port yet). Descriptors stay uint32 here; the tracker and mapper
-move them to the device as int32 views.
+from the JAX package, except that line retriangulation runs synchronously
+(its multi-view solve on the device given) instead of through the staged
+queue of the pipelined path. Descriptors stay uint32 here; the tracker and
+mapper move them to the device as int32 views.
 
 Replaces the pointer-graph data model of the reference (`Map`, `KeyFrame`,
 `MapPoint` — src/Map.cc, src/KeyFrame.cc, src/MapPoint.cc) with flat arrays:
@@ -307,18 +308,91 @@ class MapStore:
         stale = self.ln_valid & (self.ln_first_kf <= K - 3) & (counts <= 4)
         self.remove_lines(np.nonzero(stale)[0])
 
-    def retriangulate_lines(self, max_lines: int = 256, max_obs: int = 8):
-        """Multi-view line refinement (lldslam_tpu MapStore.retriangulate_lines)
-        is not ported yet: lines are outside this slice."""
-        raise NotImplementedError(
-            "line retriangulation is not ported to lldslam_tpu_torch yet; "
-            "see ROADMAP queue 1 item 5 (lines)")
+    def retriangulate_lines(self, max_lines: int = 256, max_obs: int = 8,
+                            device="cuda"):
+        """Multi-view line refinement, synchronous: every valid map line
+        with >= 2 keyframe observations (only those the newest keyframe
+        observes, when there are any; the last `max_lines`) is
+        re-triangulated on `device` from all its observation planes (left
+        and right camera per stereo observation, at most `max_obs`), and
+        written back where the solve is finite, the direction keeping the
+        sign of the stored one."""
+        import torch
+        from ..geometry import lines as gl
+
+        K = self.n_kf
+        kf_idx, det_idx = np.nonzero(self.kf_ln_ids[:K] >= 0)
+        if len(kf_idx) == 0:
+            return
+        lids = self.kf_ln_ids[kf_idx, det_idx]
+        uniq, counts = np.unique(lids, return_counts=True)
+        cand = uniq[(counts >= 2) & self.ln_valid[uniq]]
+        if len(cand) == 0:
+            return
+        newest = self.kf_ln_ids[K - 1]
+        fresh = np.intersect1d(cand, newest[newest >= 0])
+        if len(fresh):
+            cand = fresh
+        cand = cand[-max_lines:]
+
+        def plane(p1, p2, T_cw):
+            """Plane normals and camera centres (plane_normal_from_obs)."""
+            h1 = np.concatenate([p1, np.ones_like(p1[:, :1])], -1)
+            h2 = np.concatenate([p2, np.ones_like(p2[:, :1])], -1)
+            l = np.cross(h1, h2)
+            cam = self.cam
+            n_c = np.stack([cam.fx * l[:, 0], cam.fy * l[:, 1],
+                            cam.cx * l[:, 0] + cam.cy * l[:, 1] + l[:, 2]], -1)
+            R = T_cw[:, :3, :3]
+            return (np.einsum("nji,nj->ni", R, n_c),
+                    -np.einsum("nji,nj->ni", R, T_cw[:, :3, 3]))
+
+        T_l = self.kf_pose[kf_idx]
+        nL, cL = plane(self.kf_ln_p1[kf_idx, det_idx],
+                       self.kf_ln_p2[kf_idx, det_idx], T_l)
+        T_r = T_l.copy()
+        T_r[:, 0, 3] -= self.cam.baseline      # T_rw = T_rl @ T_lw
+        nR, cR = plane(self.kf_ln_p1r[kf_idx, det_idx],
+                       self.kf_ln_p2r[kf_idx, det_idx], T_r)
+        has_r = self.kf_ln_has_r[kf_idx, det_idx]
+
+        # group the planes per candidate line (stable sort by slot; the
+        # rank within the group is the plane column), padded to max_obs
+        pos = np.full(self.max_ln, -1, np.int32)
+        pos[cand] = np.arange(len(cand), dtype=np.int32)
+        pi = pos[lids]
+        selL = pi >= 0
+        selR = selL & has_r
+        rows_pi = np.concatenate([pi[selL], pi[selR]])
+        rows_n = np.concatenate([nL[selL], nR[selR]]).astype(np.float32)
+        rows_c = np.concatenate([cL[selL], cR[selR]]).astype(np.float32)
+        order = np.argsort(rows_pi, kind="stable")
+        rows_pi, rows_n, rows_c = rows_pi[order], rows_n[order], rows_c[order]
+        col = np.arange(len(rows_pi)) - np.searchsorted(rows_pi, rows_pi)
+        keep = col < max_obs
+        n = len(cand)
+        normals = np.zeros((n, max_obs, 3), np.float32)
+        centers = np.zeros((n, max_obs, 3), np.float32)
+        mask = np.zeros((n, max_obs), bool)
+        normals[rows_pi[keep], col[keep]] = rows_n[keep]
+        centers[rows_pi[keep], col[keep]] = rows_c[keep]
+        mask[rows_pi[keep], col[keep]] = True
+        t = lambda a: torch.from_numpy(a).to(device)
+        X0, d, ok = (x.cpu().numpy() for x in gl.triangulate_multi_view(
+            t(normals), t(centers), t(mask)))
+        good = ok & np.isfinite(X0).all(-1) & np.isfinite(d).all(-1)
+        flip = np.sum(d * self.ln_dir[cand], -1) < 0
+        d[flip] *= -1
+        self.ln_x0[cand[good]] = X0[good]
+        self.ln_dir[cand[good]] = d[good]
 
     def absorb_retriangulate(self, keep: int = 0):
-        """Staged line retriangulation does not exist in this port."""
+        """The staged write-back of the JAX package's pipelined line path;
+        the synchronous `retriangulate_lines` writes back directly."""
         raise NotImplementedError(
-            "line retriangulation is not ported to lldslam_tpu_torch yet; "
-            "see ROADMAP queue 1 item 5 (lines)")
+            "staged line retriangulation belongs to the pipelined line path, "
+            "which is not ported to lldslam_tpu_torch yet; see ROADMAP queue "
+            "1 item 5")
 
     def create_points(self, kf_id: int, feat_idx: np.ndarray, positions: np.ndarray) -> np.ndarray:
         """Allocate new map points observed by (kf_id, feat_idx). Returns ids."""

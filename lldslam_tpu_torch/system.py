@@ -1,16 +1,19 @@
 """System facade: the public API of the port.
 
-Counterpart of lldslam_tpu/system.py, synchronous stereo only:
+Counterpart of lldslam_tpu/system.py, synchronous stereo, points and
+lines:
 
     sys = System(cfg, device="cuda")
     T_cw, metrics = sys.track_stereo(img_l, img_r, timestamp)
     sys.save_trajectory_kitti(path)
 
-Loop closing and relocalization are on by default, with the vocabulary the
-JAX package ships (`lldslam_tpu/loop/vocab_synth.npz`, read by path); when
-that file is absent a vocabulary is trained from the first keyframe.
-`pipeline=True`, a line-enabled config, `track_rgbd`, `track_monocular`,
-`save_map` and `load_map` raise NotImplementedError.
+Loop closing and relocalization are on by default, with this package's copy
+of the shipped vocabulary (`loop/vocab_synth.npz`, the same file as the JAX
+package's); when that file is absent a vocabulary is trained from the first
+keyframe. Lines run when the config enables them with stored detections
+(`ldType: LBDFloat` plus `lineDetectionsPath`). `pipeline=True`, the native
+line detector, `track_rgbd`, `track_monocular`, `save_map` and `load_map`
+raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -25,9 +28,8 @@ from .io import trajectory as traj
 from .loop.bow import Vocabulary
 from .pipeline.tracker import StereoTracker, TrackState
 
-# the vocabulary file of the JAX package, beside this package
-DEFAULT_VOCABULARY = (Path(__file__).resolve().parent.parent / "lldslam_tpu"
-                      / "loop" / "vocab_synth.npz")
+# the shipped vocabulary (99106 words)
+DEFAULT_VOCABULARY = Path(__file__).resolve().parent / "loop" / "vocab_synth.npz"
 
 
 @functools.lru_cache(maxsize=1)

@@ -26,13 +26,14 @@ from lldslam_tpu_torch.config import CameraConfig, SlamConfig
 from lldslam_tpu_torch.frontend import frame
 from lldslam_tpu_torch.frontend.matching import (FrameFeatures, MapPointView,
                                                  search_by_projection)
-from lldslam_tpu_torch.geometry import se3
+from lldslam_tpu_torch.geometry import lines as glines, se3
 from lldslam_tpu_torch.io.synthetic import make_loop_map, make_sequence
 from lldslam_tpu_torch.loop.closing import LoopCloser
 from lldslam_tpu_torch.io import kernel_inputs
 from lldslam_tpu_torch.ops import match_best2, orb_describe, stereo_sad
 from lldslam_tpu_torch.ops.orb import OrbConfig
-from lldslam_tpu_torch.optim import ba, pose_graph, sim3_solver
+from lldslam_tpu_torch.optim import (ba, lines_ba, pose_graph, pose_opt,
+                                     sim3_solver)
 from lldslam_tpu_torch.slammap.map_store import MapStore
 from lldslam_tpu_torch.system import _default_vocabulary
 
@@ -148,7 +149,7 @@ def test_loop_correct_on_card_matches_cpu(dev):
     stores = [MapStore(cam, cfg.orb, max_kf=64, max_pt=20000) for _ in "ab"]
     for st in stores:
         make_loop_map(st)
-    cpu = LoopCloser(stores[0], voc, cfg)
+    cpu = LoopCloser(stores[0], voc, cfg, device="cpu")
     card = LoopCloser(stores[1], voc, cfg, device=dev)
     res = cpu._compute_sim3(21, 2)
     assert res is not None
@@ -183,9 +184,10 @@ def test_loop_correct_on_card_matches_cpu(dev):
 def test_loop_solvers_never_wait_for_the_host(dev):
     """The LM and GN loops of a loop event (the Sim(3) pose graph, 15 x 48
     CG steps; the Sim3 refinement, 10 GN steps; global BA on the CG path,
-    10 x 64 CG steps) run under CUDA's sync debug mode set to "error": no
-    operation inside them makes the host wait for the card. Their results
-    are finite and reduce their errors."""
+    10 x 64 CG steps, points only and joint point+line) and the tracker's
+    joint point+line pose LM (2 x 6 steps) run under CUDA's sync debug mode
+    set to "error": no operation inside them makes the host wait for the
+    card. Their results are finite and reduce their errors."""
     rng = np.random.default_rng(0)
     cam = CameraConfig(fx=400.0, fy=400.0, cx=256.0, cy=192.0, bf=200.0,
                        width=512, height=384).stereo_camera()
@@ -241,6 +243,45 @@ def test_loop_solvers_never_wait_for_the_host(dev):
         obs=problem.obs._replace(k=problem.obs.k.long(),
                                  p=problem.obs.p.long())))
     err_0 = pose_graph.total_error(g)
+
+    # lines seen by the 4 keyframes in both views: the joint global BA
+    # (noisy line states) and keyframe 1's joint point+line pose LM
+    L = 40
+    mid = np.stack([rng.uniform(-3, 3, L), rng.uniform(-2, 2, L),
+                    rng.uniform(6, 15, L)], -1)
+    dl = rng.normal(size=(L, 3))
+    dl /= np.linalg.norm(dl, axis=-1, keepdims=True)
+    A, B = mid - dl, mid + dl
+    X0 = (A - np.sum(A * dl, -1, keepdims=True) * dl).astype(np.float32)
+    lk, ll = (a.ravel() for a in np.meshgrid(np.arange(4), np.arange(L),
+                                             indexing="ij"))
+
+    def line_px(P, off):
+        Pc = np.einsum("oij,oj->oi", T[lk, :3, :3], P[ll]) + T[lk, :3, 3]
+        Pc[:, 0] -= off
+        return t(uv(Pc).astype(np.float32))
+
+    ends = [line_px(P, off) for off in (0.0, cam.baseline) for P in (A, B)]
+    lobs = lines_ba.LineBAObs(
+        k=t(lk), l=t(ll), x1l=ends[0], x2l=ends[1], x1r=ends[2], x2r=ends[3],
+        octave=t(np.zeros(len(lk), np.int32)),
+        has_r=t(np.ones(len(lk), bool)), valid=t(np.ones(len(lk), bool)))
+    q0, a0 = glines.minimal_from_x0dir(
+        t(X0 + rng.normal(0, 0.05, X0.shape).astype(np.float32)),
+        t(dl.astype(np.float32)))
+    joint = lines_ba.JointProblem(base=problem, q=q0, alpha=a0,
+                                  line_valid=t(np.ones(L, bool)), lobs=lobs)
+    on1, ln1 = kk == 1, lk == 1
+    pobs = pose_opt.PointPoseObs(
+        X=t(Pw[pp[on1]]), obs=t(uvr[on1]),
+        inv_sigma2=t(np.ones(on1.sum(), np.float32)),
+        is_stereo=t(np.ones(on1.sum(), bool)), valid=t(np.ones(on1.sum(), bool)))
+    lpobs = pose_opt.LinePoseObs(
+        X0=t(X0), d=t(dl.astype(np.float32)), x1_l=ends[0][t(ln1)],
+        x2_l=ends[1][t(ln1)], x1_r=ends[2][t(ln1)], x2_r=ends[3][t(ln1)],
+        octave=t(np.zeros(L, np.int32)), has_right=t(np.ones(L, bool)),
+        valid=t(np.ones(L, bool)))
+    T1 = t(T0[1])
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -248,6 +289,10 @@ def test_loop_solvers_never_wait_for_the_host(dev):
         (Rs, ts, ss), _, n_inl = sim3_solver.refine_sim3(cam, cam, S0,
                                                          *sim3_args)
         solved, chi2 = ba.ba_solve(cam, problem, iters=10, cg_iters=64)
+        jsolved, _, chi2_l = lines_ba.joint_ba_solve_cg(cam, joint, iters=10,
+                                                        cg_iters=64)
+        T_opt, _, ln_in, _ = pose_opt.optimize_pose(cam, T1, pobs, lpobs,
+                                                    rounds=2, iters=6)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert float(pose_graph.total_error(g_opt)) < 0.1 * float(err_0)
@@ -255,6 +300,11 @@ def test_loop_solvers_never_wait_for_the_host(dev):
     assert int(n_inl) >= 0.9 * n
     assert torch.isfinite(chi2).all()
     assert float(ba._total_cost(cam, solved)) < 0.5 * float(chi2_0)
+    assert torch.isfinite(jsolved.q).all() and torch.isfinite(chi2_l).all()
+    assert float(chi2_l.median()) < 1e-2
+    err1 = np.linalg.norm(T_opt.cpu().numpy()[:3, 3] - T[1, :3, 3])
+    assert err1 < 0.2 * np.linalg.norm(T0[1, :3, 3] - T[1, :3, 3])
+    assert bool(ln_in.all())
 
 
 def test_kernels_and_projection_search_never_wait_for_the_host(dev):

@@ -461,7 +461,7 @@ def _loop_pair(shipped):
     jlc = jcl.LoopCloser(js, jv, JSlamConfig(camera=RING_CC, orb=jorb))
     # the single-device global BA: the test process exposes 8 CPU devices
     jlc.global_ba = partial(jlc.global_ba, force_dist=False)
-    tlc = tcl.LoopCloser(ts, tv, PORT_CFG)
+    tlc = tcl.LoopCloser(ts, tv, PORT_CFG, device="cpu")
     return dict(js=js, ts=ts, jlc=jlc, tlc=tlc, gt=gt)
 
 
@@ -616,17 +616,26 @@ def test_culled_keyframe_leaves_database(shipped):
 
 
 def test_system_loads_shipped_vocabulary():
-    """System(cfg) turns loops on with the shipped vocabulary (read by path
-    from the JAX package's directory, no copy in the port)."""
+    """System(cfg) turns loops on with the shipped vocabulary, read from the
+    port's own copy (nothing under lldslam_tpu/ is read)."""
     cfg = PORT_CFG
     s = System(cfg, device="cpu")
     tr = s.tracker
     assert tr.enable_loops and tr.loop_closer is not None
     assert tr.vocabulary.n_words == 99106
-    assert DEFAULT_VOCABULARY == ROOT / "lldslam_tpu" / "loop" / "vocab_synth.npz"
-    assert not list((ROOT / "lldslam_tpu_torch").rglob("*.npz"))
+    assert DEFAULT_VOCABULARY == (ROOT / "lldslam_tpu_torch" / "loop"
+                                  / "vocab_synth.npz")
+    assert [p.name for p in (ROOT / "lldslam_tpu_torch").rglob("*.npz")] \
+        == ["vocab_synth.npz"]
     off = System(cfg, enable_loops=False, device="cpu")
     assert off.tracker.loop_closer is None
     s.reset()
     assert s.tracker.loop_closer is not tr.loop_closer
     assert s.tracker.vocabulary is tr.vocabulary
+
+
+def test_vocabulary_copy_is_byte_identical():
+    """The port's vocabulary file is the JAX package's, byte for byte."""
+    ours = DEFAULT_VOCABULARY.read_bytes()
+    assert ours == (ROOT / "lldslam_tpu" / "loop" / "vocab_synth.npz").read_bytes()
+    assert len(ours) > 3_000_000

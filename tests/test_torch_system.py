@@ -35,8 +35,14 @@ from lldslam_tpu.ops.orb import OrbConfig as JOrbConfig  # noqa: E402
 from lldslam_tpu.system import System as JSystem  # noqa: E402
 from lldslam_tpu_torch.config import (CameraConfig, LineConfig,  # noqa: E402
                                       SlamConfig, TrackingConfig)
+from lldslam_tpu_torch.geometry import lines as tgl  # noqa: E402
+from lldslam_tpu_torch.io.synthetic import add_loop_lines  # noqa: E402
+from lldslam_tpu_torch.io.synthetic import make_loop_map  # noqa: E402
 from lldslam_tpu_torch.loop.closing import LoopCloser  # noqa: E402
 from lldslam_tpu_torch.ops.orb import OrbConfig  # noqa: E402
+from lldslam_tpu_torch.pipeline.kf_cache import KfCache  # noqa: E402
+from lldslam_tpu_torch.pipeline.local_mapping import LocalMapper  # noqa: E402
+from lldslam_tpu_torch.pipeline.tracker import StereoTracker  # noqa: E402
 from lldslam_tpu_torch.system import System  # noqa: E402
 
 torch.set_num_threads(2)
@@ -142,23 +148,47 @@ def test_trajectory_exports(slice_runs, tmp_path):
     assert kf.shape == (int(s.kf_valid[:s.n_kf].sum()), 8)
 
 
+def _line_obs_error(s) -> float:
+    """Median distance (px) of every keyframe line observation's left
+    endpoints to its map line projected at the keyframe's pose."""
+    k, j = np.nonzero(s.kf_ln_ids[:s.n_kf] >= 0)
+    ln = s.kf_ln_ids[k, j]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    r = tgl.endpoint_residual(s.cam, t(s.kf_pose[k]), t(s.ln_x0[ln]),
+                              t(s.ln_dir[ln]), t(s.kf_ln_p1[k, j]),
+                              t(s.kf_ln_p2[k, j]))
+    return float(r.abs().median())
+
+
 @pytest.mark.parametrize("what", ["loops", "pipeline", "lines", "rgbd",
                                   "mono", "save_map", "load_map"])
 def test_unported_entries_raise(what, tmp_path):
     """Everything outside the slice raises NotImplementedError naming the
-    ROADMAP queue; nothing falls back to another path."""
+    ROADMAP queue; nothing falls back to another path. `lines` is the
+    native line detector route (ldType LBDFloat without stored
+    detections). `loops` is ported whole: on a map with lines the loop
+    closer's global BA runs the joint point+line problem instead of
+    raising: it moves the map lines and lowers their median endpoint
+    distance to their keyframe observations (pixel noise 0.3) by a
+    quarter or more."""
     cfg = _port_cfg()
+    if what == "loops":
+        lc = System(cfg, device="cpu").tracker.loop_closer
+        s = lc.store
+        add_loop_lines(s, make_loop_map(s))
+        n = s.n_ln
+        x0, err0 = s.ln_x0[:n].copy(), _line_obs_error(s)
+        lc.global_ba()
+        assert (s.ln_nobs[:n] >= 4).sum() >= 100
+        assert np.isfinite(s.ln_x0[:n]).all() and np.isfinite(s.ln_dir[:n]).all()
+        moved = np.linalg.norm(s.ln_x0[:n] - x0, axis=-1) > 1e-3
+        assert moved.sum() >= 100, moved.sum()
+        err1 = _line_obs_error(s)
+        print(f"median line endpoint distance {err0:.3f} -> {err1:.3f} px")
+        assert err1 < 0.75 * err0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        if what == "loops":
-            # loops run; the joint point+line global BA is what stays
-            # unported
-            lc = System(cfg, device="cpu").tracker.loop_closer
-            s = lc.store
-            s.n_ln = 1
-            s.ln_valid[0] = True
-            s.ln_nobs[0] = 4
-            lc.global_ba()
-        elif what == "pipeline":
+        if what == "pipeline":
             System(cfg, pipeline=True, device="cpu")
         elif what == "lines":
             System(SlamConfig(camera=cfg.camera, orb=cfg.orb,
@@ -176,8 +206,12 @@ def test_unported_entries_raise(what, tmp_path):
 def test_system_defaults_to_the_card():
     """System(cfg) with no device argument runs on the card: with one, its
     tracker sits on cuda; without one it raises at its first allocation
-    instead of coming up on the CPU."""
+    instead of coming up on the CPU. The classes a caller may build
+    directly (StereoTracker, LocalMapper, LoopCloser, KfCache) default to
+    the card too."""
     cfg = _port_cfg()
+    for cls in (System, StereoTracker, LocalMapper, LoopCloser, KfCache):
+        assert inspect.signature(cls).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         s = System(cfg, enable_loops=False)
         assert s.tracker.device.type == "cuda"

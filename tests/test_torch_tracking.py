@@ -218,7 +218,7 @@ def test_optimize_pose_matches_jax(seed):
     Tj, inj, _, nj = jpo.optimize_pose(
         JCAM, jnp.asarray(T0),
         jpo.PointPoseObs(**{k: jnp.asarray(v) for k, v in p.items()}))
-    Tt, intt, nt = tpo.optimize_pose(
+    Tt, intt, _, nt = tpo.optimize_pose(
         CAM, _t(T0), tpo.PointPoseObs(**{k: _t(v) for k, v in p.items()}))
     dt, da = _pose_close(Tt.numpy().astype(np.float64), np.asarray(Tj, np.float64))
     assert dt <= 1e-3 and da <= 1e-4, (dt, da)
