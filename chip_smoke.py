@@ -42,11 +42,26 @@ Phases, each fatal on failure (nonzero exit, no result line):
    under the test's bound;
 8. reloc: the blackout scenario of tests/test_reloc.py through System, then
    K2g at the relocalization call site (8192 rows) on the relocalized frame,
-   held exactly to the same call on CPU copies.
-Kernel launches are counted per path (counts zeroed just before, read just
-after): main, lines, loop and reloc are System runs; reloc_site is the two
-direct calls of the relocalization call site. The second-to-last line is
-the kernel table as JSON, the last line the device summary as JSON.
+   held exactly to the same call on CPU copies;
+9. mono: the left views of the main path's 30 frames through
+   System.track_monocular (H/F bootstrap, loops on): asserts on the
+   bootstrap frame, states, keyframes, map points, Sim(3)-aligned ATE and
+   kernel launches (K1a once a frame, no K1b); ms per frame and the
+   bootstrap frame's ms; K1a on the last frame's own one-view inputs,
+   exact against its plain version, timed against its bound;
+10. rgbd: 30 frames of a TUM-size corridor (the TUM fr1 camera, 1000
+   features) with the left view's ray-cast depth (0 beyond 8 m) through
+   System.track_rgbd: asserts on states, keyframes, map points and
+   unaligned ATE; then the top-down map render and a map checkpoint saved
+   and loaded into a fresh System with every array equal;
+11. rectify: StereoRectifier with EuRoC-like blocks (752x480) on one
+   synthetic pair on the card against the CPU, and its ms per pair.
+The main path's last frame's K1a and K1b inputs are held exactly to the
+plain versions too. Kernel launches are counted per path (counts zeroed just
+before, read just after): main, lines, loop, reloc, mono and rgbd are
+System runs; reloc_site is the two direct calls of the relocalization call
+site. The second-to-last line is the kernel table as JSON, the last line the
+device summary as JSON.
 """
 from __future__ import annotations
 
@@ -73,6 +88,18 @@ SHIPPED_WORDS = 99106
 LINES_JAX = dict(ate_on=0.00635, ate_off=0.00697, cap=(60, 1864))
 LINE_MATCH_RANGE = (209, 255)      # 232 +- 10%
 LINE_MAP_RANGE = (326, 440)        # 383 +- 15%
+# the JAX package's CPU runs of the mono and RGB-D phases' inputs: mono
+# bootstraps at frame 1, keyframes at frames 1, 4, 11, 17, 27 (6 with the
+# bootstrap's two), 739 map points, Sim(3)-aligned ATE 0.0414 m (scale
+# 17.02); RGB-D keyframes at 0, 3, 12, 22, 886 points, unaligned ATE
+# 0.00459 m
+MONO_POINT_RANGE = (590, 890)      # 739 +- 20%
+MONO_ATE_BOUND_M = 0.10
+RGBD_KF_FRAMES = (0, 3, 12, 22)
+RGBD_POINT_RANGE = (750, 1020)     # 886 +- 15%
+RGBD_ATE_BOUND_M = 0.025           # 0.00459 m + 0.02 m
+RGBD_MAX_DEPTH_M = 8.0             # a Kinect-class sensor reads no further
+RECTIFY_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -341,13 +368,29 @@ def patch_world_config():
                       tracking=TrackingConfig(min_init_points=100))
 
 
-def track(sys_, frames, t0: float = 0.0, label: str = ""):
-    """Frames through System.track_stereo, each synchronised; returns
-    (per-frame ms, metrics)."""
+def tum_config():
+    """The TUM fr1 camera of ORB-SLAM2's TUM1.yaml (640x480, Camera.bf
+    40.0), 1000 features, 8 levels x 1.2."""
+    from lldslam_tpu_torch.config import CameraConfig, SlamConfig, TrackingConfig
+    from lldslam_tpu_torch.ops.orb import OrbConfig
+    cam_cfg = CameraConfig(fx=517.306408, fy=516.469215, cx=318.643040,
+                           cy=255.313989, bf=40.0, fps=30.0, width=640,
+                           height=480)
+    return SlamConfig(camera=cam_cfg, orb=OrbConfig(n_features=1000),
+                      tracking=TrackingConfig(min_init_points=100))
+
+
+def track(sys_, frames, t0: float = 0.0, label: str = "", mode="stereo"):
+    """Frames through System.track_stereo ((left, right) each),
+    track_monocular (an image each) or track_rgbd ((image, depth) each),
+    each synchronised; returns (per-frame ms, metrics)."""
+    feed = dict(stereo=lambda f, ts: sys_.track_stereo(*f, timestamp=ts),
+                mono=lambda f, ts: sys_.track_monocular(f, timestamp=ts),
+                rgbd=lambda f, ts: sys_.track_rgbd(*f, timestamp=ts))[mode]
     ms, out = [], []
-    for i, (l, r) in enumerate(frames):
+    for i, f in enumerate(frames):
         t = time.perf_counter()
-        _, m = sys_.track_stereo(l, r, timestamp=t0 + i * 0.1)
+        _, m = feed(f, t0 + i * 0.1)
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t))
         out.append(m)
@@ -384,24 +427,31 @@ def keep_inputs(mod, name: str, sites=None, last_only: bool = False):
     return kept, lambda: setattr(mod, name, kernel)
 
 
-def frame_kernels(kept_k1a, kept_k1b) -> dict:
-    """K1a and K1b on the last frame's own inputs: device ms and the bound
-    of the distinct pixels their taps touch."""
+def frame_kernels(label: str, kept_k1a, kept_k1b=None) -> dict:
+    """K1a (and K1b, where kept) on the last frame's own inputs: exact
+    against the plain version, device ms and the bound of the distinct
+    pixels their taps touch."""
     from lldslam_tpu_torch.ops import orb_describe, stereo_sad
-    (_, d), (_, s) = kept_k1a[-1], kept_k1b[-1]
     out = {}
-    for key, fn, args, (n_bytes, n_ops, px, taps) in (
-            ("k1a", orb_describe.describe, d,
-             k1a_work(d, orb_describe.describe(*d)[0])),
-            ("k1b", stereo_sad.sad_refine, s, k1b_work(s))):
+    for key, fn, plain, kept, work in (
+            ("k1a", orb_describe.describe, orb_describe.describe_plain,
+             kept_k1a, lambda d: k1a_work(d, orb_describe.describe(*d)[0])),
+            ("k1b", stereo_sad.sad_refine, stereo_sad.sad_refine_plain,
+             kept_k1b, k1b_work)):
+        if kept is None:
+            continue
+        args = kept[-1][1]
+        err = _exact(f"{label}, last frame's {key}", fn(*args), plain(*args))
+        n_bytes, n_ops, px, taps = work(args)
         ms = device_ms(lambda: fn(*args))
         b_ms, by = bound(n_bytes, n_ops)
-        out[key] = dict(n=args[2].shape[0], ms=ms, bound_ms=b_ms, bound_by=by,
-                        distinct_pixels=px, taps=taps)
-        log(f"main path, last frame's own inputs: {key} n={args[2].shape[0]}: "
-            f"{px} distinct pixels for {taps} taps; kernel {ms:.4f} ms on the "
-            f"device, bound {b_ms:.4f} ms ({by}), "
-            f"{100 * b_ms / ms:.1f}% of bound")
+        out[key] = dict(n=args[2].shape[0], images=args[0].shape[0], ms=ms,
+                        bound_ms=b_ms, bound_by=by, distinct_pixels=px,
+                        taps=taps, max_abs_err=err)
+        log(f"{label}, last frame's own inputs: {key} n={args[2].shape[0]} "
+            f"over {args[0].shape[0]} images: exact; {px} distinct pixels for "
+            f"{taps} taps; kernel {ms:.4f} ms on the device, bound "
+            f"{b_ms:.4f} ms ({by}), {100 * b_ms / ms:.1f}% of bound")
     return out
 
 
@@ -422,17 +472,22 @@ def gate_density(kept) -> dict:
     return out
 
 
-def phase_main_path(dev) -> dict:
+def main_sequence():
+    """The main path's 30 seed-3 KITTI-size stereo frames and their T_cw."""
     from lldslam_tpu_torch.io.synthetic import make_sequence
+    t0 = time.perf_counter()
+    frames, poses, _ = make_sequence(kitti_config().camera.stereo_camera(),
+                                     N_FRAMES, seed=3, return_poses=True)
+    log(f"main path: generated {N_FRAMES} frames in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return frames, poses
+
+
+def phase_main_path(dev, frames, poses) -> dict:
     from lldslam_tpu_torch.io.trajectory import ate_rmse
     from lldslam_tpu_torch.system import System
 
     cfg = kitti_config()
-    t0 = time.perf_counter()
-    frames, poses, _ = make_sequence(cfg.camera.stereo_camera(), N_FRAMES,
-                                     seed=3, return_poses=True)
-    log(f"main path: generated {N_FRAMES} frames in "
-        f"{time.perf_counter() - t0:.1f} s")
     sys_ = System(cfg, device=dev)
     t0 = time.perf_counter()
     sys_.warmup()
@@ -451,7 +506,7 @@ def phase_main_path(dev) -> dict:
         counts = read_counts()
     finally:
         restore_g(), restore_a(), restore_b()
-    frame_k = frame_kernels(kept_a, kept_b)
+    frame_k = frame_kernels("main path", kept_a, kept_b)
     gates = gate_density(kept_g)
     for site, o in gates.items():
         log(f"main path: K2g at the {site} site, {len(o['M'])} calls of "
@@ -911,16 +966,219 @@ def phase_reloc(dev) -> tuple[dict, dict]:
     return counts, site
 
 
+def ate_sim3(est_T_wc: np.ndarray, gt_T_wc: np.ndarray):
+    """ATE RMSE (m) of the camera centres after the least-squares similarity
+    (Umeyama) that maps the estimate onto the ground truth, and its scale:
+    a monocular map has a free scale."""
+    p = est_T_wc[:, :3, 3].astype(np.float64)
+    g = gt_T_wc[:, :3, 3].astype(np.float64)
+    pc, gc = p - p.mean(0), g - g.mean(0)
+    U, S, Vt = np.linalg.svd(gc.T @ pc / len(p))
+    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    R = U @ D @ Vt
+    scale = float(np.trace(np.diag(S) @ D) / (pc ** 2).sum(-1).mean())
+    res = scale * pc @ R.T - gc
+    return float(np.sqrt((res ** 2).sum(-1).mean())), scale
+
+
+def phase_mono(dev, frames, poses) -> dict:
+    """The main path's left views through System.track_monocular; the
+    bootstrap's matcher, RANSAC and reconstruction timed by wrapping them."""
+    from lldslam_tpu_torch.frontend import matching
+    from lldslam_tpu_torch.ops import orb_describe
+    from lldslam_tpu_torch.optim import initializer
+    from lldslam_tpu_torch.system import System
+
+    sys_ = System(kitti_config(), device=dev)
+    sys_.warmup()
+    kept_a, restore_a = keep_inputs(orb_describe, "describe", last_only=True)
+    boot_ms = dict(match=[], ransac=[], reconstruct=[])
+    restore = [restore_a,
+               timed_calls(matching, "search_for_initialization",
+                           boot_ms["match"]),
+               timed_calls(initializer, "ransac_models", boot_ms["ransac"]),
+               timed_calls(initializer, "reconstruct_h",
+                           boot_ms["reconstruct"]),
+               timed_calls(initializer, "reconstruct_f",
+                           boot_ms["reconstruct"])]
+    try:
+        reset_counts()
+        ms, metrics = track(sys_, [l for l, _ in frames], label="mono",
+                            mode="mono")
+        counts = read_counts()
+    finally:
+        for r in restore:
+            r()
+    tr, s = sys_.tracker, sys_.map
+    states = [m.state for m in metrics]
+    boot = states.index("OK") if "OK" in states else -1
+    kf_frames = [m.frame_id for m in metrics if m.new_kf]
+    _, T_wc = tr.trajectory()
+    gt = np.stack([np.linalg.inv(p) for p in poses])[N_FRAMES - len(T_wc):]
+    ate, scale = ate_sim3(T_wc, gt)
+    points = int(s.pt_valid.sum())
+    path_m = float(np.linalg.norm(gt[-1, :3, 3] - gt[0, :3, 3]))
+    inliers = [m.n_inliers for m in metrics]
+    after = ms[boot + 1:]
+    out = dict(counts=counts, states=states, bootstrap=boot,
+               kf_frames=kf_frames, n_kf=s.n_kf,
+               n_kf_valid=int(s.kf_valid[:s.n_kf].sum()), points=points,
+               ate=ate, scale=scale, ms=ms, inliers=inliers, boot_ms=boot_ms,
+               frame_kernels=frame_kernels("mono", kept_a))
+    log(f"mono: states {states}")
+    log(f"mono: bootstrap at frame {boot} ({ms[boot]:.1f} ms); keyframes at "
+        f"{kf_frames} ({s.n_kf} created, {out['n_kf_valid']} valid); "
+        f"{points} map points; Sim(3)-aligned ATE {ate:.5f} m over "
+        f"{path_m:.1f} m, scale {scale:.3f} (JAX-CPU run 0.0414 m, 17.02); "
+        f"inliers {inliers}; launches {counts}")
+    log(f"mono: ms/frame after the bootstrap median "
+        f"{statistics.median(after):.1f} p90 "
+        f"{float(np.percentile(after, 90)):.1f}; frame 0 {ms[0]:.1f} ms; "
+        f"bootstrap calls (ms, device synchronised) "
+        + json.dumps({k: [round(x, 2) for x in v]
+                      for k, v in boot_ms.items()}))
+    n_tracked = len(after)
+    checks = [
+        (states[0] == "NOT_INITIALIZED", f"frame 0 {states[0]}"),
+        (boot in (1, 2), f"bootstrap at frame {boot}"),
+        (boot > 0 and states[boot:] == ["OK"] * (N_FRAMES - boot),
+         "a frame after the bootstrap not OK"),
+        (s.n_kf >= 4, f"{s.n_kf} keyframes"),
+        (MONO_POINT_RANGE[0] <= points <= MONO_POINT_RANGE[1],
+         f"{points} map points"),
+        (ate <= MONO_ATE_BOUND_M, f"ATE {ate} m"),
+        (counts["k1a"] == N_FRAMES and counts["k1b"] == 0,
+         f"K1a / K1b launches {counts['k1a']} / {counts['k1b']}"),
+        (counts["k2g_sites"].get("tracking", 0) >= n_tracked,
+         f"K2g tracking launches {counts['k2g_sites']} for {n_tracked} "
+         f"tracked frames"),
+    ]
+    bad = [msg for ok, msg in checks if not ok]
+    if bad:
+        raise AssertionError("mono: " + "; ".join(bad))
+    return out
+
+
+def phase_rgbd(dev) -> dict:
+    """A TUM-size corridor with depth through System.track_rgbd; then the
+    map's top-down render and a checkpoint round trip."""
+    import tempfile
+    from lldslam_tpu_torch.io.synthetic import make_sequence
+    from lldslam_tpu_torch.io.trajectory import ate_rmse
+    from lldslam_tpu_torch.system import System
+    from lldslam_tpu_torch.viewer import render
+
+    cfg = tum_config()
+    t0 = time.perf_counter()
+    frames, poses, _, depths = make_sequence(
+        cfg.camera.stereo_camera(), N_FRAMES, seed=3, half_w=2.0, cam_h=1.2,
+        speed=0.05, return_poses=True, return_depth=True)
+    inputs = [(l, np.where(d <= RGBD_MAX_DEPTH_M, d, 0.0).astype(np.float32))
+              for (l, _), d in zip(frames, depths)]
+    log(f"rgbd: generated {N_FRAMES} frames in "
+        f"{time.perf_counter() - t0:.1f} s")
+    sys_ = System(cfg, device=dev)
+    sys_.warmup()
+    reset_counts()
+    ms, metrics = track(sys_, inputs, label="rgbd", mode="rgbd")
+    counts = read_counts()
+    states = [m.state for m in metrics]
+    kf_frames = [m.frame_id for m in metrics if m.new_kf]
+    _, T_wc = sys_.tracker.trajectory()
+    gt = np.stack([np.linalg.inv(p) for p in poses])
+    ate = ate_rmse(T_wc, gt, align=False)
+    points = int(sys_.map.pt_valid.sum())
+    log(f"rgbd: keyframes at {kf_frames} (JAX-CPU run "
+        f"{list(RGBD_KF_FRAMES)}); {points} map points; unaligned ATE "
+        f"{ate:.5f} m; launches {counts}")
+    log(f"rgbd: ms/frame median {statistics.median(ms[1:]):.1f} p90 "
+        f"{float(np.percentile(ms[1:], 90)):.1f} (first frame {ms[0]:.1f})")
+    t = time.perf_counter()
+    img = render.render_topdown(sys_.map, T_wc, size=512)
+    render_ms = 1e3 * (time.perf_counter() - t)
+    drawn = int((img != render.BG).any(-1).sum())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_map_") as tmp:
+        t = time.perf_counter()
+        sys_.save_map(f"{tmp}/map.npz")
+        save_ms = 1e3 * (time.perf_counter() - t)
+        fresh = System(cfg, device=dev, enable_loops=False)
+        t = time.perf_counter()
+        fresh.load_map(f"{tmp}/map.npz")
+        load_ms = 1e3 * (time.perf_counter() - t)
+    arrays = {k: v for k, v in vars(sys_.map).items()
+              if isinstance(v, np.ndarray)}
+    unequal = [k for k, v in arrays.items()
+               if not np.array_equal(getattr(fresh.map, k), v)]
+    unequal += [k for k in ("n_kf", "n_pt", "n_ln")
+                if getattr(fresh.map, k) != getattr(sys_.map, k)]
+    log(f"rgbd: render_topdown {img.shape}, {drawn} pixels drawn, "
+        f"{render_ms:.1f} ms; save_map {save_ms:.1f} ms, load_map "
+        f"{load_ms:.1f} ms, {len(arrays)} arrays, unequal {unequal}")
+    checks = [
+        (states == ["OK"] * N_FRAMES, f"states {states}"),
+        (len(kf_frames) == len(RGBD_KF_FRAMES) and all(
+            abs(a - b) <= 1 for a, b in zip(kf_frames, RGBD_KF_FRAMES)),
+         f"keyframes {kf_frames}"),
+        (RGBD_POINT_RANGE[0] <= points <= RGBD_POINT_RANGE[1],
+         f"{points} map points"),
+        (ate <= RGBD_ATE_BOUND_M, f"ATE {ate} m"),
+        (counts["k1a"] == N_FRAMES and counts["k1b"] == 0
+         and counts["k2g_sites"].get("tracking", 0) >= N_FRAMES - 1,
+         f"launches {counts}"),
+        (img.shape == (512, 512, 3) and drawn > 100, f"render {drawn}"),
+        (not unequal, f"checkpoint arrays unequal: {unequal}"),
+    ]
+    bad = [msg for ok, msg in checks if not ok]
+    if bad:
+        raise AssertionError("rgbd: " + "; ".join(bad))
+    return dict(counts=counts, kf_frames=kf_frames, points=points, ate=ate,
+                ms=ms, render_ms=render_ms, save_ms=save_ms, load_ms=load_ms)
+
+
+def phase_rectify(dev) -> dict:
+    """StereoRectifier with the EuRoC-like blocks on one synthetic pair, on
+    the card against the CPU."""
+    from lldslam_tpu_torch.config import CameraConfig
+    from lldslam_tpu_torch.io.synthetic import euroc_blocks, make_sequence
+    from lldslam_tpu_torch.ops.rectify import StereoRectifier
+
+    cam = CameraConfig(fx=435.2047, fy=435.2047, cx=367.4517, cy=252.2009,
+                       bf=47.9064, width=752, height=480).stereo_camera()
+    (pair,) = make_sequence(cam, 1, seed=4, half_w=3.0, cam_h=1.2, speed=0.05)
+    blocks = euroc_blocks()
+    card, cpu = StereoRectifier(blocks, device=dev), StereoRectifier(
+        blocks, device="cpu")
+    got, want = card(*pair), cpu(*pair)
+    torch.cuda.synchronize()
+    err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+    zeros = [int((w == 0).sum()) for w in want]
+    ms = cuda_ms(lambda: card(*pair))
+    on_card = [torch.from_numpy(x).to(dev) for x in pair]
+    ms_dev = cuda_ms(lambda: card(*on_card))
+    log(f"rectify: EuRoC-like blocks, 752x480 pair: max |card - CPU| "
+        f"{err:.2e} (zeroed border pixels {zeros}); {ms:.3f} ms a pair from "
+        f"host arrays (upload included), {ms_dev:.3f} ms from images on the "
+        f"card")
+    if not err <= RECTIFY_TOL:
+        raise AssertionError(f"rectify: card against CPU {err}")
+    return dict(max_abs_err=err, ms=ms, ms_on_card=ms_dev)
+
+
 def main() -> int:
     name = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     k1a, k1b = phase_k1(dev)
     k2g = phase_k2g(dev)
-    paths = dict(main=phase_main_path(dev))
+    frames, poses = main_sequence()
+    paths = dict(main=phase_main_path(dev, frames, poses))
     paths["lines"] = phase_lines(dev)["counts"]
     paths["loop"] = phase_loop(dev)
     paths["reloc"], paths["reloc_site"] = phase_reloc(dev)
+    mono = phase_mono(dev, frames, poses)
+    paths["mono"] = mono["counts"]
+    paths["rgbd"] = phase_rgbd(dev)["counts"]
+    phase_rectify(dev)
     by_path = lambda k: {p: c[k] for p, c in paths.items()}
     kernels = [
         dict(name="orb_describe", route="cuda",
@@ -928,6 +1186,7 @@ def main() -> int:
              replaces="lldslam_tpu/ops/patch_sample.py:68", exact=True,
              launches=paths["main"]["k1a"], launches_by_path=by_path("k1a"),
              main_path_frame=paths["main"]["frame_kernels"]["k1a"],
+             mono_frame=mono["frame_kernels"]["k1a"],
              library_ms=None, **k1a),
         dict(name="stereo_sad", route="cuda",
              source="lldslam_tpu_torch/csrc/stereo_sad.cu",

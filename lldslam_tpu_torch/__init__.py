@@ -2,8 +2,9 @@
 
 A second package beside the JAX one, with the same module layout and
 function names so each counterpart is easy to find. It runs the synchronous
-stereo SLAM path (frame build, tracking step, keyframe mapping with local BA)
-as plain PyTorch on tensors; the two Pallas kernels of the JAX package
+SLAM path for stereo (points and lines), monocular and RGB-D input (frame
+build, tracking step, keyframe mapping with local BA, loop closing) as plain
+PyTorch on tensors; the two Pallas kernels of the JAX package
 became hand-written CUDA kernels fused with their consumers (`csrc/`, bound
 in `ops/orb_describe.py`, `ops/stereo_sad.py` and `ops/match_best2.py`).
 

@@ -8,8 +8,9 @@ trajectory (and, with --metrics, one JSON line of TrackMetrics per frame).
     python -m lldslam_tpu_torch.cli euroc <settings.yaml> <sequence_dir> <times>
 
 The System runs on the card unless `--device cpu` is given. EuRoC settings
-with rectification blocks (LEFT.K) and `--save-map` raise
-NotImplementedError: rectification and map checkpoints are not ported.
+with rectification blocks (LEFT.K ...) undistort and rectify every pair on
+that device first (ops/rectify.py); `--save-map` writes the map checkpoint
+(io/checkpoint.py).
 """
 from __future__ import annotations
 
@@ -44,6 +45,25 @@ def run_sequence(system, seq, realtime: bool = False, limit: int | None = None,
     return times
 
 
+class RectifiedSequence:
+    """A stereo sequence whose pairs go through a StereoRectifier; frames
+    come back as uint8 numpy images."""
+
+    def __init__(self, inner, rectifier):
+        self.inner = inner
+        self.rectifier = rectifier
+        self.timestamps = inner.timestamps
+
+    def __len__(self) -> int:
+        return len(self.inner)
+
+    def frame(self, i: int):
+        il, ir, ts = self.inner.frame(i)
+        jl, jr = self.rectifier(il, ir)
+        return (jl.cpu().numpy().astype(np.uint8),
+                jr.cpu().numpy().astype(np.uint8), ts)
+
+
 def main(argv=None):
     from .config import parse_opencv_yaml
     from .io import datasets
@@ -71,13 +91,14 @@ def main(argv=None):
     else:
         if not args.times:
             p.error("euroc requires a timestamp file")
-        if "LEFT.K" in parse_opencv_yaml(args.settings):
-            raise NotImplementedError(
-                "EuRoC stereo rectification is not ported to "
-                "lldslam_tpu_torch yet; see ROADMAP queue 1 item 6")
         seq = datasets.load_euroc(args.sequence, args.times)
         fmt = args.format or "tum"
         seq_name = None
+        d = parse_opencv_yaml(args.settings)
+        if "LEFT.K" in d:
+            from .ops.rectify import StereoRectifier
+            seq = RectifiedSequence(seq,
+                                    StereoRectifier(d, device=args.device))
 
     system = System(args.settings, sequence=seq_name, device=args.device)
     run_sequence(system, seq, realtime=args.realtime, limit=args.limit)
@@ -88,6 +109,7 @@ def main(argv=None):
     print(f"trajectory saved to {args.out}")
     if args.save_map:
         system.save_map(args.save_map)
+        print(f"map saved to {args.save_map}")
     if args.metrics:
         with open(args.metrics, "w") as f:
             for m in system.tracker.metrics:

@@ -7,7 +7,9 @@ right-u and ratio gates of ORBmatcher::SearchByProjection.
 
 `search_by_projection` goes through K2g (ops/match_best2.py) on every call:
 the gates are evaluated in the kernel, so neither the (P, N) candidate mask
-nor the distance matrix is built on the card.
+nor the distance matrix is built on the card. `search_for_initialization`,
+the monocular bootstrap's windowed matcher, runs on the dense Hamming matrix,
+as the JAX package runs it in XLA.
 """
 from __future__ import annotations
 
@@ -170,3 +172,25 @@ def match_last_frame(cam: StereoCamera, T_cw: torch.Tensor,
     _, kp2last = _resolve_conflicts(ok, best_kp, best, d.shape[1])
     return kp2last
 
+
+def search_for_initialization(f0: FrameFeatures, f1: FrameFeatures,
+                              radius: float = 100.0,
+                              nn_ratio: float = 0.9) -> torch.Tensor:
+    """Windowed descriptor matching for the monocular bootstrap: same
+    octave, within +-radius px of the same image location, Hamming at most
+    TH_LOW with the nn_ratio test, mutual best, rotation-consistency
+    filtered. The JAX package keeps every octave where the reference keeps
+    only level 0 (its divergence, kept here). Returns idx0to1 (N,) int64,
+    -1 where unmatched."""
+    win = ((f0.xy[:, None, 0] - f1.xy[None, :, 0]).abs() <= radius) \
+        & ((f0.xy[:, None, 1] - f1.xy[None, :, 1]).abs() <= radius)
+    cand = (win & (f0.octave[:, None] == f1.octave[None, :])
+            & f0.valid[:, None] & f1.valid[None, :])
+    dist = hamming.distance_matrix(f0.desc, f1.desc)
+    best_t = torch.argmin(torch.where(cand, dist, hamming.INF_DIST), dim=0)
+    best, bd, second = hamming.masked_argmin(dist, cand)
+    ok = (bd <= hamming.TH_LOW) & (bd.to(torch.float32)
+                                   <= nn_ratio * second.to(torch.float32))
+    ok = ok & (best_t[best] == torch.arange(best.shape[0], device=ok.device))
+    ok = hamming.rotation_consistency_mask(f0.angle, f1.angle, best, ok)
+    return torch.where(ok, best, -1)

@@ -9,12 +9,15 @@
    first. `make_ring_sequence` is the loop-closure circle of
    tests/test_loop_e2e.py (`_make_ring_world`, `_circle_pose`);
    `make_points_world` and `corridor_poses` are the forward corridor of
-   tests/test_pipeline.py (`_make_world`) that tests/test_reloc.py blinds.
+   tests/test_pipeline.py (`_make_world`) that tests/test_reloc.py blinds;
+   `render_points_rgbd` renders it as gray image and depth map
+   (tests/test_rgbd_viewer_ckpt.py::_render_rgbd).
 3. `gen_stored_lines`: stored line detections of the corridor of
    `make_sequence` (bench.py `_gen_stored_lines_ref_scale`), written in the
    stored-line format.
 4. `make_loop_map` fills a MapStore with a drifting circle for loop-closer
    tests; `add_loop_lines` adds the map lines its keyframes observe.
+5. `euroc_blocks`: EuRoC-like stereo rectification settings.
 
 Motion increments come from this package's `se3.exp`, so the machine
 without JAX generates the same frames; for one seed the images and poses
@@ -70,7 +73,7 @@ def sample_tex(tex, u_px, v_px):
 def make_sequence(cam, n_frames: int, n_per_m: float = 40.0, seed: int = 0,
                    with_lines: bool = False, half_w: float = 8.0,
                    cam_h: float = 1.65, speed: float = 1.0,
-                   return_poses: bool = False):
+                   return_poses: bool = False, return_depth: bool = False):
     """Synthetic forward-motion stereo corridor, rendered by ray-casting
     textured planes (ground + two walls + end wall) with full perspective.
 
@@ -83,7 +86,14 @@ def make_sequence(cam, n_frames: int, n_per_m: float = 40.0, seed: int = 0,
     cadence, NeedNewKeyFrame Tracking.cc:1223-1310). `with_lines` paints
     high-contrast vertical stripes on the walls — static 3D vertical line
     segments for the LLD line workload. `n_per_m` kept for signature
-    compatibility (texture density is fixed per metre)."""
+    compatibility (texture density is fixed per metre).
+
+    Returns the frames [(imL, imR) uint8], with `return_poses` followed by
+    the T_cw per frame and the world's dimensions, and with `return_depth`
+    followed by the left view's ray-cast depth per frame ((H, W) float32
+    metres, inf where no plane is hit: the camera-frame ray has z = 1, so
+    its parameter is the depth). The depth draws nothing from the random
+    stream: the frames are the same either way."""
     rng = np.random.default_rng(seed)
     W, H = cam.width, cam.height
     length = 220.0 + 1.0 * n_frames
@@ -105,7 +115,8 @@ def make_sequence(cam, n_frames: int, n_per_m: float = 40.0, seed: int = 0,
 
     def render(C, Rwc):
         """Ray-cast one camera: center C (world), rotation Rwc (cam->world).
-        Camera frame: x right, y down, z forward; world starts aligned."""
+        Camera frame: x right, y down, z forward; world starts aligned.
+        Returns (image, depth)."""
         d = (Rwc[:, 0][:, None, None] * dx[None]
              + Rwc[:, 1][:, None, None] * dy[None]
              + Rwc[:, 2][:, None, None])          # (3, H, W)
@@ -149,10 +160,11 @@ def make_sequence(cam, n_frames: int, n_per_m: float = 40.0, seed: int = 0,
                 val = sample_tex(tex, u_m[hit] * res, v_m[hit] * res)
                 img[hit] = val
                 best_t[hit] = tt[hit]
-        return img
+        return img, best_t
 
     frames = []
     poses = []
+    depths = []
     T = np.eye(4, dtype=np.float32)   # T_cw
     xi = np.array([0.0, 0.0, -1.0 * speed, 0.0, 0.003, 0.0], np.float32)
     dT = se3.exp(torch.from_numpy(xi)).numpy()
@@ -161,15 +173,20 @@ def make_sequence(cam, n_frames: int, n_per_m: float = 40.0, seed: int = 0,
         Twc = np.linalg.inv(T)
         Rwc, C = Twc[:3, :3], Twc[:3, 3]
         C_r = C + Rwc[:, 0] * cam.baseline
-        imL = render(C, Rwc) + rng.normal(0, 1.2, (H, W))
-        imR = render(C_r, Rwc) + rng.normal(0, 1.2, (H, W))
+        imL, depth = render(C, Rwc)
+        imL = imL + rng.normal(0, 1.2, (H, W))
+        imR = render(C_r, Rwc)[0] + rng.normal(0, 1.2, (H, W))
         frames.append((np.clip(imL, 0, 255).astype(np.uint8),
                        np.clip(imR, 0, 255).astype(np.uint8)))
+        depths.append(depth)
         T = dT @ T
+    out = (frames,)
     if return_poses:
-        return frames, poses, dict(half_w=half_w, cam_h=cam_h,
-                                   length=length, wall_top=wall_top)
-    return frames
+        out += (poses, dict(half_w=half_w, cam_h=cam_h, length=length,
+                            wall_top=wall_top))
+    if return_depth:
+        out += (depths,)
+    return out if len(out) > 1 else frames
 
 
 def gen_stored_lines(cam, poses, world: dict, left, right, seed: int = 5,
@@ -329,6 +346,27 @@ def render_points(cam, T_cw: np.ndarray, pts: np.ndarray,
     return imL, imR
 
 
+def render_points_rgbd(cam, T_cw: np.ndarray, pts: np.ndarray,
+                       patches: np.ndarray):
+    """Gray image (background 15) and dense depth map (background wall at
+    60 m) of a patch world: every point more than 0.5 m in front whose patch
+    fits the image, far first, its patch region carrying its depth."""
+    W, H = cam.width, cam.height
+    img = np.full((H, W), 15.0, np.float32)
+    depth = np.full((H, W), 60.0, np.float32)
+    Xc = (T_cw[:3, :3] @ pts.T).T + T_cw[:3, 3]
+    u = cam.fx * Xc[:, 0] / np.maximum(Xc[:, 2], 1e-6) + cam.cx
+    v = cam.fy * Xc[:, 1] / np.maximum(Xc[:, 2], 1e-6) + cam.cy
+    h = PATCH // 2
+    for i in np.argsort(-Xc[:, 2]):
+        if Xc[i, 2] > 0.5 and h + 1 < u[i] < W - h - 1 \
+                and h + 1 < v[i] < H - h - 1:
+            _stamp(img, patches[i], u[i], v[i])
+            iu, iv = int(u[i]), int(v[i])
+            depth[iv - h:iv + h + 1, iu - h:iu + h + 1] = Xc[i, 2]
+    return img, depth
+
+
 def make_ring_sequence(cam, n_frames: int = 88, seed: int = 11):
     """The loop-closure circle of tests/test_loop_e2e.py: 1.08 turns of a
     radius-8 m circle in `n_frames` frames around a ring of textured
@@ -481,3 +519,31 @@ def add_loop_lines(store, true_poses, n_lines: int = 240, seed: int = 1,
         prev = dict(zip(seen[old].tolist(), ids[np.nonzero(old)[0]].tolist()))
         prev.update(zip(seen[f_new].tolist(), new_ids.tolist()))
     return n_new
+
+
+def euroc_blocks() -> dict:
+    """EuRoC MAV stereo rectification settings (752x480 views) after the
+    reference's EuRoC.yaml, as config.parse_opencv_yaml returns them:
+    LEFT.* / RIGHT.* width and height, and K, D (radial-tangential), R and
+    P as (rows, cols, values)."""
+    out = {}
+    for side, K, D, R, P in (
+            ("LEFT", [458.654, 0.0, 367.215, 0.0, 457.296, 248.375, 0, 0, 1],
+             [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0],
+             [0.999966347530033, -0.001422739138722922, 0.008079580483432283,
+              0.001365741834644127, 0.9999741760894847, 0.007055629199258132,
+              -0.008089410156878961, -0.007044357138835809,
+              0.9999424675829176],
+             [435.2046959714599, 0, 367.4517211914062, 0, 0,
+              435.2046959714599, 252.2008514404297, 0, 0, 0, 1, 0]),
+            ("RIGHT", [457.587, 0.0, 379.999, 0.0, 456.134, 255.238, 0, 0, 1],
+             [-0.28368365, 0.07451284, -0.00010473, -3.555907e-05, 0.0],
+             [0.9999633526194376, -0.003625811871560086, 0.007755443660172947,
+              0.003680398547259526, 0.9999684752771629, -0.007035845251224894,
+              -0.007729688520722713, 0.007064130529506649, 0.999945173484644],
+             [435.2046959714599, 0, 367.4517211914062, -47.90639384423901, 0,
+              435.2046959714599, 252.2008514404297, 0, 0, 0, 1, 0])):
+        out.update({f"{side}.width": 752, f"{side}.height": 480,
+                    f"{side}.K": (3, 3, K), f"{side}.D": (1, 5, D),
+                    f"{side}.R": (3, 3, R), f"{side}.P": (3, 4, P)})
+    return out

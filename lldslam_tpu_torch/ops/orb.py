@@ -1,15 +1,20 @@
 """Batched ORB keypoint extraction: pyramid FAST + orientation + rotated BRIEF.
 
-Counterpart of lldslam_tpu/ops/orb.py (`extract_stack_pyr` and helpers):
-dense FAST score maps per level, per-cell top-k then per-level top-n
-selection, intensity-centroid orientation over the radius-15 circular patch,
-and rotated BRIEF-256 on the 7x7 blurred level packed into 8 int32 words.
+Counterpart of lldslam_tpu/ops/orb.py (`extract_stack_pyr` for a stereo
+pair, `extract` / `extract_pyr` for one view, and helpers): dense FAST score
+maps per level, per-cell top-k then per-level top-n selection,
+intensity-centroid orientation over the radius-15 circular patch, and
+rotated BRIEF-256 on the 7x7 blurred level packed into 8 int32 words.
 
 Orientation and descriptor are one launch of K1a (ops/orb_describe.py) over
-padded stacks of every pyramid level of both views (`stack_levels`): the
+padded stacks of every pyramid level of every view (`stack_levels`): the
 orientation moments (the JAX package computes them as dense prefix-sum maps;
 summing the 31x31 circular patch at each keypoint gives the same integers)
-and the 512 BRIEF taps, compared and packed in the kernel.
+and the 512 BRIEF taps, compared and packed in the kernel. K1a reads
+integer-valued stacks: the stereo pair's quantized pyramid as it is; for one
+view the JAX package detects on the float pyramid and rounds only inside
+the orientation and the blur, so `extract_pyr` gives K1a round(level) and
+round(blur(level)).
 """
 from __future__ import annotations
 
@@ -133,9 +138,11 @@ def _ic_angle(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
 def extract_stack_pyr(pyr, cfg: OrbConfig = OrbConfig(),
                       pyr_stack: torch.Tensor | None = None) -> Keypoints:
     """ORB extraction for a stack of same-shape views per level (pyr: list of
-    (V, h_l, w_l) float32 integer-valued levels; V=2 for a stereo pair).
-    `pyr_stack` optionally passes `stack_levels(pyr)` when the caller already
-    built it. Returns Keypoints with leading dim V."""
+    (V, h_l, w_l) float32 levels; V=2 for a stereo pair). FAST, NMS and
+    selection run on `pyr`, BRIEF on round(blur(level)); the orientation
+    reads `pyr_stack`, the integer-valued levels stacked, by default
+    `stack_levels(pyr)` (a quantized pyramid). Returns Keypoints with
+    leading dim V."""
     V = pyr[0].shape[0]
     dev = pyr[0].device
     budgets = cfg.per_level_budget()
@@ -177,3 +184,20 @@ def extract_stack_pyr(pyr, cfg: OrbConfig = OrbConfig(),
         kp = Keypoints(*(F.pad(a, (0, 0) * (a.dim() - 2) + (0, cap - n))
                          for a in kp))
     return kp
+
+
+def extract_pyr(pyr, cfg: OrbConfig = OrbConfig()) -> Keypoints:
+    """ORB extraction for one view from its float32 pyramid (list of
+    (h_l, w_l) levels, not quantized), as the JAX package's single-view
+    `extract_pyr`: detection on the float levels, the orientation on
+    round(level). Returns Keypoints without the view dim."""
+    views = [p[None] for p in pyr]
+    return extract_stack_pyr(
+        views, cfg, pyr_stack=stack_levels([torch.round(p) for p in views])
+    ).view_of(0)
+
+
+def extract(img: torch.Tensor, cfg: OrbConfig = OrbConfig()) -> Keypoints:
+    """Full ORB extraction for one grayscale (H, W) image."""
+    return extract_pyr(image.build_pyramid(img.to(torch.float32),
+                                           cfg.n_levels, cfg.scale), cfg)

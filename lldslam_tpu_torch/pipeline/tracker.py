@@ -1,8 +1,8 @@
-"""Deterministic per-frame stereo tracking, synchronous path, points and
-lines.
+"""Deterministic per-frame tracking, synchronous path: stereo with points
+and lines, monocular and RGB-D.
 
 Counterpart of lldslam_tpu/pipeline/tracker.py (`StereoTracker` with
-`pipeline=False`). Every frame runs
+`pipeline=False`). Every stereo frame runs
 
     build_frame_pair (+ with lines: both views' stored detections, stereo
     line match and triangulation) -> (LOST: relocalization) -> motion-model
@@ -29,8 +29,18 @@ and the auto-reset.
 Lines run on the stored-line route (`ldType: LBDFloat` with
 `lineDetectionsPath`). Not ported yet (each raises NotImplementedError, see
 ROADMAP queue 1): the native line detector, the pipelined tracker (and with
-it the provisional point identities and the on-device keyframe decision),
-monocular and RGB-D input.
+it the provisional point identities and the on-device keyframe decision).
+
+RGB-D frames (`process_rgbd`) carry a virtual right coordinate from the
+depth map and take the stereo path above. Monocular frames
+(`process_mono`) have no depth: the first frame with more than 100
+keypoints is held as the reference, and each later one is matched to it
+(`matching.search_for_initialization`) and given to the H/F initializer
+(optim/initializer.py) until it reconstructs; the two frames become
+keyframes 0 and 1 at median scene depth 1, and tracking continues on the
+path above with `ur = -1` on every keypoint, new points coming from the
+local mapper's two-view triangulation. Lines are stereo-seeded and stay off
+for both.
 """
 from __future__ import annotations
 
@@ -44,14 +54,15 @@ import torch
 
 from ..config import SlamConfig
 from ..frontend import line_match, matching
-from ..frontend.frame import FrameData, build_frame_pair
+from ..frontend.frame import (FrameData, build_frame_mono,
+                              build_frame_pair, build_frame_rgbd)
 from ..geometry.camera import backproject
 from ..io import trajectory as traj
 from ..io.stored_lines import StoredLineSource, stage_stored_pair
 from ..ops import hamming
 from ..loop.bow import Vocabulary
 from ..loop.closing import LoopCloser, project_match
-from ..optim import pnp, pose_opt
+from ..optim import initializer, pnp, pose_opt
 from ..slammap.map_store import MapStore
 from . import local_mapping, mapper_fast
 from .kf_cache import KfCache
@@ -231,6 +242,9 @@ class StereoTracker:
         self._has_velocity = False
         self._view = None
         self._view_pid = None
+        # monocular bootstrap: set by process_mono; the held reference frame
+        self._mono = False
+        self._init_ref = None
         # line pipeline: stored detections (<detections_path>/{left,right},
         # or detections_path and descriptors_path as the two views), the
         # configured mdThr applying directly on their descriptor scale
@@ -280,6 +294,12 @@ class StereoTracker:
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _image(self, img: np.ndarray) -> torch.Tensor:
+        """A frame on the device, as uint8 when its values fit."""
+        if img.dtype != np.uint8 and img.max(initial=0.0) <= 255.0:
+            img = img.astype(np.uint8)
+        return self._t(img)
+
     def process(self, img_l: np.ndarray, img_r: np.ndarray,
                 timestamp: float = 0.0):
         """Track one stereo pair; returns (T_cw (4,4) np, TrackMetrics)."""
@@ -296,6 +316,32 @@ class StereoTracker:
             self._cur_fl = line_match.match_stereo_lines(
                 self.cam, kl, kr, md_thr=self._md_gate,
                 min_len=self.cfg.line.min_line_len)
+        m.t_build = time.perf_counter() - t0
+        return self._process_fd(fd, timestamp, m)
+
+    def process_rgbd(self, img: np.ndarray, depthmap: np.ndarray,
+                     timestamp: float = 0.0, depth_factor: float = 1.0):
+        """Track one RGB-D frame: gray image and registered depth map (its
+        values times depth_factor are metres, 0 for no reading)."""
+        self.frame_id += 1
+        m = TrackMetrics(frame_id=self.frame_id)
+        t0 = time.perf_counter()
+        self._cur_fl = None   # lines are stereo-seeded
+        fd = build_frame_rgbd(self._image(img),
+                              self._t(np.asarray(depthmap, np.float32)),
+                              self.cam, self.orb, depth_factor=depth_factor)
+        m.t_build = time.perf_counter() - t0
+        return self._process_fd(fd, timestamp, m)
+
+    def process_mono(self, img: np.ndarray, timestamp: float = 0.0):
+        """Track one monocular frame: the H/F bootstrap until it succeeds,
+        then the standard path with monocular observations."""
+        self._mono = True
+        self.frame_id += 1
+        m = TrackMetrics(frame_id=self.frame_id)
+        t0 = time.perf_counter()
+        self._cur_fl = None
+        fd = build_frame_mono(self._image(img), self.orb)
         m.t_build = time.perf_counter() - t0
         return self._process_fd(fd, timestamp, m)
 
@@ -328,7 +374,10 @@ class StereoTracker:
 
     def _initialize(self, fd: FrameData, timestamp: float, m: TrackMetrics):
         """StereoInitialization: every stereo-depth'd keypoint becomes a map
-        point, the frame becomes KF 0 at identity."""
+        point, the frame becomes KF 0 at identity. Monocular input goes to
+        the H/F bootstrap instead."""
+        if self._mono:
+            return self._initialize_mono(fd, timestamp, m)
         fid = self.frame_id
         feats, depth = self._snapshot_np(fd)
         if int(((depth > 0) & feats["valid"]).sum()) \
@@ -346,7 +395,7 @@ class StereoTracker:
                        (uv[:, 1] - cam.cy) * z / cam.fy, z], -1).astype(np.float32)
         ids = self.store.create_points(kf, good, Xw)
         self.T_cw = T0
-        if self.enable_lines:
+        if self.enable_lines and self._cur_fl is not None:
             self._cur_det2ln = None
             self._create_kf_lines(kf)
         self.velocity = np.eye(4, dtype=np.float32)
@@ -371,6 +420,77 @@ class StereoTracker:
         self._log_frame(timestamp)
         m.new_kf = True
         m.n_inliers = len(ids)
+
+    def _initialize_mono(self, fd: FrameData, timestamp: float,
+                         m: TrackMetrics):
+        """Monocular bootstrap: hold a reference frame, match the current
+        frame to it (>= 100 matches, else it becomes the reference), run the
+        H/F initializer with hypotheses from the tracker's generator, and
+        build the two-keyframe map scaled to median depth 1. No BA here:
+        the two-view solution is already the estimate, and a two-keyframe
+        monocular BA drifts along the free scale."""
+        snap = self._snapshot_np(fd)
+        if self._init_ref is None:
+            if int(snap[0]["valid"].sum()) > 100:
+                self._init_ref = (fd, snap, timestamp)
+            return
+        ref_fd, ref_snap, ref_ts = self._init_ref
+        idx_t = matching.search_for_initialization(ref_fd.feats, fd.feats)
+        valid = idx_t >= 0
+        if int(valid.sum()) < 100:
+            self._init_ref = (fd, snap, timestamp)
+            return
+        x2 = fd.feats.xy[torch.clamp(idx_t, min=0)]
+        ok, R, t, X, good = initializer.initialize(
+            self.cam, ref_fd.feats.xy, x2, valid,
+            *initializer.draw_hypotheses(valid, self._reloc_gen))
+        if not ok:
+            return   # keep the reference, try the next frame
+        med = float(np.median(X[good][:, 2]))
+        if med <= 0:
+            self._init_ref = (fd, snap, timestamp)
+            return
+        X, t = X / med, t / med
+        s = self.store
+        T1 = np.eye(4, dtype=np.float32)
+        T1[:3, :3] = R
+        T1[:3, 3] = t
+        none = np.full(s.n_kp, -1, np.int32)
+        kf0 = s.add_keyframe(np.eye(4, dtype=np.float32), ref_snap[0],
+                             ref_snap[1], none, 0, ref_ts)
+        kf1 = s.add_keyframe(T1, snap[0], snap[1], none.copy(),
+                             self.frame_id, timestamp)
+        idx = idx_t.cpu().numpy()
+        sel = np.nonzero(good)[0]
+        ids = s.create_points(kf0, sel, X[sel].astype(np.float32))
+        s.kf_pt_ids[kf1, idx[sel]] = ids
+        s.mark_obs_dirty()
+        s.set_parent_from_covisibility(kf1)
+        s.refresh_obs_counts()
+        self.T_cw = T1
+        self.velocity = np.eye(4, dtype=np.float32)
+        self.ref_kf = kf1
+        self.last_kf_frame = self.frame_id
+        if self.enable_loops and self.loop_closer is None:
+            self.vocabulary = Vocabulary.train(
+                snap[0]["desc"][snap[0]["valid"]], k=8, L=3, seed=0)
+            self._make_loop_closer()
+        if self.loop_closer is not None:
+            self.loop_closer.process_keyframe(kf0)
+            self.loop_closer.process_keyframe(kf1)
+        self.mapper.cache_frame(kf0, ref_fd.feats)
+        self.mapper.cache_frame(kf1, fd.feats)
+        self.state = TrackState.OK
+        self._has_velocity = False
+        kp2pt = np.full(s.n_kp, -1, np.int32)
+        kp2pt[idx[sel]] = ids
+        self._refresh_local_view()
+        self._refresh_ref_matches()
+        self._remember_frame(fd, kp2pt)
+        self._log_frame(timestamp)
+        m.new_kf = True
+        m.n_inliers = len(ids)
+        self._init_ref = None
 
     def _remember_frame(self, fd: FrameData, kp2pt: np.ndarray,
                         step: dict | None = None):
@@ -632,7 +752,7 @@ class StereoTracker:
 
         T_np = host["T"]
         self._cur_det2ln = None
-        if self.enable_lines:
+        if self.enable_lines and self._cur_fl is not None:
             T_np = self._track_lines(fd, step, m)
         self.state = TrackState.OK
         self.velocity = (T_np @ np.linalg.inv(self.T_cw)).astype(np.float32)
@@ -748,7 +868,7 @@ class StereoTracker:
                            (uv[:, 1] - cam.cy) * zz / cam.fy, zz], -1)
             Xw = (T_wc[:3, :3] @ Xc.T).T + T_wc[:3, 3]
             kp2pt[sel] = s.create_points(kf, sel, Xw.astype(np.float32))
-        if self.enable_lines:
+        if self.enable_lines and self._cur_fl is not None:
             self._create_kf_lines(kf)
         s.set_parent_from_covisibility(kf)
         self.ref_kf = kf

@@ -1,19 +1,21 @@
 """System facade: the public API of the port.
 
-Counterpart of lldslam_tpu/system.py, synchronous stereo, points and
-lines:
+Counterpart of lldslam_tpu/system.py, synchronous: stereo (points and
+lines), monocular and RGB-D input, trajectory export and map checkpoints:
 
     sys = System(cfg, device="cuda")
     T_cw, metrics = sys.track_stereo(img_l, img_r, timestamp)
+    # or sys.track_monocular(img, timestamp)
+    # or sys.track_rgbd(img, depthmap, timestamp, depth_factor)
     sys.save_trajectory_kitti(path)
+    sys.save_map(path)
 
 Loop closing and relocalization are on by default, with this package's copy
 of the shipped vocabulary (`loop/vocab_synth.npz`, the same file as the JAX
 package's); when that file is absent a vocabulary is trained from the first
 keyframe. Lines run when the config enables them with stored detections
-(`ldType: LBDFloat` plus `lineDetectionsPath`). `pipeline=True`, the native
-line detector, `track_rgbd`, `track_monocular`, `save_map` and `load_map`
-raise NotImplementedError.
+(`ldType: LBDFloat` plus `lineDetectionsPath`). `pipeline=True` and the
+native line detector raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from .config import SlamConfig, load_config
+from .io import checkpoint
 from .io import trajectory as traj
 from .loop.bow import Vocabulary
 from .pipeline.tracker import StereoTracker, TrackState
@@ -93,16 +96,17 @@ class System:
         """Returns (T_cw (4,4), per-frame metrics)."""
         return self.tracker.process(img_l, img_r, timestamp)
 
-    def track_rgbd(self, img, depthmap, timestamp: float = 0.0,
-                   depth_factor: float = 1.0):
-        raise NotImplementedError(
-            "RGB-D input is not ported to lldslam_tpu_torch yet; see ROADMAP "
-            "queue 1 item 6")
+    def track_rgbd(self, img: np.ndarray, depthmap: np.ndarray,
+                   timestamp: float = 0.0, depth_factor: float = 1.0):
+        """RGB-D input: the depth map (times depth_factor, metres) gives
+        each keypoint a virtual stereo coordinate. Returns (T_cw, metrics)."""
+        return self.tracker.process_rgbd(img, depthmap, timestamp,
+                                         depth_factor)
 
-    def track_monocular(self, img, timestamp: float = 0.0):
-        raise NotImplementedError(
-            "monocular input is not ported to lldslam_tpu_torch yet; see "
-            "ROADMAP queue 1 item 6")
+    def track_monocular(self, img: np.ndarray, timestamp: float = 0.0):
+        """Monocular input: H/F bootstrap, then a map of free scale.
+        Returns (T_cw, metrics)."""
+        return self.tracker.process_mono(img, timestamp)
 
     def flush(self):
         """No-op: the synchronous tracker has nothing in flight."""
@@ -153,14 +157,13 @@ class System:
 
     # -- map persistence --------------------------------------------------
     def save_map(self, path) -> None:
-        raise NotImplementedError(
-            "map checkpoints are not ported to lldslam_tpu_torch yet; see "
-            "ROADMAP queue 1 item 8")
+        """Every array of the map store and its counters, one .npz."""
+        checkpoint.save_map(self.map, path)
 
     def load_map(self, path) -> None:
-        raise NotImplementedError(
-            "map checkpoints are not ported to lldslam_tpu_torch yet; see "
-            "ROADMAP queue 1 item 8")
+        """Restore a map saved by `save_map` (or by the JAX package) into
+        this System's store."""
+        checkpoint.load_map(self.map, path)
 
     def shutdown(self) -> None:
         """Nothing to stop: the synchronous path starts no threads."""

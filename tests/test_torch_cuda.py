@@ -16,7 +16,10 @@ tolerances as the JAX parity tests, since sin/cos/atan2 may differ by an ulp
 between the card's and the CPU's math libraries). One loop correction on the
 card is held to the same correction on the CPU within the tolerances the
 JAX parity test (tests/test_torch_loop.py) states, and the solver loops of
-a loop event run without a host synchronisation.
+a loop event run without a host synchronisation. The single-view frame
+build of the monocular and RGB-D paths launches K1a once on one view's
+rounded float levels, exact against the plain version; the monocular
+initializer and the rectifier's remap on the card agree with the CPU.
 """
 import numpy as np
 import pytest
@@ -32,8 +35,9 @@ from lldslam_tpu_torch.loop.closing import LoopCloser
 from lldslam_tpu_torch.io import kernel_inputs
 from lldslam_tpu_torch.ops import match_best2, orb_describe, stereo_sad
 from lldslam_tpu_torch.ops.orb import OrbConfig
-from lldslam_tpu_torch.optim import (ba, lines_ba, pose_graph, pose_opt,
-                                     sim3_solver)
+from lldslam_tpu_torch.ops import rectify
+from lldslam_tpu_torch.optim import (ba, initializer, lines_ba, pose_graph,
+                                     pose_opt, sim3_solver)
 from lldslam_tpu_torch.slammap.map_store import MapStore
 from lldslam_tpu_torch.system import _default_vocabulary
 
@@ -342,3 +346,87 @@ def test_kernels_and_projection_search_never_wait_for_the_host(dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert int((pt2kp >= 0).sum()) == int((kp2pt >= 0).sum())
+
+
+def test_orb_describe_one_view_equals_plain(dev, monkeypatch):
+    """The monocular frame build at KITTI size launches K1a once, on one
+    view's stacks of round(level) and round(blur(level)) of the float
+    pyramid; on those arguments the kernel equals its plain version. The
+    build on the card keeps >= 99.5% of the CPU build's keypoints, and the
+    RGB-D build samples the same depth where they agree."""
+    cam = CameraConfig().stereo_camera()
+    frames, _, _, depths = make_sequence(cam, 1, seed=3, return_poses=True,
+                                         return_depth=True)
+    img = torch.from_numpy(frames[0][0])
+    cfg = OrbConfig(n_features=2000)
+    kept, describe = [], orb_describe.describe
+    monkeypatch.setattr(orb_describe, "describe",
+                        lambda *a: kept.append(a) or describe(*a))
+    before = orb_describe.launches
+    g = frame.build_frame_mono(img.to(dev), cfg)
+    torch.cuda.synchronize()
+    assert orb_describe.launches == before + 1
+    (args,) = kept
+    assert args[0].shape[0] == cfg.n_levels          # one view per level
+    assert torch.equal(args[0], torch.round(args[0]))
+    _equal(describe(*args), orb_describe.describe_plain(*args))
+    c = frame.build_frame_mono(img, cfg)
+    same = ((g.feats.xy.cpu() == c.feats.xy).all(-1)
+            & (g.feats.valid.cpu() == c.feats.valid))
+    assert same.float().mean() >= 0.995
+    dm = np.where(depths[0] < 8.0, depths[0], 0.0).astype(np.float32)
+    gr = frame.build_frame_rgbd(img.to(dev), torch.from_numpy(dm).to(dev),
+                                cam, cfg)
+    cr = frame.build_frame_rgbd(img, torch.from_numpy(dm), cam, cfg)
+    assert torch.equal(gr.depth.cpu()[same], cr.depth[same])
+
+
+def test_remap_on_card_matches_cpu(dev):
+    """The rectifier's bilinear remap on the card against the CPU on the
+    EuRoC-size maps of a distorted camera, widened 1.2x about the centre so
+    that the border reaches outside the image: within 1e-4."""
+    K = np.array([[458.654, 0, 367.215], [0, 457.296, 248.375], [0, 0, 1]])
+    D = np.array([-0.28, 0.07, 2e-4, 1.8e-5])
+    P = np.array([[435.2, 0, 367.45, 0], [0, 435.2, 252.2, 0], [0, 0, 1, 0]])
+    mx, my = rectify.make_rectify_maps(K, D, np.eye(3), P, (752, 480))
+    rng = np.random.default_rng(5)
+    img = torch.from_numpy(rng.integers(0, 256, (480, 752), dtype=np.uint8))
+    mx = torch.from_numpy(1.2 * (mx - 367.215) + 367.215)
+    my = torch.from_numpy(1.2 * (my - 248.375) + 248.375)
+    got = rectify.remap(img.to(dev), mx.to(dev), my.to(dev)).cpu()
+    want = rectify.remap(img, mx, my)
+    assert (want == 0).any()
+    assert torch.equal(got == 0, want == 0)
+    assert (got - want).abs().max() <= 1e-4
+
+
+def test_initializer_on_card_matches_cpu(dev):
+    """The H/F RANSAC and reconstruction on the card (batched cuSOLVER SVDs)
+    against the CPU on one general two-view scene with the same hypothesis
+    sets: the same model verdict, R within 1e-3, the same good matches but
+    for 1%."""
+    rng = np.random.default_rng(0)
+    n = 300
+    X = np.stack([rng.uniform(-5, 5, n), rng.uniform(-3, 3, n),
+                  rng.uniform(6, 20, n)], -1)
+    T = se3.exp(torch.tensor([0.6, 0.1, 0.05, 0.0, -0.03, 0.0])).numpy()
+    cam = CameraConfig(fx=450.0, fy=450.0, cx=320.0, cy=240.0, bf=45.0,
+                       width=640, height=480).stereo_camera()
+
+    def proj(P):
+        return np.stack([cam.fx * P[:, 0] / P[:, 2] + cam.cx,
+                         cam.fy * P[:, 1] / P[:, 2] + cam.cy], -1)
+    x1 = (proj(X) + rng.normal(0, 0.3, (n, 2))).astype(np.float32)
+    x2 = (proj(X @ T[:3, :3].T + T[:3, 3])
+          + rng.normal(0, 0.3, (n, 2))).astype(np.float32)
+    valid = torch.ones(n, dtype=torch.bool)
+    hyp = initializer.draw_hypotheses(valid, torch.Generator().manual_seed(0))
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        t = lambda a: torch.as_tensor(a).to(d)
+        out[d.type] = initializer.initialize(
+            cam, t(x1), t(x2), t(valid), *(h.to(d) for h in hyp))
+    (ok_c, R_c, _, _, g_c), (ok_g, R_g, _, _, g_g) = out["cpu"], out["cuda"]
+    assert ok_c and ok_g
+    assert np.abs(R_c - R_g).max() <= 1e-3
+    assert (g_c != g_g).mean() <= 0.01

@@ -143,7 +143,8 @@ def test_port_cli_on_mini_kitti(tmp_path):
     """`python -m lldslam_tpu_torch.cli kitti settings.yaml seq_dir` on the
     checked-in mini KITTI sequence (PNG files, stored lines, ldType
     LBDFloat), on the CPU: tests/test_cli_e2e.py's bounds (10 finite KITTI
-    rows, unaligned ATE < 0.5 m, the last frame OK, lines seen)."""
+    rows, unaligned ATE < 0.5 m, the last frame OK, lines seen); with
+    `--save-map` it writes a map checkpoint holding the run's keyframes."""
     pytest.importorskip("PIL")
     out, metrics = tmp_path / "traj.txt", tmp_path / "metrics.jsonl"
     rc = cli.main(["kitti", str(MINI / "settings.yaml"), str(MINI),
@@ -163,7 +164,8 @@ def test_port_cli_on_mini_kitti(tmp_path):
     ms = [json.loads(x) for x in metrics.read_text().splitlines()]
     assert len(ms) == 10 and ms[-1]["state"] == "OK"
     assert any(m["n_line_matches"] > 0 for m in ms)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        cli.main(["kitti", str(MINI / "settings.yaml"), str(MINI),
-                  "--out", str(out), "--limit", "1", "--device", "cpu",
-                  "--save-map", str(tmp_path / "map")])
+    assert cli.main(["kitti", str(MINI / "settings.yaml"), str(MINI),
+                     "--out", str(out), "--limit", "1", "--device", "cpu",
+                     "--save-map", str(tmp_path / "map.npz")]) == 0
+    with np.load(tmp_path / "map.npz") as z:
+        assert z["__scalars__"][0] == 1 and z["kf_valid"][0]

@@ -163,14 +163,16 @@ def _line_obs_error(s) -> float:
 @pytest.mark.parametrize("what", ["loops", "pipeline", "lines", "rgbd",
                                   "mono", "save_map", "load_map"])
 def test_unported_entries_raise(what, tmp_path):
-    """Everything outside the slice raises NotImplementedError naming the
-    ROADMAP queue; nothing falls back to another path. `lines` is the
-    native line detector route (ldType LBDFloat without stored
+    """Everything outside the ported slices raises NotImplementedError
+    naming the ROADMAP queue; nothing falls back to another path. `lines`
+    is the native line detector route (ldType LBDFloat without stored
     detections). `loops` is ported whole: on a map with lines the loop
     closer's global BA runs the joint point+line problem instead of
     raising: it moves the map lines and lowers their median endpoint
     distance to their keyframe observations (pixel noise 0.3) by a
-    quarter or more."""
+    quarter or more. `rgbd`, `mono`, `save_map` and `load_map` are ported
+    too and no longer raise: a blank RGB-D or monocular frame leaves the
+    tracker NOT_INITIALIZED, and an empty map saves and loads."""
     cfg = _port_cfg()
     if what == "loops":
         lc = System(cfg, device="cpu").tracker.loop_closer
@@ -187,20 +189,27 @@ def test_unported_entries_raise(what, tmp_path):
         print(f"median line endpoint distance {err0:.3f} -> {err1:.3f} px")
         assert err1 < 0.75 * err0
         return
+    if what in ("rgbd", "mono", "save_map", "load_map"):
+        s = System(cfg, device="cpu")
+        img = np.zeros((240, 640), np.uint8)
+        if what == "rgbd":
+            _, m = s.track_rgbd(img, img.astype(np.float32))
+        elif what == "mono":
+            _, m = s.track_monocular(img)
+        else:
+            s.save_map(tmp_path / "m.npz")
+            s.load_map(tmp_path / "m.npz")
+            assert (s.map.n_kf, s.map.n_pt) == (0, 0)
+            return
+        assert m.state == "NOT_INITIALIZED" and s.map.n_kf == 0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         if what == "pipeline":
             System(cfg, pipeline=True, device="cpu")
-        elif what == "lines":
+        else:
             System(SlamConfig(camera=cfg.camera, orb=cfg.orb,
                               line=LineConfig(ld_type="LBDFloat"),
                               tracking=cfg.tracking), device="cpu")
-        else:
-            s = System(cfg, device="cpu")
-            img = np.zeros((240, 640), np.uint8)
-            {"rgbd": lambda: s.track_rgbd(img, img.astype(np.float32)),
-             "mono": lambda: s.track_monocular(img),
-             "save_map": lambda: s.save_map(tmp_path / "m"),
-             "load_map": lambda: s.load_map(tmp_path / "m")}[what]()
 
 
 def test_system_defaults_to_the_card():
