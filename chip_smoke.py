@@ -55,13 +55,32 @@ Phases, each fatal on failure (nonzero exit, no result line):
    unaligned ATE; then the top-down map render and a map checkpoint saved
    and loaded into a fresh System with every array equal;
 11. rectify: StereoRectifier with EuRoC-like blocks (752x480) on one
-   synthetic pair on the card against the CPU, and its ms per pair.
+   synthetic pair on the card against the CPU, and its ms per pair;
+12. loop_lines: one loop correction (`LoopCloser._correct`: pose graph,
+   point and map-line remap, fusion through K2g, the joint point+line
+   global BA) on the seeded loop map with map lines
+   (io.synthetic.make_loop_map + add_loop_lines), on the card against the
+   same correction on the CPU;
+13. multiseq: lldslam_tpu_torch.parallel.MultiSequenceDriver at the main
+   path's KITTI config with loops off, S = 4 corridors (seeds 3, 10, 11,
+   12) for 20 frames, view capacity pinned to 4096: every sequence held to
+   its own solo System run on the card (every frame OK, camera centres
+   within 0.05 m, keyframe counts within one); K1a, K1b and K2g (tracking
+   site) launched once per batched frame; on the last batched frame each
+   kernel exact against its plain version and, sequence by sequence,
+   against an S = 1 launch; ms per batched frame, sequence-frames per
+   second against the solo runs', one torch.profiler window of 5 batched
+   frames against 5 solo frames (device kernels, busy share), each
+   kernel's device time at S = 4 against its bound; then S = 13 at the JAX
+   bench's multi-sequence config (640x240, 600 features, seeds 10-22) for
+   10 frames, every frame OK, timed.
 The main path's last frame's K1a and K1b inputs are held exactly to the
 plain versions too. Kernel launches are counted per path (counts zeroed just
 before, read just after): main, lines, loop, reloc, mono and rgbd are
 System runs; reloc_site is the two direct calls of the relocalization call
-site. The second-to-last line is the kernel table as JSON, the last line the
-device summary as JSON.
+site; loop_lines the two corrections; multiseq and multiseq_13 the driver
+runs. The second-to-last line is the kernel table as JSON, the last line
+the device summary as JSON.
 """
 from __future__ import annotations
 
@@ -100,6 +119,13 @@ RGBD_POINT_RANGE = (750, 1020)     # 886 +- 15%
 RGBD_ATE_BOUND_M = 0.025           # 0.00459 m + 0.02 m
 RGBD_MAX_DEPTH_M = 8.0             # a Kinect-class sensor reads no further
 RECTIFY_TOL = 1e-3
+MULTISEQ_SEEDS = (3, 10, 11, 12)
+MULTISEQ_FRAMES = 20
+MULTISEQ_VIEW_CAP = 4096    # a KITTI-size local view can exceed 2048 points
+MULTISEQ_BOUND_M = 0.05     # tests/test_multi_seq.py:117
+PROFILE_FRAMES = 5
+SWEEP_SEEDS = tuple(range(10, 23))   # bench.py:376-381, 13 sequences
+SWEEP_FRAMES = 10
 
 
 def log(msg: str) -> None:
@@ -122,23 +148,68 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20) -> float:
-    """Device time (ms) of the kernels one call of fn() launches, summed and
-    averaged over `reps` calls (torch.profiler's CUDA events)."""
-    from torch.autograd import DeviceType
+def _profile(fn):
+    """torch.profiler session around fn() (synchronised); returns every
+    event it recorded, host and device."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return list(prof.events())
+
+
+_spin_cycles_per_ms = None
+
+
+def device_ms(fn, reps: int = 20, tries: int = 4) -> float:
+    """Device time (ms) of one call of fn(), on CUDA events and without the
+    host's launch time: a spin kernel (torch.cuda._sleep) holds the stream
+    while the host queues `reps` calls behind it, and the events between
+    the spin's end and the last call time the device's own work, back to
+    back (the gaps between queued operations included). Valid only if the
+    host queued every call before the spin ended: the host time from just
+    before the spin was queued to the last event must be shorter than the
+    spin's own device time. A run where it was not is repeated with a spin
+    twice as long; fn that waits on the device never gets ahead and fails.
+    (torch.profiler is not used here: on the H100 its sessions have dropped
+    device records, a different number in different runs.)"""
+    global _spin_cycles_per_ms
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t)
+    torch.cuda.synchronize()
+    if _spin_cycles_per_ms is None:
+        cycles = 20_000_000
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        a.record()
+        torch.cuda._sleep(cycles)
+        b.record()
+        b.synchronize()
+        _spin_cycles_per_ms = cycles / a.elapsed_time(b)
+    spin_target_ms = 2 * host_ms + 2.0
+    missed = []
+    for _ in range(tries):
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in "abc")
+        t0 = time.perf_counter()
+        e0.record()
+        torch.cuda._sleep(int(spin_target_ms * _spin_cycles_per_ms))
+        e1.record()
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    return us / 1e3 / reps
+        e2.record()
+        queued_ms = 1e3 * (time.perf_counter() - t0)
+        e2.synchronize()
+        spin_ms = e0.elapsed_time(e1)
+        if queued_ms < spin_ms:
+            return e1.elapsed_time(e2) / reps
+        missed.append((round(queued_ms, 3), round(spin_ms, 3)))
+        spin_target_ms *= 2
+    raise AssertionError(f"device_ms: the host never queued {reps} calls "
+                         f"ahead of the device (host ms, spin ms: {missed})")
 
 
 def phase_device() -> str:
@@ -190,15 +261,15 @@ def _exact(label, got, want) -> float:
 
 def _timed(label, fn, plain, bytes_, ops) -> dict:
     """ms: the kernel's device time; call_ms: one call on the host clock of
-    the stream (CUDA events, launch included); plain_ms, plain_device_ms:
-    the plain version's."""
-    row = dict(ms=device_ms(fn), call_ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
-               plain_device_ms=device_ms(plain))
+    the stream (CUDA events, launch included); plain_ms: the plain
+    version's call, the same way (K1a's plain version makes the host wait
+    on the device, so device_ms cannot isolate a plain version's device
+    time)."""
+    row = dict(ms=device_ms(fn), call_ms=cuda_ms(fn), plain_ms=cuda_ms(plain))
     row["bound_ms"], row["bound_by"] = bound(bytes_, ops)
     log(f"{label}: exact; kernel {row['ms']:.4f} ms on the device "
-        f"({row['call_ms']:.4f} ms a call), plain {row['plain_ms']:.4f} ms "
-        f"({row['plain_device_ms']:.4f} on the device), bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+        f"({row['call_ms']:.4f} ms a call), plain {row['plain_ms']:.4f} ms, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
         f"{100 * row['bound_ms'] / row['ms']:.1f}% of bound")
     return row
 
@@ -441,6 +512,9 @@ def frame_kernels(label: str, kept_k1a, kept_k1b=None) -> dict:
         if kept is None:
             continue
         args = kept[-1][1]
+        if args[0].dim() == 4:
+            # a stereo frame goes through the batched build as S = 1
+            args = tuple(a[0] if torch.is_tensor(a) else a for a in args)
         err = _exact(f"{label}, last frame's {key}", fn(*args), plain(*args))
         n_bytes, n_ops, px, taps = work(args)
         ms = device_ms(lambda: fn(*args))
@@ -463,8 +537,8 @@ def gate_density(kept) -> dict:
     out = {}
     for site, g in kept:
         o = out.setdefault(site, dict(M=[], N=[], pairs=[]))
-        o["M"].append(g[0].shape[0])
-        o["N"].append(g[7].shape[0])
+        o["M"].append(g[0].shape[-2])      # rows of one sequence (S = 1)
+        o["N"].append(g[7].shape[-2])
         o["pairs"].append(int(mb.gate_mask(*g[1:7], *g[8:]).sum()))
     for o in out.values():
         o["median_share"] = statistics.median(
@@ -1164,6 +1238,417 @@ def phase_rectify(dev) -> dict:
     return dict(max_abs_err=err, ms=ms, ms_on_card=ms_dev)
 
 
+def _angle_rad(Ra, Rb):
+    """Rotation angles between two stacks of rotations (radians)."""
+    d = np.einsum("kji,kjl->kil", Ra.astype(np.float64), Rb.astype(np.float64))
+    w = np.stack([d[:, 2, 1] - d[:, 1, 2], d[:, 0, 2] - d[:, 2, 0],
+                  d[:, 1, 0] - d[:, 0, 1]], -1)
+    return np.arcsin(np.clip(np.linalg.norm(w, axis=-1) / 2, 0, 1))
+
+
+def phase_loop_lines(dev) -> dict:
+    """One loop correction with map lines on the card against the CPU: the
+    seeded loop map (make_loop_map's drifting circle, keyframe 21 revisiting
+    keyframe 2) with add_loop_lines' map lines in two stores; Sim3 on the
+    CPU, the guided matches (K2g at the loop site) on the card, then
+    `_correct` on both devices: keyframe poses, points and map lines after
+    the pose graph, the remap, fusion and the joint point+line global BA."""
+    from lldslam_tpu_torch.io.synthetic import add_loop_lines, make_loop_map
+    from lldslam_tpu_torch.loop.closing import LoopCloser
+    from lldslam_tpu_torch.slammap.map_store import MapStore
+    from lldslam_tpu_torch.system import _default_vocabulary
+
+    cfg = patch_world_config()
+    cam = cfg.camera.stereo_camera()
+    voc = _default_vocabulary()
+    stores = [MapStore(cam, cfg.orb, max_kf=64, max_pt=20000) for _ in "ab"]
+    for st in stores:
+        add_loop_lines(st, make_loop_map(st))
+    cpu = LoopCloser(stores[0], voc, cfg, device="cpu")
+    card = LoopCloser(stores[1], voc, cfg, device=dev)
+    res = cpu._compute_sim3(21, 2)
+    if res is None:
+        raise AssertionError("loop_lines: no Sim3 between keyframes 21 and 2")
+    S = res[0]
+    Tm = stores[0].kf_pose[2]
+    T_corr = np.eye(4, dtype=np.float32)
+    T_corr[:3, :3] = S[0] @ Tm[:3, :3]
+    T_corr[:3, 3] = S[2] * (S[0] @ Tm[:3, 3]) + S[1]
+    pids = cpu._loop_points(2)
+    reset_counts()
+    kp2lp = card._project_match(21, pids, T_corr, th=2.5)
+    if not np.array_equal(kp2lp, cpu._loop_guided[0]):
+        raise AssertionError("loop_lines: guided matches differ from the CPU")
+    card._loop_guided = (kp2lp, pids)
+    lines_before = stores[1].ln_x0[:stores[1].n_ln].copy()
+    t = time.perf_counter()
+    cpu._correct(21, 2, S)
+    cpu_ms = 1e3 * (time.perf_counter() - t)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    card._correct(21, 2, S)
+    torch.cuda.synchronize()
+    card_ms = 1e3 * (time.perf_counter() - t)
+    counts = read_counts()
+    a, b = stores
+    K, n = a.n_kf, a.n_ln
+    dt = float(np.abs(b.kf_pose[:K, :3, 3] - a.kf_pose[:K, :3, 3]).max())
+    da = float(_angle_rad(a.kf_pose[:K, :3, :3], b.kf_pose[:K, :3, :3]).max())
+    live = a.pt_valid[:a.n_pt] & b.pt_valid[:b.n_pt]
+    dp = float(np.median(np.linalg.norm(
+        a.pt_pos[:a.n_pt][live] - b.pt_pos[:b.n_pt][live], axis=-1)))
+    same_obs = float((a.kf_pt_ids[:K] == b.kf_pt_ids[:K]).mean())
+    lv = a.ln_valid[:n] & b.ln_valid[:n]
+    ex = np.linalg.norm(b.ln_x0[:n] - a.ln_x0[:n], axis=-1)[lv] \
+        / np.maximum(1.0, np.linalg.norm(a.ln_x0[:n], axis=-1)[lv])
+    ed = np.abs(np.abs(np.sum(b.ln_dir[:n] * a.ln_dir[:n], -1)) - 1.0)[lv]
+    moved = float(np.linalg.norm(b.ln_x0[:n] - lines_before, axis=-1).max())
+    finite = bool(np.isfinite(b.ln_x0[:n]).all() and np.isfinite(
+        b.ln_dir[:n]).all())
+    out = dict(counts=counts, card_ms=card_ms, cpu_ms=cpu_ms, pose_dt=dt,
+               pose_da=da, point_median=dp, same_obs=same_obs,
+               n_lines=int(lv.sum()), line_x0_rel_max=float(ex.max()),
+               line_x0_rel_median=float(np.median(ex)),
+               line_dir_max=float(ed.max()), line_moved=moved,
+               stage_ms={k: 1e3 * v for k, v in card.stage_times.items()
+                         if not k.startswith("n")})
+    log(f"loop_lines: _correct with {int(lv.sum())} map lines, card "
+        f"{card_ms:.1f} ms, CPU {cpu_ms:.1f} ms; card against CPU: poses "
+        f"{dt:.2e} m / {da:.2e} rad, points median {dp:.2e} m, observations "
+        f"{100 * same_obs:.3f}% equal, lines X0 rel max {ex.max():.2e} "
+        f"median {np.median(ex):.2e}, direction 1-|cos| max {ed.max():.2e}; "
+        f"lines moved up to {moved:.3f} m; launches {counts}; stage ms "
+        + json.dumps({k: round(v, 2) for k, v in out["stage_ms"].items()}))
+    checks = [
+        (dt <= 2e-3 and da <= 1e-3, f"poses {dt} m {da} rad"),
+        (dp < 5e-3 and same_obs >= 0.999, f"points {dp} m, obs {same_obs}"),
+        (int(lv.sum()) >= 100 and finite, f"{int(lv.sum())} lines, finite "
+                                          f"{finite}"),
+        (moved > 0.05, f"the correction moved the lines {moved} m"),
+        (float(np.median(ex)) < 2e-3 and float(ex.max()) < 2e-2
+         and float(ed.max()) < 1e-3, "lines card against CPU"),
+        (counts["k2g_sites"].get("loop", 0) >= 2, f"launches {counts}"),
+    ]
+    bad = [msg for ok, msg in checks if not ok]
+    if bad:
+        raise AssertionError("loop_lines: " + "; ".join(bad))
+    return out
+
+
+def sweep_config():
+    """The JAX bench's multi-sequence config (bench.py:376-379): 640x240,
+    600 features, min_init_points 80."""
+    from lldslam_tpu_torch.config import CameraConfig, SlamConfig, TrackingConfig
+    from lldslam_tpu_torch.ops.orb import OrbConfig
+    cam_cfg = CameraConfig(fx=450.0, fy=450.0, cx=320.0, cy=120.0, bf=200.0,
+                           fps=10.0, width=640, height=240)
+    return SlamConfig(camera=cam_cfg, orb=OrbConfig(n_features=600),
+                      tracking=TrackingConfig(min_init_points=80))
+
+
+def keep_batched(mod, name: str, dim: int, armed: list, site=None):
+    """Wraps mod.<name> so that, while armed[0] is set, a copy of the
+    arguments of its last call whose first tensor has `dim` dims (a batched
+    call; at `site`, where given) is kept; returns (kept, restore)."""
+    fn, kept = getattr(mod, name), []
+
+    def wrapper(*args, **kw):
+        if armed[0] and args[0].dim() == dim and (site is None
+                                                   or kw.get("site") == site):
+            kept[:] = [tuple(a.clone() if torch.is_tensor(a) else a
+                             for a in args)]
+        return fn(*args, **kw)
+
+    setattr(mod, name, wrapper)
+    return kept, lambda: setattr(mod, name, fn)
+
+
+def count_calls(cls, name: str, counter: list):
+    """Wraps cls.<name> so that each call adds one to counter[0]."""
+    fn = getattr(cls, name)
+
+    def wrapper(*args, **kw):
+        counter[0] += 1
+        return fn(*args, **kw)
+
+    setattr(cls, name, wrapper)
+    return lambda: setattr(cls, name, fn)
+
+
+def drive_driver(drv, seqs, frames, label: str, t0: float = 0.0) -> dict:
+    """Frames `frames` of every sequence through drv.process, each frame
+    synchronised: per-frame ms, launch deltas, batched sequences and the
+    solo tracking steps (a sequence off the batch, or a weak-motion
+    fallback) of each frame."""
+    from lldslam_tpu_torch.pipeline.tracker import StereoTracker
+    solo_steps = [0]
+    restore = count_calls(StereoTracker, "_run_step", solo_steps)
+    rows = []
+    try:
+        for i in frames:
+            c0, n0 = read_counts(), solo_steps[0]
+            t = time.perf_counter()
+            res = drv.process([s[i] for s in seqs], [t0 + i * 0.1] * len(seqs))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t)
+            c1 = read_counts()
+            rows.append(dict(
+                frame=i, ms=ms, states=[m.state for _, m in res],
+                batched=sum(m.t_dispatch > 0 for _, m in res),
+                new_kf=sum(m.new_kf for _, m in res),
+                solo_steps=solo_steps[0] - n0,
+                k1a=c1["k1a"] - c0["k1a"], k1b=c1["k1b"] - c0["k1b"],
+                k2g_tracking=c1["k2g_sites"].get("tracking", 0)
+                - c0["k2g_sites"].get("tracking", 0)))
+            r = rows[-1]
+            log(f"{label} frame {i:2d}: {r['states'].count('OK')}/{len(seqs)} "
+                f"OK, {r['batched']} batched, {r['new_kf']} keyframes, "
+                f"launches K1a {r['k1a']} K1b {r['k1b']} K2g tracking "
+                f"{r['k2g_tracking']} (solo steps {r['solo_steps']}), "
+                f"{ms:.1f} ms")
+    finally:
+        restore()
+    return rows
+
+
+def check_batched_launches(rows, n_seq: int, label: str) -> int:
+    """Every frame after the first batched all n_seq sequences, with one
+    launch each of K1a and K1b and one K2g launch at the tracking site for
+    the batch (plus one for each solo tracking step). Returns the number
+    of batched frames."""
+    bad = [r for r in rows[1:] if r["batched"] != n_seq or r["k1a"] != 1
+           or r["k1b"] != 1 or r["k2g_tracking"] != 1 + r["solo_steps"]]
+    if bad or any(s != "OK" for r in rows for s in r["states"]):
+        raise AssertionError(f"{label}: frames off the batched contract or "
+                             f"not OK: {bad or rows}")
+    return len(rows) - 1
+
+
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def profile_window(step, n: int) -> dict:
+    """One torch.profiler window over n calls of step(): device operations
+    (kernels, copies, fills) per frame, the device-busy share of the
+    window's host time (the union of the device intervals), and ms a frame
+    under the profiler. The window is complete if it kept a device record
+    for at least 99% of the kernel launches its host records show; the
+    H100's profiler has dropped device records, so an incomplete window is
+    logged and its busy share reported as None (not measured)."""
+    from torch.autograd import DeviceType
+    torch.cuda.synchronize()
+    # a first session after a long unprofiled stretch may miss device
+    # operations: one short session first, discarded
+    _profile(lambda: torch.ones(1, device="cuda").add_(1))
+    wall = []
+
+    def frames():
+        t = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall.append(1e6 * (time.perf_counter() - t))
+
+    events = _profile(frames)
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    kernels = sum(not e.name.startswith(("Memcpy", "Memset")) for e in dev)
+    launched = sum(e.device_type == DeviceType.CPU and e.name in LAUNCH_CALLS
+                   for e in events)
+    kept = kernels / launched if launched else 0.0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    wall_us = wall[0]
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    out = dict(ops_per_frame=len(spans) / n, kernels_per_frame=kernels / n,
+               launches_per_frame=launched / n, kept=kept,
+               busy_ms=busy / 1e3 / n, ms_per_frame=wall_us / 1e3 / n,
+               busy_share=busy / wall_us)
+    if kept < 0.99:
+        log(f"profile_window: incomplete, {kernels} kernel records for "
+            f"{launched} launches; busy share not measured")
+        out["busy_share"] = out["busy_ms"] = None
+    return out
+
+
+def _window(p: dict) -> str:
+    busy = ("busy not measured" if p["busy_share"] is None else
+            f"busy {p['busy_ms']:.2f} of {p['ms_per_frame']:.1f} ms "
+            f"({100 * p['busy_share']:.2f}%)")
+    return (f"{p['ops_per_frame']:.0f} device operations a frame "
+            f"({p['kernels_per_frame']:.0f} kernels of "
+            f"{p['launches_per_frame']:.0f} launches), {busy}")
+
+
+def batched_kernel_rows(kept_a, kept_b, kept_g) -> dict:
+    """The last batched frame's K1a, K1b and K2g (tracking site) arguments:
+    each kernel exact against its plain version, each sequence's slice
+    exact against an S = 1 launch on that sequence alone; the device time
+    of the batched launch, its bound (the S single-frame works summed) and
+    the plain version's ms."""
+    from lldslam_tpu_torch.ops import match_best2 as mb
+    from lldslam_tpu_torch.ops import orb_describe, stereo_sad
+    out = {}
+    cases = (
+        ("k1a", orb_describe.describe, orb_describe.describe_plain, kept_a,
+         lambda a, s: (a[0][s], a[1][s], a[2][s], a[3][s], a[4])),
+        ("k1b", stereo_sad.sad_refine, stereo_sad.sad_refine_plain, kept_b,
+         lambda a, s: (a[0][s], a[1], a[2][s], a[3][s], a[4][s], a[5][s])),
+        ("k2g", mb.gated_best2, mb.gated_best2_plain, kept_g,
+         lambda a, s: tuple(x[s] for x in a)))
+    for key, fn, plain, kept, part in cases:
+        (args,) = kept
+        n_seq = args[0].shape[0]
+        got = fn(*args)
+        err = _exact(f"multiseq {key} S={n_seq}", got, plain(*args))
+        for s in range(n_seq):
+            _exact(f"multiseq {key} sequence {s} against S = 1",
+                   [g[s] for g in got], fn(*part(args, s)))
+        if key == "k1a":
+            work = [k1a_work(part(args, s), got[0][s]) for s in range(n_seq)]
+            n_bytes, n_ops = sum(w[0] for w in work), sum(w[1] for w in work)
+            shape = f"n={args[2].shape[1]} over {args[0].shape[1]} images"
+        elif key == "k1b":
+            work = [k1b_work(part(args, s)) for s in range(n_seq)]
+            n_bytes, n_ops = sum(w[0] for w in work), sum(w[1] for w in work)
+            shape = f"n={args[2].shape[1]}"
+        else:
+            M, N = args[0].shape[1], args[7].shape[1]
+            gated = int(mb.gate_mask(*args[1:7], *args[8:]).sum())
+            n_bytes = n_seq * (M * (32 + 16 + 4 + 1 + 16)
+                               + N * (32 + 8 + 4 + 4 + 1))
+            n_ops = 3 * n_seq * M * N + 23 * gated
+            shape = f"M={M} N={N}, {gated} gated pairs"
+        ms = device_ms(lambda: fn(*args))
+        b_ms, by = bound(n_bytes, n_ops)
+        out[key] = dict(S=n_seq, ms=ms, plain_ms=cuda_ms(lambda: plain(*args)),
+                        bound_ms=b_ms, bound_by=by, max_abs_err=err,
+                        share=b_ms / ms)
+        log(f"multiseq: {key} S={n_seq} {shape}: exact against the plain "
+            f"version and each sequence against an S = 1 launch; "
+            f"{ms:.4f} ms on the device, plain {out[key]['plain_ms']:.4f} ms, "
+            f"bound {b_ms:.5f} ms ({by}), {100 * b_ms / ms:.1f}% of bound")
+    return out
+
+
+def phase_multiseq(dev) -> dict:
+    """S = 4 KITTI-size corridors through MultiSequenceDriver against their
+    solo Systems; then S = 13 at the bench's multi-sequence config."""
+    from lldslam_tpu_torch.io.synthetic import make_sequence
+    from lldslam_tpu_torch.ops import match_best2, orb_describe, stereo_sad
+    from lldslam_tpu_torch.parallel.multi_seq import MultiSequenceDriver
+    from lldslam_tpu_torch.system import System
+
+    cfg = kitti_config()
+    cam = cfg.camera.stereo_camera()
+    n_seq, n_all = len(MULTISEQ_SEEDS), MULTISEQ_FRAMES + PROFILE_FRAMES
+    t0 = time.perf_counter()
+    seqs = [make_sequence(cam, n_all, seed=seed) for seed in MULTISEQ_SEEDS]
+    log(f"multiseq: generated {n_seq} x {n_all} frames in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # solo: each sequence through its own System, view capacity pinned
+    solo, solo_ms = [], []
+    for s, frames in enumerate(seqs):
+        sys_ = System(cfg, enable_loops=False, device=dev)
+        sys_.warmup()
+        sys_.tracker.mapper.fixed_tv_cap = MULTISEQ_VIEW_CAP
+        ms, metrics = track(sys_, frames[:MULTISEQ_FRAMES],
+                            label=f"multiseq solo {s}")
+        if any(m.state != "OK" for m in metrics):
+            raise AssertionError(f"multiseq: solo sequence {s} not OK")
+        solo.append(sys_)
+        solo_ms.extend(ms[1:])
+
+    drv = MultiSequenceDriver(cfg, n_seq, enable_loops=False,
+                              view_cap=MULTISEQ_VIEW_CAP, device=dev)
+    armed = [False]
+    kept_a, ra = keep_batched(orb_describe, "describe", 4, armed)
+    kept_b, rb = keep_batched(stereo_sad, "sad_refine", 4, armed)
+    kept_g, rg = keep_batched(match_best2, "gated_best2", 3, armed,
+                              site="tracking")
+    try:
+        reset_counts()
+        rows = drive_driver(drv, seqs, range(MULTISEQ_FRAMES - 1), "multiseq")
+        armed[0] = True
+        rows += drive_driver(drv, seqs, [MULTISEQ_FRAMES - 1], "multiseq")
+        counts = read_counts()
+    finally:
+        ra(), rb(), rg()
+    n_batched = check_batched_launches(rows, n_seq, "multiseq")
+    kernels = batched_kernel_rows(kept_a, kept_b, kept_g)
+
+    # parity with the solo runs
+    parity = []
+    for s, (tr, ref) in enumerate(zip(drv.trackers, solo)):
+        _, T = tr.trajectory()
+        _, T_solo = ref.tracker.trajectory()
+        dc = np.linalg.norm(T[:, :3, 3] - T_solo[:, :3, 3], axis=-1)
+        parity.append(dict(max_centre_diff=float(dc.max()),
+                           kf=tr.store.n_kf, kf_solo=ref.map.n_kf))
+        log(f"multiseq: sequence {s} (seed {MULTISEQ_SEEDS[s]}): camera "
+            f"centres within {dc.max():.5f} m of its solo run; keyframes "
+            f"{tr.store.n_kf} batched, {ref.map.n_kf} solo")
+    bad = [p for p in parity if p["max_centre_diff"] >= MULTISEQ_BOUND_M
+           or abs(p["kf"] - p["kf_solo"]) > 1]
+    if bad:
+        raise AssertionError(f"multiseq: sequences off their solo runs: "
+                             f"{parity}")
+
+    batched_ms = [r["ms"] for r in rows[1:]]
+    seq_fps = 1e3 * n_seq * len(batched_ms) / sum(batched_ms)
+    solo_fps = 1e3 * len(solo_ms) / sum(solo_ms)
+    # one profiler window each: 5 batched frames, 5 frames of solo sequence 0
+    frame_b, frame_s = (iter(range(MULTISEQ_FRAMES, n_all)) for _ in "bs")
+
+    def batched_frame():
+        i = next(frame_b)
+        drv.process([s[i] for s in seqs], [0.1 * i] * n_seq)
+
+    def solo_frame():
+        i = next(frame_s)
+        solo[0].track_stereo(*seqs[0][i], timestamp=0.1 * i)
+
+    prof_b = profile_window(batched_frame, PROFILE_FRAMES)
+    prof_s = profile_window(solo_frame, PROFILE_FRAMES)
+    log(f"multiseq: S={n_seq}: ms per batched frame median "
+        f"{statistics.median(batched_ms):.1f} p90 "
+        f"{float(np.percentile(batched_ms, 90)):.1f} over {n_batched} frames; "
+        f"{seq_fps:.2f} sequence-frames/s batched against {solo_fps:.2f} "
+        f"frames/s solo (ms/frame median {statistics.median(solo_ms):.1f}); "
+        f"launches {counts}")
+    log(f"multiseq: profiler window of {PROFILE_FRAMES} frames: batched "
+        f"S={n_seq} {_window(prof_b)}; solo {_window(prof_s)}")
+    out = dict(counts=counts, kernels=kernels, parity=parity,
+               batched_ms=batched_ms, solo_ms=solo_ms, seq_fps=seq_fps,
+               solo_fps=solo_fps, profile_batched=prof_b, profile_solo=prof_s)
+    del drv, solo
+
+    # S = 13 at the bench's multi-sequence config
+    cfg13 = sweep_config()
+    cam13 = cfg13.camera.stereo_camera()
+    seqs13 = [make_sequence(cam13, SWEEP_FRAMES, seed=seed)
+              for seed in SWEEP_SEEDS]
+    drv13 = MultiSequenceDriver(cfg13, len(seqs13), enable_loops=False,
+                                device=dev)
+    reset_counts()
+    rows13 = drive_driver(drv13, seqs13, range(SWEEP_FRAMES), "multiseq_13")
+    counts13 = read_counts()
+    check_batched_launches(rows13, len(seqs13), "multiseq_13")
+    ms13 = [r["ms"] for r in rows13[1:]]
+    fps13 = 1e3 * len(seqs13) * len(ms13) / sum(ms13)
+    log(f"multiseq_13: S={len(seqs13)} 640x240: every frame OK; ms per "
+        f"batched frame median {statistics.median(ms13):.1f} p90 "
+        f"{float(np.percentile(ms13, 90)):.1f}; {fps13:.2f} "
+        f"sequence-frames/s; launches {counts13}")
+    out["sweep"] = dict(counts=counts13, ms=ms13, seq_fps=fps13,
+                        first_frame_ms=rows13[0]["ms"])
+    return out
+
+
 def main() -> int:
     name = phase_device()
     dev = torch.device("cuda", 0)
@@ -1179,7 +1664,14 @@ def main() -> int:
     paths["mono"] = mono["counts"]
     paths["rgbd"] = phase_rgbd(dev)["counts"]
     phase_rectify(dev)
+    paths["loop_lines"] = phase_loop_lines(dev)["counts"]
+    multi = phase_multiseq(dev)
+    paths["multiseq"] = multi["counts"]
+    paths["multiseq_13"] = multi["sweep"]["counts"]
     by_path = lambda k: {p: c[k] for p, c in paths.items()}
+    batched = lambda k: dict(
+        multi["kernels"][k], launches=paths["multiseq"][k],
+        launches_per_batched_frame=1, S13_launches=paths["multiseq_13"][k])
     kernels = [
         dict(name="orb_describe", route="cuda",
              source="lldslam_tpu_torch/csrc/orb_describe.cu",
@@ -1187,20 +1679,20 @@ def main() -> int:
              launches=paths["main"]["k1a"], launches_by_path=by_path("k1a"),
              main_path_frame=paths["main"]["frame_kernels"]["k1a"],
              mono_frame=mono["frame_kernels"]["k1a"],
-             library_ms=None, **k1a),
+             multiseq_S4=batched("k1a"), library_ms=None, **k1a),
         dict(name="stereo_sad", route="cuda",
              source="lldslam_tpu_torch/csrc/stereo_sad.cu",
              replaces="lldslam_tpu/ops/patch_sample.py:68", exact=True,
              launches=paths["main"]["k1b"], launches_by_path=by_path("k1b"),
              main_path_frame=paths["main"]["frame_kernels"]["k1b"],
-             library_ms=None, **k1b),
+             multiseq_S4=batched("k1b"), library_ms=None, **k1b),
         dict(name="gated_best2", route="cuda",
              source="lldslam_tpu_torch/csrc/match_best2.cu",
              replaces="lldslam_tpu/ops/pallas_match.py:110", exact=True,
              launches=paths["main"]["k2g"], launches_by_path=by_path("k2g"),
              launches_by_site=by_path("k2g_sites"),
              main_path_gated_pairs=paths["main"]["k2g_gated_pairs"],
-             library_ms=None, **k2g),
+             multiseq_S4=batched("k2g"), library_ms=None, **k2g),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

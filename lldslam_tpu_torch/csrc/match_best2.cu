@@ -1,6 +1,9 @@
 // K2g: gated Hamming best-2 matching of 256-bit descriptors — the projection
 // gates of ORBmatcher::SearchByProjection evaluated in the kernel, so the
-// (M, N) candidate mask is never built.
+// (M, N) candidate mask is never built. One launch serves S independent
+// problems (the multi-sequence driver's S frames; grid dimension y is the
+// sequence, and sequence s's rows see only sequence s's columns); a single
+// problem is S = 1.
 //
 // Replaces the Pallas kernel lldslam_tpu/ops/pallas_match.py:masked_best2
 // (body `_kernel`). The TPU version read an (M, N) mask that XLA built from
@@ -71,8 +74,24 @@ __global__ void __launch_bounds__(kWarps * 32) gated_best2_kernel(
     const uint8_t* __restrict__ in_frustum, int M,
     const uint32_t* __restrict__ b, const float2* __restrict__ xy,
     const float* __restrict__ kp_ur, const int32_t* __restrict__ octave,
-    const uint8_t* __restrict__ valid, int N, int32_t* __restrict__ out) {
+    const uint8_t* __restrict__ valid, int N, int32_t* __restrict__ out,
+    size_t out_stride) {
   extern __shared__ float4 cols[];  // (x, y, kp_ur, octave bits) per column
+  // this block's sequence: its rows, its columns, its slice of each output
+  const size_t seq = blockIdx.y;
+  a += seq * M * 8;
+  u += seq * M;
+  v += seq * M;
+  ur += seq * M;
+  r += seq * M;
+  pred_oct += seq * M;
+  in_frustum += seq * M;
+  b += seq * N * 8;
+  xy += seq * N;
+  kp_ur += seq * N;
+  octave += seq * N;
+  valid += seq * N;
+  out += seq * M;
   for (int j = threadIdx.x; j < N; j += blockDim.x) {
     const float2 p = __ldg(xy + j);
     cols[j] = make_float4(__ldg(valid + j) ? p.x : __int_as_float(0x7fc00000),
@@ -117,27 +136,29 @@ __global__ void __launch_bounds__(kWarps * 32) gated_best2_kernel(
     }
     if (lane == 0) {
       out[row] = d1 < kInfDist ? i1 : 0;
-      out[M + row] = d1;
-      out[2 * M + row] = d2;
-      out[3 * M + row] = d2 < kInfDist ? i2 : 0;
+      out[out_stride + row] = d1;
+      out[2 * out_stride + row] = d2;
+      out[3 * out_stride + row] = d2 < kInfDist ? i2 : 0;
     }
   }
 }
 
 }  // namespace
 
-// Rows: a (M, 8) uint32 descriptors (16-byte aligned rows); u, v, ur, r (M,)
-// float32; pred_oct (M,) int32; in_frustum (M,) bool. Columns: b (N, 8)
-// uint32 descriptors (16-byte aligned rows); xy (N, 2) float32; kp_ur (N,)
-// float32; octave (N,) int32; valid (N,) bool. out (4, M) int32: best_idx,
-// best, second, second_idx. Returns a CUDA error code.
+// S problems. Rows: a (S, M, 8) uint32 descriptors (16-byte aligned rows);
+// u, v, ur, r (S, M) float32; pred_oct (S, M) int32; in_frustum (S, M) bool.
+// Columns: b (S, N, 8) uint32 descriptors (16-byte aligned rows); xy (S, N,
+// 2) float32; kp_ur (S, N) float32; octave (S, N) int32; valid (S, N) bool.
+// out (4, S, M) int32: best_idx, best, second, second_idx. Returns a CUDA
+// error code.
 extern "C" int lld_gated_best2(const void* a, const void* u, const void* v,
                                const void* ur, const void* r,
                                const void* pred_oct, const void* in_frustum,
-                               int M, const void* b, const void* xy,
+                               int S, int M, const void* b, const void* xy,
                                const void* kp_ur, const void* octave,
                                const void* valid, int N, void* out,
                                void* stream) {
+  if (S < 1 || S > 65535) return (int)cudaErrorInvalidValue;
   if (M == 0) return (int)cudaGetLastError();
   const size_t smem = (size_t)N * sizeof(float4);
   if (smem > 48 * 1024) {
@@ -147,7 +168,7 @@ extern "C" int lld_gated_best2(const void* a, const void* u, const void* v,
     if (e != cudaSuccess) return (int)e;
   }
   const unsigned blocks = (unsigned)((M + kRows - 1) / kRows);
-  gated_best2_kernel<<<blocks, kWarps * 32, smem,
+  gated_best2_kernel<<<dim3(blocks, (unsigned)S), kWarps * 32, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(a), static_cast<const float*>(u),
       static_cast<const float*>(v), static_cast<const float*>(ur),
@@ -155,6 +176,7 @@ extern "C" int lld_gated_best2(const void* a, const void* u, const void* v,
       static_cast<const uint8_t*>(in_frustum), M,
       static_cast<const uint32_t*>(b), static_cast<const float2*>(xy),
       static_cast<const float*>(kp_ur), static_cast<const int32_t*>(octave),
-      static_cast<const uint8_t*>(valid), N, static_cast<int32_t*>(out));
+      static_cast<const uint8_t*>(valid), N, static_cast<int32_t*>(out),
+      (size_t)S * M);
   return (int)cudaGetLastError();
 }

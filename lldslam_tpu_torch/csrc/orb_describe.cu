@@ -1,5 +1,7 @@
 // K1a: fused ORB describe — intensity-centroid angle and rotated BRIEF-256 of
-// every keypoint of a frame, one warp per keypoint, one launch per frame.
+// every keypoint of S frames, one warp per keypoint, one launch for all S
+// (grid dimension y is the sequence: the multi-sequence driver builds S
+// frames with one launch; a single frame is S = 1).
 //
 // Replaces, for the orientation and descriptor gathers of the frame build, the
 // Pallas kernel lldslam_tpu/ops/patch_sample.py:sample_patches (body
@@ -17,9 +19,13 @@
 //     read), and a shuffle reduction finishes m10 = sum dx*I, m01 = sum dy*I;
 //   * BRIEF: for word w, lane k rotates pair 32w + k, reads its two taps and
 //     compares them; __ballot_sync gives the word, which lane w stores.
-//   The level stacks (16 x 376 x 1241 float32, 30 MB each) stay in the 50 MB
-//   L2 from the pyramid and blur passes; no window is staged in shared memory,
-//   since 749 + 512 taps read fewer pixels than the 31x31 and 37x37 windows.
+//   The level stacks (16 x 376 x 1241 float32, 30 MB each a frame) stay in
+//   the 50 MB L2 from the pyramid and blur passes at S = 1; no window is
+//   staged in shared memory, since 749 + 512 taps read fewer pixels than the
+//   31x31 and 37x37 windows.
+//   * sequences: block (x, s) reads only frame s's stacks and keypoints; the
+//     image table (kMaxImages) holds the I level shapes that every frame of
+//     the batch shares, so S is not bounded by it.
 //
 // Exactness against the plain version (ops/orb_describe.py):
 //   * integer-valued images: every partial moment sum is an integer below
@@ -35,7 +41,7 @@
 // What bounds it on an H100: the taps, 4000 x (749 + 512) x 4 B = 20 MB at the
 // KITTI frame (6 us at 3.35 TB/s), read from L2; the arithmetic is a few
 // flops per tap. At one launch per frame it is bound by launch latency and L2
-// gather latency.
+// gather latency; S frames a launch spread that latency over S frames.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -145,9 +151,17 @@ __global__ void __launch_bounds__(kThreads) orb_describe_kernel(
   const int kp = (int)((blockIdx.x * (unsigned)kThreads + threadIdx.x) >> 5);
   const int lane = threadIdx.x & 31;
   if (kp >= n) return;  // uniform per warp
+  const size_t plane = (size_t)H * W;
+  // this block's frame of the batch
+  const size_t seq = blockIdx.y;
+  pyr += seq * dims.n * plane;
+  blur += seq * dims.n * plane;
+  xy += seq * 2 * n;
+  img_idx += seq * n;
+  angle += seq * n;
+  desc += seq * 8 * n;
   const int img = min(max(__ldg(img_idx + kp), 0), dims.n - 1);
   const int x = __ldg(xy + 2 * kp), y = __ldg(xy + 2 * kp + 1);
-  const size_t plane = (size_t)H * W;
 
   // intensity-centroid moments
   const float* im = pyr + img * plane;
@@ -189,15 +203,17 @@ __global__ void __launch_bounds__(kThreads) orb_describe_kernel(
 
 }  // namespace
 
-// pyr, blur: (n_images, H, W) float32 stacks; img_h/img_w: host arrays of the
-// n_images level shapes; xy (n, 2) int32 level coords; img_idx (n,) int32.
-// Outputs angle (n,) float32 and desc (n, 8) int32. Returns a CUDA error code.
-extern "C" int lld_orb_describe(const void* pyr, const void* blur,
+// pyr, blur: (S, n_images, H, W) float32 stacks; img_h/img_w: host arrays of
+// the n_images level shapes, shared by the S frames; xy (S, n, 2) int32 level
+// coords; img_idx (S, n) int32, an image of the keypoint's own frame. Outputs
+// angle (S, n) float32 and desc (S, n, 8) int32. Returns a CUDA error code.
+extern "C" int lld_orb_describe(const void* pyr, const void* blur, int S,
                                 int n_images, int H, int W, const int* img_h,
                                 const int* img_w, const void* xy,
                                 const void* img_idx, int n, void* angle,
                                 void* desc, void* stream) {
-  if (n_images < 1 || n_images > kMaxImages) return (int)cudaErrorInvalidValue;
+  if (n_images < 1 || n_images > kMaxImages || S < 1 || S > 65535)
+    return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaGetLastError();
   ImageDims dims;
   dims.n = n_images;
@@ -206,7 +222,8 @@ extern "C" int lld_orb_describe(const void* pyr, const void* blur,
     dims.w[i] = img_w[i];
   }
   const unsigned blocks = (unsigned)(((long long)n * 32 + kThreads - 1) / kThreads);
-  orb_describe_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  orb_describe_kernel<<<dim3(blocks, (unsigned)S), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pyr), static_cast<const float*>(blur), H, W,
       dims, static_cast<const int32_t*>(xy),
       static_cast<const int32_t*>(img_idx), n, static_cast<float*>(angle),

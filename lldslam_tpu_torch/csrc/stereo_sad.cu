@@ -1,6 +1,7 @@
 // K1b: fused stereo SAD refinement — the 11x11 sum-of-absolute-differences
 // sweep over +-5 disparities and its parabola fit, one warp per keypoint,
-// one launch per frame.
+// one launch for the keypoints of S frames (grid dimension y is the
+// sequence; a single frame is S = 1).
 //
 // Replaces, for the stereo windows of the frame build, the Pallas kernel
 // lldslam_tpu/ops/patch_sample.py:sample_patches (body `_kernel`): the JAX
@@ -17,7 +18,9 @@
 // (231 values) of its keypoint in shared memory, rows and columns clamped
 // to the keypoint's level (h, w); lanes then split the 121 terms of each of
 // the 11 SADs (352 loads serve 1331 differences), shuffle reductions finish
-// the sums, and lane 0 does the argmin and the parabola.
+// the sums, and lane 0 does the argmin and the parabola. Block (x, s) reads
+// only frame s's stack and keypoints; the level shapes in the image table are
+// shared by the S frames, so S is not bounded by kMaxImages.
 //
 // Exactness against the plain version (ops/stereo_sad.py): integer-valued
 // images make every SAD an integer below 2^24, exact in any order; the
@@ -26,7 +29,8 @@
 // __fadd_rn, __fsub_rn and __fdiv_rn, so no FMA forms.
 //
 // What bounds it on an H100: 2048 x 352 x 4 B = 2.9 MB of taps at the KITTI
-// frame (0.9 us at 3.35 TB/s); it is bound by launch latency.
+// frame (0.9 us at 3.35 TB/s); it is bound by launch latency, which S frames
+// a launch share.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -59,6 +63,16 @@ __global__ void __launch_bounds__(kWarps * 32) stereo_sad_kernel(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int kp = blockIdx.x * kWarps + warp;
   if (kp >= n) return;  // uniform per warp; no block-wide barrier follows
+  // this block's frame of the batch
+  const size_t seq = blockIdx.y;
+  pyr += seq * dims.n * (size_t)H * W;
+  lvl += seq * n;
+  ul += seq * n;
+  vl += seq * n;
+  ur += seq * n;
+  best_d += seq * n;
+  best_c += seq * n;
+  delta += seq * n;
   const int l = min(max(__ldg(lvl + kp), 0), dims.n / 2 - 1);
   const int h = dims.h[2 * l], w = dims.w[2 * l];
   const float* left = pyr + (size_t)(2 * l) * H * W;
@@ -120,16 +134,18 @@ __global__ void __launch_bounds__(kWarps * 32) stereo_sad_kernel(
 
 }  // namespace
 
-// pyr: (n_images, H, W) float32 stack, left level l at image 2l, right at
-// 2l + 1; img_h/img_w: host arrays of the n_images level shapes; lvl, ul,
-// vl, ur: (n,) int32 (level, left u and v, right u at that level). Outputs
-// best_d (n,) int32, best_c and delta (n,) float32. Returns a CUDA error code.
-extern "C" int lld_stereo_sad(const void* pyr, int n_images, int H, int W,
+// pyr: (S, n_images, H, W) float32 stacks, left level l at image 2l, right
+// at 2l + 1; img_h/img_w: host arrays of the n_images level shapes, shared by
+// the S frames; lvl, ul, vl, ur: (S, n) int32 (level, left u and v, right u
+// at that level). Outputs best_d (S, n) int32, best_c and delta (S, n)
+// float32. Returns a CUDA error code.
+extern "C" int lld_stereo_sad(const void* pyr, int S, int n_images, int H, int W,
                               const int* img_h, const int* img_w,
                               const void* lvl, const void* ul, const void* vl,
                               const void* ur, int n, void* best_d,
                               void* best_c, void* delta, void* stream) {
-  if (n_images < 2 || n_images > kMaxImages) return (int)cudaErrorInvalidValue;
+  if (n_images < 2 || n_images > kMaxImages || S < 1 || S > 65535)
+    return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaGetLastError();
   ImageDims dims;
   dims.n = n_images;
@@ -138,7 +154,8 @@ extern "C" int lld_stereo_sad(const void* pyr, int n_images, int H, int W,
     dims.w[i] = img_w[i];
   }
   const unsigned blocks = (unsigned)((n + kWarps - 1) / kWarps);
-  stereo_sad_kernel<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  stereo_sad_kernel<<<dim3(blocks, (unsigned)S), kWarps * 32, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pyr), H, W, dims,
       static_cast<const int32_t*>(lvl), static_cast<const int32_t*>(ul),
       static_cast<const int32_t*>(vl), static_cast<const int32_t*>(ur), n,

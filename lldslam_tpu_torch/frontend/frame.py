@@ -7,7 +7,11 @@ build extracts from the integer-quantized pyramid of both views and matches
 them; the monocular and RGB-D builds extract from one view's float pyramid
 (`orb.extract`). RGB-D samples the depth map at each keypoint and sets the
 virtual right coordinate ur = u - bf / z, so the stereo pipeline applies
-unchanged.
+unchanged. `build_frame_batch` builds S stereo pairs at once (the
+multi-sequence driver's frames; counterpart of
+lldslam_tpu/parallel/multi_seq.py `batched_build_frame`): one pyramid, one
+detection over S*2 views, one K1a and one K1b launch for the S frames;
+`build_frame_pair` is its S = 1 case.
 """
 from __future__ import annotations
 
@@ -21,19 +25,26 @@ from .matching import FrameFeatures
 
 
 class FrameData(NamedTuple):
-    """Everything tracking needs from one stereo frame."""
+    """Everything tracking needs from one stereo frame (with a leading S
+    for a batch of frames)."""
 
     feats: FrameFeatures     # left keypoints + stereo ur
     depth: torch.Tensor      # (N,) stereo depth or -1
     right: orb.Keypoints     # right keypoints (single view)
 
+    def seq(self, i: int) -> "FrameData":
+        """Frame i of a batch."""
+        return FrameData(feats=FrameFeatures(*(a[i] for a in self.feats)),
+                         depth=self.depth[i], right=self.right.seq(i))
 
-def build_frame_pair(pair: torch.Tensor, cam: StereoCamera,
-                     cfg: orb.OrbConfig = orb.OrbConfig()) -> FrameData:
-    """pair (2, H, W) uint8/float stacked left, right on the working device."""
-    stack = pair.to(torch.float32)
+
+def build_frame_batch(pairs: torch.Tensor, cam: StereoCamera,
+                      cfg: orb.OrbConfig = orb.OrbConfig()) -> FrameData:
+    """pairs (S, 2, H, W) uint8/float, S stereo pairs (left, right)
+    stacked on the working device. Returns FrameData with a leading S."""
+    stack = pairs.to(torch.float32)
     pyr = image.build_pyramid(stack, cfg.n_levels, cfg.scale, quantize=True)
-    pyr_stack = orb.stack_levels(pyr)            # (L*2, H0, W0), index 2l+v
+    pyr_stack = orb.stack_levels(pyr)        # (S, L*2, H0, W0), index 2l+v
     kp = orb.extract_stack_pyr(pyr, cfg, pyr_stack=pyr_stack)
     kp_l, kp_r = kp.view_of(0), kp.view_of(1)
     level_hw = [tuple(p.shape[-2:]) for p in pyr]
@@ -42,6 +53,13 @@ def build_frame_pair(pair: torch.Tensor, cam: StereoCamera,
     feats = FrameFeatures(xy=kp_l.xy, ur=u_right, octave=kp_l.octave,
                           angle=kp_l.angle, desc=kp_l.desc, valid=kp_l.valid)
     return FrameData(feats=feats, depth=depth, right=kp_r)
+
+
+def build_frame_pair(pair: torch.Tensor, cam: StereoCamera,
+                     cfg: orb.OrbConfig = orb.OrbConfig()) -> FrameData:
+    """pair (2, H, W) uint8/float stacked left, right on the working
+    device: `build_frame_batch` of one frame."""
+    return build_frame_batch(pair[None], cam, cfg).seq(0)
 
 
 def build_frame_mono(img: torch.Tensor,

@@ -10,6 +10,11 @@ the gates are evaluated in the kernel, so neither the (P, N) candidate mask
 nor the distance matrix is built on the card. `search_for_initialization`,
 the monocular bootstrap's windowed matcher, runs on the dense Hamming matrix,
 as the JAX package runs it in XLA.
+
+`search_by_projection` and `match_last_frame` also take a leading sequence
+axis S on every tensor (T_cw (S, 4, 4)): the multi-sequence driver's S
+frames, each matched against its own map points or last frame alone, with
+one K2g launch for all S (`jax.vmap` in lldslam_tpu/parallel/multi_seq.py).
 """
 from __future__ import annotations
 
@@ -68,23 +73,26 @@ def predict_octave(dist: torch.Tensor, max_dist: torch.Tensor, n_levels: int,
 
 def _resolve_conflicts(ok, best_kp, best, n_kp: int):
     """One keypoint per source row: lowest distance wins, then the lowest
-    source index. Returns (src2kp (P,), kp2src (N,)) with -1 for none."""
-    P = best_kp.shape[0]
+    source index (per batch entry of the leading axes). Returns
+    (src2kp (..., P), kp2src (..., N)) with -1 for none."""
+    P = best_kp.shape[-1]
+    lead = tuple(best_kp.shape[:-1])
     dev = best_kp.device
     best_kp = best_kp.long()
     inf = hamming.INF_DIST
+    at = lambda t: torch.gather(t, -1, best_kp)
     best_masked = torch.where(ok, best, torch.full_like(best, inf))
-    kp_best = torch.full((n_kp,), inf, dtype=best.dtype, device=dev) \
-        .scatter_reduce(0, best_kp, best_masked, "amin", include_self=True)
-    winner = ok & (best_masked == kp_best[best_kp])
-    pidx = torch.arange(P, dtype=torch.int64, device=dev)
-    kp_winner = torch.full((n_kp,), P, dtype=torch.int64, device=dev) \
-        .scatter_reduce(0, best_kp, torch.where(winner, pidx, P), "amin",
+    kp_best = torch.full(lead + (n_kp,), inf, dtype=best.dtype, device=dev) \
+        .scatter_reduce(-1, best_kp, best_masked, "amin", include_self=True)
+    winner = ok & (best_masked == at(kp_best))
+    pidx = torch.arange(P, dtype=torch.int64, device=dev).expand_as(best_kp)
+    kp_winner = torch.full(lead + (n_kp,), P, dtype=torch.int64, device=dev) \
+        .scatter_reduce(-1, best_kp, torch.where(winner, pidx, P), "amin",
                         include_self=True)
-    winner = winner & (kp_winner[best_kp] == pidx)
+    winner = winner & (at(kp_winner) == pidx)
     src2kp = torch.where(winner, best_kp, -1).to(torch.int32)
-    kp2src = torch.full((n_kp,), -1, dtype=torch.int64, device=dev) \
-        .scatter_reduce(0, best_kp, torch.where(winner, pidx, -1), "amax",
+    kp2src = torch.full(lead + (n_kp,), -1, dtype=torch.int64, device=dev) \
+        .scatter_reduce(-1, best_kp, torch.where(winner, pidx, -1), "amax",
                         include_self=True).to(torch.int32)
     return src2kp, kp2src
 
@@ -97,18 +105,19 @@ def search_by_projection(cam: StereoCamera, T_cw: torch.Tensor,
                          ref_angle: torch.Tensor | None = None,
                          site: str = "tracking"):
     """Associate map points to frame keypoints. Returns (pt2kp (P,) int32,
-    kp2pt (N,) int32, uvr_pred (P, 3), in_frustum (P,) bool). `site`
-    labels the caller in K2g's launch counts."""
+    kp2pt (N,) int32, uvr_pred (P, 3), in_frustum (P,) bool), each with the
+    leading S of a batched call. `site` labels the caller in K2g's launch
+    counts."""
     dev = T_cw.device
     scales = _level_scales(scale, n_levels, dev)
     log_scale = _log_scale(scale, dev)
-    Xc = se3.apply(T_cw, pts.pos)
+    Xc = se3.apply(T_cw.unsqueeze(-3), pts.pos)
     z = Xc[..., 2]
     uv_z = torch.clamp(z, min=1e-6)
     u = cam.fx * Xc[..., 0] / uv_z + cam.cx
     v = cam.fy * Xc[..., 1] / uv_z + cam.cy
     ur = u - torch.full_like(uv_z, cam.bf) / uv_z
-    cam_center = se3.inv(T_cw)[..., :3, 3]
+    cam_center = se3.inv(T_cw)[..., None, :3, 3]
     PO = pts.pos - cam_center
     dist = torch.linalg.norm(PO, dim=-1)
     viewcos = torch.sum(PO * pts.normal, dim=-1) / torch.clamp(dist, min=1e-6)
@@ -125,14 +134,16 @@ def search_by_projection(cam: StereoCamera, T_cw: torch.Tensor,
         frame.ur.contiguous(), frame.octave.contiguous(),
         frame.valid.contiguous(), site=site)
     best_kp = best_kp.long()
-    same_lvl = frame.octave[best_kp] == frame.octave[second_kp.long()]
+    same_lvl = (torch.gather(frame.octave, -1, best_kp)
+                == torch.gather(frame.octave, -1, second_kp.long()))
     ratio_ok = (~same_lvl) | (best.to(torch.float32)
                               <= nn_ratio * second.to(torch.float32))
     ok = (best <= hamming.TH_HIGH) & ratio_ok & in_frustum
     if check_rot and ref_angle is not None:
         ok = ok & hamming.rotation_consistency_mask(ref_angle, frame.angle,
                                                     best_kp, ok)
-    pt2kp, kp2pt = _resolve_conflicts(ok, best_kp, best, frame.desc.shape[0])
+    pt2kp, kp2pt = _resolve_conflicts(ok, best_kp, best,
+                                      frame.desc.shape[-2])
     return pt2kp, kp2pt, torch.stack([u, v, ur], dim=-1), in_frustum
 
 
@@ -143,9 +154,10 @@ def match_last_frame(cam: StereoCamera, T_cw: torch.Tensor,
                      radius: float = 7.0) -> torch.Tensor:
     """Last-frame projection matching: radius*scale(octave) window, octave
     within +-1, Hamming best under TH_HIGH, rotation-consistency histogram.
-    Returns kp2last (N_cur,) int32 index into the last frame or -1."""
+    Returns kp2last (N_cur,) int32 index into the last frame or -1 (with
+    the leading S of a batched call)."""
     scales = _level_scales(scale, n_levels, T_cw.device)
-    Xc = se3.apply(T_cw, last_pt_pos)
+    Xc = se3.apply(T_cw.unsqueeze(-3), last_pt_pos)
     z = torch.clamp(Xc[..., 2], min=1e-6)
     u = cam.fx * Xc[..., 0] / z + cam.cx
     v = cam.fy * Xc[..., 1] / z + cam.cy
@@ -153,23 +165,25 @@ def match_last_frame(cam: StereoCamera, T_cw: torch.Tensor,
     visible = (last_has_pt & last.valid & (Xc[..., 2] > 0)
                & (u >= 0) & (u < cam.width) & (v >= 0) & (v < cam.height))
     r = radius * scales[last.octave.long()]
-    du = (u[:, None] - cur.xy[None, :, 0]).abs()
-    dv = (v[:, None] - cur.xy[None, :, 1]).abs()
-    win = (du <= r[:, None]) & (dv <= r[:, None])
-    oct_ok = (cur.octave[None, :] - last.octave[:, None]).abs() <= 1
-    dur = (ur[:, None] - cur.ur[None, :]).abs()
-    ur_ok = (cur.ur[None, :] < 0) | (dur <= r[:, None])
-    cand = win & oct_ok & ur_ok & visible[:, None] & cur.valid[None, :]
+    rows = lambda x: x[..., :, None]
+    cols = lambda x: x[..., None, :]
+    du = (rows(u) - cols(cur.xy[..., 0])).abs()
+    dv = (rows(v) - cols(cur.xy[..., 1])).abs()
+    win = (du <= rows(r)) & (dv <= rows(r))
+    oct_ok = (cols(cur.octave) - rows(last.octave)).abs() <= 1
+    dur = (rows(ur) - cols(cur.ur)).abs()
+    ur_ok = (cols(cur.ur) < 0) | (dur <= rows(r))
+    cand = win & oct_ok & ur_ok & rows(visible) & cols(cur.valid)
 
     d = torch.where(cand, hamming.distance_matrix(last.desc, cur.desc),
                     torch.full((), hamming.INF_DIST, dtype=torch.int32,
                                device=cand.device))
-    best_kp = torch.argmin(d, dim=1)
-    best = torch.gather(d, 1, best_kp[:, None])[:, 0]
+    best_kp = torch.argmin(d, dim=-1)
+    best = torch.gather(d, -1, best_kp[..., None])[..., 0]
     ok = best <= hamming.TH_HIGH
     ok = ok & hamming.rotation_consistency_mask(last.angle, cur.angle,
                                                 best_kp, ok)
-    _, kp2last = _resolve_conflicts(ok, best_kp, best, d.shape[1])
+    _, kp2last = _resolve_conflicts(ok, best_kp, best, d.shape[-1])
     return kp2last
 
 

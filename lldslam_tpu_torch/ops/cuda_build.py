@@ -1,11 +1,14 @@
 """Build and load the port's hand-written CUDA kernels (csrc/*.cu).
 
 Every `.cu` file in `lldslam_tpu_torch/csrc/` exposes a plain C interface.
-They are compiled together by `nvcc` for Hopper (`sm_90a`) into one shared
-library under `lldslam_tpu_torch/_build/` (a directory git ignores) the
-first time a kernel is launched, and again whenever a source's content hash
-changes. The library is loaded with `ctypes`; each kernel wrapper passes its
-tensors' data pointers and the current CUDA stream as `c_void_p`.
+They are compiled by `nvcc` for Hopper (`sm_90a`), one compiler process per
+source, all started together, and linked into one shared library under
+`lldslam_tpu_torch/_build/` (a directory git ignores) the first time a
+kernel is launched, and again whenever a source's content hash changes. The library is loaded with `ctypes`; each kernel wrapper passes its
+tensors' data pointers as `c_void_p` through `launch`, which makes the
+tensors' device current for the call and passes that device's current CUDA
+stream, so the launch and its stream always agree (a `cuda:1` tensor with
+`cuda:0` current launches on card 1).
 
 Nothing here runs at import time, and there is no fallback: a missing `nvcc`
 or a failed build raises.
@@ -26,7 +29,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lib: ctypes.CDLL | None = None
 last_build_seconds: float | None = None
@@ -72,18 +75,37 @@ def build(verbose: bool = False) -> Path:
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, sources())]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
+    objs, procs = [], []
+    for src in sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True)))
+    logs = []
+    for cmd, proc in procs:
+        log = proc.communicate()[0]
+        logs.append(log)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
+    for obj in objs:
+        obj.unlink()
     last_build_seconds = time.perf_counter() - t0
     if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
+        print("".join(logs), flush=True)
     return out
 
 
@@ -94,12 +116,12 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         ints = ctypes.POINTER(ctypes.c_int)
-        lib.lld_orb_describe.argtypes = [vp, vp, i32, i32, i32, ints, ints,
-                                         vp, vp, i32, vp, vp, vp]
-        lib.lld_stereo_sad.argtypes = [vp, i32, i32, i32, ints, ints, vp, vp,
-                                       vp, vp, i32, vp, vp, vp, vp]
-        lib.lld_gated_best2.argtypes = [vp] * 7 + [i32] + [vp] * 5 + [i32,
-                                                                      vp, vp]
+        lib.lld_orb_describe.argtypes = [vp, vp, i32, i32, i32, i32, ints,
+                                         ints, vp, vp, i32, vp, vp, vp]
+        lib.lld_stereo_sad.argtypes = [vp, i32, i32, i32, i32, ints, ints, vp,
+                                       vp, vp, vp, i32, vp, vp, vp, vp]
+        lib.lld_gated_best2.argtypes = [vp] * 7 + [i32, i32] + [vp] * 5 + [
+            i32, vp, vp]
         for fn in (lib.lld_orb_describe, lib.lld_stereo_sad,
                    lib.lld_gated_best2):
             fn.restype = i32
@@ -113,8 +135,14 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} on {name}")
 
 
-def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def launch(fn: str, what: str, device: torch.device, *args) -> None:
+    """Call the library's `fn` with `args` and the current stream of
+    `device`, with `device` made current for the call (the `.cu` launches
+    use the current device); raises on a nonzero CUDA error code."""
+    with torch.cuda.device(device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+        err = getattr(library(), fn)(*args, stream)
+    check(err, what)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -22,6 +22,12 @@ match_best2.cu`; a CUDA tensor always goes to it, a CPU tensor to
 Tie contract: the XLA sequence of lldslam_tpu/frontend/matching.py (argmin,
 mask the best column, argmin again) — lowest column at each minimum, and
 INF_DIST with column 0 for rows without a (second) candidate.
+
+Every tensor may carry a leading sequence axis S (rows (S, M, ...), columns
+(S, N, ...)): S independent problems, the multi-sequence driver's S frames
+at the tracking site, in one launch (`jax.vmap` over the Pallas kernel in
+lldslam_tpu/parallel/multi_seq.py). Sequence s's rows see only sequence s's
+columns; without the axis the call is the S = 1 case.
 """
 from __future__ import annotations
 
@@ -37,33 +43,34 @@ launches_by_site: dict[str, int] = {}
 
 
 def masked_best2_plain(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor):
-    """Best-2 over a given (M, N) mask: the distance matrix by the float32
-    bit-matmul identity (exact: values <= 256), then the XLA argmin
+    """Best-2 over a given (..., M, N) mask: the distance matrix by the
+    float32 bit-matmul identity (exact: values <= 256), then the XLA argmin
     sequence."""
     d = torch.where(mask, hamming.distance_matrix(a, b),
                     torch.full((), hamming.INF_DIST, dtype=torch.int32,
                                device=a.device))
-    rows = torch.arange(d.shape[0], device=d.device)
-    best_idx = torch.argmin(d, dim=1)
-    best = d[rows, best_idx]
-    d[rows, best_idx] = hamming.INF_DIST
-    second_idx = torch.argmin(d, dim=1)
-    second = d[rows, second_idx]
-    return (best_idx.to(torch.int32), best, second,
-            second_idx.to(torch.int32))
+    best_idx = torch.argmin(d, dim=-1, keepdim=True)
+    best = torch.gather(d, -1, best_idx)
+    d.scatter_(-1, best_idx, hamming.INF_DIST)
+    second_idx = torch.argmin(d, dim=-1, keepdim=True)
+    second = torch.gather(d, -1, second_idx)
+    return (best_idx[..., 0].to(torch.int32), best[..., 0], second[..., 0],
+            second_idx[..., 0].to(torch.int32))
 
 
 def gate_mask(u, v, ur, r, pred_oct, in_frustum, xy, kp_ur, octave, valid):
-    """The (M, N) candidate mask of the projection gates."""
-    du = (u[:, None] - xy[None, :, 0]).abs()
-    dv = (v[:, None] - xy[None, :, 1]).abs()
-    win = (du <= r[:, None]) & (dv <= r[:, None])
-    oct_f = octave[None, :].long()
-    po = pred_oct[:, None].long()
+    """The (..., M, N) candidate mask of the projection gates."""
+    rows = lambda x: x[..., :, None]
+    cols = lambda x: x[..., None, :]
+    du = (rows(u) - cols(xy[..., 0])).abs()
+    dv = (rows(v) - cols(xy[..., 1])).abs()
+    win = (du <= rows(r)) & (dv <= rows(r))
+    oct_f = cols(octave).long()
+    po = rows(pred_oct).long()
     oct_ok = (oct_f >= po - 1) & (oct_f <= po)
-    dur = (ur[:, None] - kp_ur[None, :]).abs()
-    ur_ok = (kp_ur[None, :] < 0) | (dur <= r[:, None])
-    return win & oct_ok & ur_ok & in_frustum[:, None] & valid[None, :]
+    dur = (rows(ur) - cols(kp_ur)).abs()
+    ur_ok = (cols(kp_ur) < 0) | (dur <= rows(r))
+    return win & oct_ok & ur_ok & rows(in_frustum) & cols(valid)
 
 
 def gated_best2_plain(a, u, v, ur, r, pred_oct, in_frustum, b, xy, kp_ur,
@@ -77,17 +84,22 @@ def gated_best2_plain(a, u, v, ur, r, pred_oct, in_frustum, b, xy, kp_ur,
 
 def gated_best2(a, u, v, ur, r, pred_oct, in_frustum, b, xy, kp_ur, octave,
                 valid, site: str = "other"):
-    """Rows: a (M, 8) int32 descriptors, u, v, ur, r (M,) float32
-    projection and search radius, pred_oct (M,) int32, in_frustum (M,)
-    bool. Columns: b (N, 8) int32 descriptors, xy (N, 2) float32, kp_ur
-    (N,) float32 right u (< 0 for none), octave (N,) int32, valid (N,)
-    bool. Returns (best_idx, best, second, second_idx), each (M,) int32.
-    `site` labels the caller in `launches_by_site`."""
+    """Rows: a (S, M, 8) int32 descriptors, u, v, ur, r (S, M) float32
+    projection and search radius, pred_oct (S, M) int32, in_frustum (S, M)
+    bool. Columns: b (S, N, 8) int32 descriptors, xy (S, N, 2) float32,
+    kp_ur (S, N) float32 right u (< 0 for none), octave (S, N) int32, valid
+    (S, N) bool. Returns (best_idx, best, second, second_idx), each (S, M)
+    int32; without the leading S every shape drops it (S = 1). One launch
+    for all S, counted once; `site` labels the caller in
+    `launches_by_site`."""
     if a.device.type != "cuda":
         return gated_best2_plain(a, u, v, ur, r, pred_oct, in_frustum, b, xy,
                                  kp_ur, octave, valid)
     global launches
-    M, N = a.shape[0], b.shape[0]
+    batched = a.dim() == 3
+    S = a.shape[0] if batched else 1
+    M, N = a.shape[-2], b.shape[-2]
+    lead = (S,) if batched else ()
     specs = (("a", a, torch.int32, (M, 8)), ("u", u, torch.float32, (M,)),
              ("v", v, torch.float32, (M,)), ("ur", ur, torch.float32, (M,)),
              ("r", r, torch.float32, (M,)),
@@ -97,6 +109,7 @@ def gated_best2(a, u, v, ur, r, pred_oct, in_frustum, b, xy, kp_ur, octave,
              ("kp_ur", kp_ur, torch.float32, (N,)),
              ("octave", octave, torch.int32, (N,)),
              ("valid", valid, torch.bool, (N,)))
+    specs = tuple((n, t, dt, lead + sh) for n, t, dt, sh in specs)
     for name, t, dtype, shape in specs:
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {dtype} {shape}, got {t.dtype} "
@@ -105,16 +118,17 @@ def gated_best2(a, u, v, ur, r, pred_oct, in_frustum, b, xy, kp_ur, octave,
             raise ValueError("K2g inputs must be contiguous on one CUDA device")
     if N > MAX_COLUMNS:
         raise ValueError(f"K2g takes at most {MAX_COLUMNS} columns, got {N}")
+    if not 1 <= S <= 65535:
+        raise ValueError(f"K2g takes 1 to 65535 sequences, got {S}")
     if a.data_ptr() % 16 or b.data_ptr() % 16 or xy.data_ptr() % 8:
         raise ValueError("K2g descriptor rows must be 16-byte aligned and xy "
                          "8-byte aligned")
-    out = torch.empty((4, M), dtype=torch.int32, device=a.device)
+    out = torch.empty((4,) + lead + (M,), dtype=torch.int32, device=a.device)
     p = cuda_build.ptr
-    err = cuda_build.library().lld_gated_best2(
-        p(a), p(u), p(v), p(ur), p(r), p(pred_oct), p(in_frustum), M, p(b),
-        p(xy), p(kp_ur), p(octave), p(valid), N, p(out),
-        cuda_build.stream_ptr(a))
-    cuda_build.check(err, "K2g gated_best2 launch")
+    cuda_build.launch(
+        "lld_gated_best2", "K2g gated_best2 launch", a.device, p(a), p(u),
+        p(v), p(ur), p(r), p(pred_oct), p(in_frustum), S, M, p(b), p(xy),
+        p(kp_ur), p(octave), p(valid), N, p(out))
     launches += 1
     launches_by_site[site] = launches_by_site.get(site, 0) + 1
     return out[0], out[1], out[2], out[3]

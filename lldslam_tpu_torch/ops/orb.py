@@ -14,7 +14,9 @@ and the 512 BRIEF taps, compared and packed in the kernel. K1a reads
 integer-valued stacks: the stereo pair's quantized pyramid as it is; for one
 view the JAX package detects on the float pyramid and rounds only inside
 the orientation and the blur, so `extract_pyr` gives K1a round(level) and
-round(blur(level)).
+round(blur(level)). A batch of frames (the multi-sequence driver's S stereo
+pairs) rides the leading axes: levels (S, V, h, w) are detected as S*V
+views and described by one K1a launch over the (S, L*V, H0, W0) stacks.
 """
 from __future__ import annotations
 
@@ -64,8 +66,9 @@ class OrbConfig:
 
 
 class Keypoints(NamedTuple):
-    """Fixed-capacity keypoint set with a leading view dim (V, N, ...);
-    invalid slots are masked by `valid`, coords are level-0 pixels."""
+    """Fixed-capacity keypoint set with a view dim (V, N, ...), after any
+    batch dims; invalid slots are masked by `valid`, coords are level-0
+    pixels."""
 
     xy: torch.Tensor        # (V, N, 2) float32 (x, y)
     response: torch.Tensor  # (V, N) float32
@@ -75,15 +78,22 @@ class Keypoints(NamedTuple):
     valid: torch.Tensor     # (V, N) bool
 
     def view_of(self, v: int) -> "Keypoints":
-        return Keypoints(*(a[v] for a in self))
+        """View v (the axis before the keypoints), batch dims kept."""
+        axis = self.valid.dim() - 2
+        return Keypoints(*(a.select(axis, v) for a in self))
+
+    def seq(self, i: int) -> "Keypoints":
+        """Entry i of the leading batch axis."""
+        return Keypoints(*(a[i] for a in self))
 
 
 def stack_levels(levels) -> torch.Tensor:
-    """List of L (V, h_l, w_l) images -> one zero-padded (L*V, H0, W0)
-    stack; image index of (level l, view v) is l*V + v."""
+    """List of L (..., V, h_l, w_l) images -> one zero-padded
+    (..., L*V, H0, W0) stack; image index of (level l, view v) is
+    l*V + v."""
     H0, W0 = levels[0].shape[-2:]
     return torch.cat([F.pad(p, (0, W0 - p.shape[-1], 0, H0 - p.shape[-2]))
-                      for p in levels])
+                      for p in levels], dim=-3)
 
 
 def _select_level_keypoints(score: torch.Tensor, n_out: int, cfg: OrbConfig):
@@ -138,12 +148,13 @@ def _ic_angle(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
 def extract_stack_pyr(pyr, cfg: OrbConfig = OrbConfig(),
                       pyr_stack: torch.Tensor | None = None) -> Keypoints:
     """ORB extraction for a stack of same-shape views per level (pyr: list of
-    (V, h_l, w_l) float32 levels; V=2 for a stereo pair). FAST, NMS and
-    selection run on `pyr`, BRIEF on round(blur(level)); the orientation
-    reads `pyr_stack`, the integer-valued levels stacked, by default
-    `stack_levels(pyr)` (a quantized pyramid). Returns Keypoints with
-    leading dim V."""
-    V = pyr[0].shape[0]
+    (..., V, h_l, w_l) float32 levels; V=2 for a stereo pair, leading dims
+    a batch of frames). FAST, NMS and selection run on `pyr`, BRIEF on
+    round(blur(level)); the orientation reads `pyr_stack`, the
+    integer-valued levels stacked, by default `stack_levels(pyr)` (a
+    quantized pyramid). Returns Keypoints with dims (..., V)."""
+    lead = tuple(pyr[0].shape[:-3])
+    V = pyr[0].shape[-3]
     dev = pyr[0].device
     budgets = cfg.per_level_budget()
     scales = cfg.scale_factors()
@@ -156,33 +167,36 @@ def extract_stack_pyr(pyr, cfg: OrbConfig = OrbConfig(),
         inside = ((ys >= EDGE_MARGIN) & (ys < h - EDGE_MARGIN)
                   & (xs >= EDGE_MARGIN) & (xs < w - EDGE_MARGIN))
         score = torch.where(inside, score, torch.zeros_like(score))
-        xy, r = _select_level_keypoints(score, n_l, cfg)
-        xy_l.append(xy)
-        resp.append(r)
-        octv.append(torch.full((V, n_l), l, dtype=torch.int32, device=dev))
+        xy, r = _select_level_keypoints(score.reshape(-1, h, w), n_l, cfg)
+        xy_l.append(xy.reshape(*lead, V, n_l, 2))
+        resp.append(r.reshape(*lead, V, n_l))
+        octv.append(torch.full(lead + (V, n_l), l, dtype=torch.int32,
+                               device=dev))
         # the oracle blurs uint8 -> uint8: integer rounding gives bit-exact
         # BRIEF comparisons
         blurs.append(torch.round(image.gaussian_blur(im_l)))
     # per-keypoint image index into the (L*V, H0, W0) stacks: l*V + v
-    octave = torch.cat(octv, dim=1)
+    octave = torch.cat(octv, dim=-1)
     img_idx = (octave * V + torch.arange(V, device=dev, dtype=torch.int32)[:, None])
-    xy_lvl = torch.cat(xy_l, dim=1)
+    xy_lvl = torch.cat(xy_l, dim=-2)
     if pyr_stack is None:
         pyr_stack = stack_levels(pyr)
     image_hw = [tuple(p.shape[-2:]) for p in pyr for _ in range(V)]
     angle, desc = orb_describe.describe(
-        pyr_stack, stack_levels(blurs), xy_lvl.reshape(-1, 2).to(torch.int32),
-        img_idx.reshape(-1), image_hw)
-    resp = torch.cat(resp, dim=1)
+        pyr_stack, stack_levels(blurs),
+        xy_lvl.reshape(*lead, -1, 2).to(torch.int32),
+        img_idx.reshape(*lead, -1), image_hw)
+    resp = torch.cat(resp, dim=-1)
     scale_kp = consts.table(tuple(scales), torch.float32, dev)[octave.long()]
     xy0 = xy_lvl.to(torch.float32) * scale_kp[..., None]
-    n = xy0.shape[1]
-    kp = Keypoints(xy0, resp, octave, angle.reshape(V, n),
-                   desc.reshape(V, n, 8), resp > 0)
+    n = xy0.shape[-2]
+    kp = Keypoints(xy0, resp, octave, angle.reshape(*lead, V, n),
+                   desc.reshape(*lead, V, n, 8), resp > 0)
     cap = cfg.max_kp
     if n < cap:
-        kp = Keypoints(*(F.pad(a, (0, 0) * (a.dim() - 2) + (0, cap - n))
-                         for a in kp))
+        # pad the keypoint axis (the one after the view axis)
+        kp = Keypoints(*(F.pad(a, (0, 0) * (a.dim() - resp.dim())
+                               + (0, cap - n)) for a in kp))
     return kp
 
 

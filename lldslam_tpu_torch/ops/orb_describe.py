@@ -18,6 +18,10 @@ always goes to it, a CPU tensor to `describe_plain`, the gather chain that
 quantized pyramid and the rounded blur): the moments are then exact integers
 below 2^24 in float32, equal to the JAX package's int32 prefix-sum maps
 (whose -128 intensity shift cancels over the symmetric patch).
+
+The stacks and keypoint arrays may carry a leading sequence axis S (the
+multi-sequence driver's S frames, one launch for all of them; the level
+shapes are shared); without it the call is the S = 1 case.
 """
 from __future__ import annotations
 
@@ -128,33 +132,54 @@ def describe_plain(pyr_stack: torch.Tensor, blur_stack: torch.Tensor,
                    xy: torch.Tensor, img_idx: torch.Tensor,
                    image_hw: Sequence[tuple[int, int]]):
     """The plain version of the kernel: `ic_angle_plain` then
-    `brief_plain`. Returns (angle (n,) float32, desc (n, 8) int32)."""
+    `brief_plain`. Returns (angle (..., n) float32, desc (..., n, 8)
+    int32). With a leading S the S stacks are gathered as one stack of S*I
+    images, each keypoint's index offset into its own frame's images."""
     dev = pyr_stack.device
+    I, H, W = pyr_stack.shape[-3:]
+    lead = xy.shape[:-2]
+    seq = torch.arange(math.prod(lead), dtype=torch.int32,
+                       device=dev).reshape(*lead, 1)
+    img_idx = (img_idx + seq * I).reshape(-1)
+    xy = xy.reshape(-1, 2)
+    pyr_stack, blur_stack = (t.reshape(-1, H, W) for t in (pyr_stack,
+                                                           blur_stack))
     hs = consts.table(tuple(h for h, _ in image_hw), torch.int32, dev)
     ws = consts.table(tuple(w for _, w in image_hw), torch.int32, dev)
-    idx = img_idx.long()
+    lvl = img_idx.long() % I
     angle = ic_angle_plain(pyr_stack, xy, img_idx)
-    return angle, brief_plain(blur_stack, xy, img_idx, angle, hs[idx], ws[idx])
+    desc = brief_plain(blur_stack, xy, img_idx, angle, hs[lvl], ws[lvl])
+    return angle.reshape(*lead, -1), desc.reshape(*lead, -1, 8)
 
 
 def describe(pyr_stack: torch.Tensor, blur_stack: torch.Tensor,
              xy: torch.Tensor, img_idx: torch.Tensor,
              image_hw: Sequence[tuple[int, int]]):
-    """pyr_stack, blur_stack (I, H, W) float32 stacks of integer-valued
-    level images (zero-padded to level 0's shape); xy (n, 2) int32 level
-    coords; img_idx (n,) int32 image of each keypoint; image_hw the I level
-    shapes (h, w) as host ints. Returns (angle (n,) float32, desc (n, 8)
-    int32)."""
+    """pyr_stack, blur_stack (S, I, H, W) float32 stacks of
+    integer-valued level images (zero-padded to level 0's shape); xy (S, n,
+    2) int32 level coords; img_idx (S, n) int32 image of each keypoint in
+    its own frame's stack; image_hw the I level shapes (h, w) as host ints,
+    shared by the S frames. Returns (angle (S, n) float32, desc (S, n, 8)
+    int32); without the leading S every shape drops it (S = 1). One launch
+    for all S, counted once."""
     if pyr_stack.device.type != "cuda":
         return describe_plain(pyr_stack, blur_stack, xy, img_idx, image_hw)
     global launches
-    n = xy.shape[0]
-    I, H, W = pyr_stack.shape
+    lead = tuple(xy.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(f"xy must be (n, 2) or (S, n, 2), got "
+                         f"{tuple(xy.shape)}")
+    S = lead[0] if lead else 1
+    n = xy.shape[-2]
+    I, H, W = pyr_stack.shape[-3:]
     for name, t in (("pyr_stack", pyr_stack), ("blur_stack", blur_stack)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (I, H, W):
-            raise ValueError(f"{name} must be float32 {(I, H, W)}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-    for name, t, shape in (("xy", xy, (n, 2)), ("img_idx", img_idx, (n,))):
+        if t.dtype != torch.float32 or tuple(t.shape) != lead + (I, H, W):
+            raise ValueError(f"{name} must be float32 {lead + (I, H, W)}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if not 1 <= S <= 65535:
+        raise ValueError(f"K1a takes 1 to 65535 frames, got {S}")
+    for name, t, shape in (("xy", xy, lead + (n, 2)),
+                           ("img_idx", img_idx, lead + (n,))):
         if t.dtype != torch.int32 or tuple(t.shape) != shape:
             raise ValueError(f"{name} must be int32 {shape}, got {t.dtype} "
                              f"{tuple(t.shape)}")
@@ -166,13 +191,12 @@ def describe(pyr_stack: torch.Tensor, blur_stack: torch.Tensor,
             raise ValueError("K1a inputs must be contiguous on one CUDA device")
     hs = (ctypes.c_int * I)(*(int(h) for h, _ in image_hw))
     ws = (ctypes.c_int * I)(*(int(w) for _, w in image_hw))
-    angle = torch.empty((n,), dtype=torch.float32, device=xy.device)
-    desc = torch.empty((n, 8), dtype=torch.int32, device=xy.device)
-    err = cuda_build.library().lld_orb_describe(
-        cuda_build.ptr(pyr_stack), cuda_build.ptr(blur_stack), I, H, W, hs,
-        ws, cuda_build.ptr(xy), cuda_build.ptr(img_idx), n,
-        cuda_build.ptr(angle), cuda_build.ptr(desc),
-        cuda_build.stream_ptr(xy))
-    cuda_build.check(err, "K1a orb_describe launch")
+    angle = torch.empty(lead + (n,), dtype=torch.float32, device=xy.device)
+    desc = torch.empty(lead + (n, 8), dtype=torch.int32, device=xy.device)
+    p = cuda_build.ptr
+    cuda_build.launch(
+        "lld_orb_describe", "K1a orb_describe launch", xy.device,
+        p(pyr_stack), p(blur_stack), S, I, H, W, hs, ws, p(xy), p(img_idx),
+        n, p(angle), p(desc))
     launches += 1
     return angle, desc

@@ -18,10 +18,14 @@ returns
 The kernel source is `lldslam_tpu_torch/csrc/stereo_sad.cu`; a CUDA tensor
 always goes to it, a CPU tensor to `sad_refine_plain`. The images must be
 integer-valued (the quantized pyramid): every SAD is then an exact integer.
+The stack and the keypoint arrays may carry a leading sequence axis S (the
+multi-sequence driver's S frames, one launch for all of them; the level
+shapes are shared); without it the call is the S = 1 case.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Sequence
 
 import torch
@@ -36,10 +40,11 @@ launches = 0
 
 
 def _sample_windows(pyr_stack: torch.Tensor, level_hw, lvl: torch.Tensor,
-                    ul, vl, ur):
+                    ul, vl, ur, left: torch.Tensor):
     """The SAD windows through one gather each: (patch (n, 11, 11) from the
-    left, strip (n, 11, 11 + 2L) from the right), coordinates clipped into
-    each keypoint's level image."""
+    left image `left` of the stack, strip (n, 11, 11 + 2L) from the right
+    one, `left` + 1), coordinates clipped into each keypoint's level
+    image."""
     W, L = W_HALF, L_SWEEP
     dev = pyr_stack.device
     idx = lvl.long()
@@ -54,7 +59,7 @@ def _sample_windows(pyr_stack: torch.Tensor, level_hw, lvl: torch.Tensor,
         xx = torch.minimum(torch.clamp(u[:, None] + ox[None], min=0), wk - 1)
         iy = yy[:, :, None].expand(-1, -1, len(ox)).reshape(len(u), -1)
         ix = xx[:, None, :].expand(-1, len(oy), -1).reshape(len(u), -1)
-        meta = F.pad((lvl * 2 + view).to(torch.int32)[:, None], (0, 3))
+        meta = F.pad((left + view).to(torch.int32)[:, None], (0, 3))
         vals = patch_sample.sample_patches_plain(
             pyr_stack, meta.contiguous(), iy.contiguous(), ix.contiguous())
         return vals.reshape(len(u), len(oy), len(ox))
@@ -66,9 +71,18 @@ def sad_refine_plain(pyr_stack: torch.Tensor,
                      level_hw: Sequence[tuple[int, int]], lvl: torch.Tensor,
                      ul: torch.Tensor, vl: torch.Tensor, ur: torch.Tensor):
     """The plain version of the kernel: the windows, the SAD sweep, argmin
-    and the clamped parabola. Returns (best_d, best_c, delta)."""
+    and the clamped parabola. Returns (best_d, best_c, delta), each shaped
+    as lvl. With a leading S the S stacks are gathered as one stack of
+    S*2L images, each keypoint reading its own frame's."""
     W, L = W_HALF, L_SWEEP
-    patch, strip = _sample_windows(pyr_stack, level_hw, lvl, ul, vl, ur)
+    lead = lvl.shape[:-1]
+    I, H, Wd = pyr_stack.shape[-3:]
+    seq = torch.arange(math.prod(lead), dtype=torch.int32,
+                       device=lvl.device).reshape(*lead, 1)
+    left = (seq * I + lvl * 2).reshape(-1)
+    lvl, ul, vl, ur = (x.reshape(-1) for x in (lvl, ul, vl, ur))
+    patch, strip = _sample_windows(pyr_stack.reshape(-1, H, Wd), level_hw,
+                                   lvl, ul, vl, ur, left)
     patch_c = patch - patch[:, W, W][:, None, None]
     wins = strip.unfold(2, 2 * W + 1, 1).permute(0, 2, 1, 3)   # (n, d, 11, 11)
     wins_c = wins - wins[:, :, W, W][:, :, None, None]
@@ -83,45 +97,52 @@ def sad_refine_plain(pyr_stack: torch.Tensor,
     delta = (cm1 - cp1) / denom
     delta = torch.clamp(torch.where(interior, delta, torch.zeros_like(delta)),
                         -1.0, 1.0)
-    return best_d.to(torch.int32), best_c, delta
+    return (best_d.to(torch.int32).reshape(*lead, -1),
+            best_c.reshape(*lead, -1), delta.reshape(*lead, -1))
 
 
 def sad_refine(pyr_stack: torch.Tensor, level_hw: Sequence[tuple[int, int]],
                lvl: torch.Tensor, ul: torch.Tensor, vl: torch.Tensor,
                ur: torch.Tensor):
-    """pyr_stack (2L, H, W) float32, left level l at 2l, right at 2l + 1;
-    level_hw the L level shapes (h, w) as host ints; lvl, ul, vl, ur (n,)
-    int32 (level in [0, L), left u and v, right u, at the level). Returns
-    (best_d (n,) int32, best_c (n,) float32, delta (n,) float32)."""
+    """pyr_stack (S, 2L, H, W) float32, left level l at 2l, right at
+    2l + 1; level_hw the L level shapes (h, w) as host ints, shared by the
+    S frames; lvl, ul, vl, ur (S, n) int32 (level in [0, L), left u and v,
+    right u, at the level). Returns (best_d (S, n) int32, best_c (S, n)
+    float32, delta (S, n) float32); without the leading S every shape drops
+    it (S = 1). One launch for all S, counted once."""
     if pyr_stack.device.type != "cuda":
         return sad_refine_plain(pyr_stack, level_hw, lvl, ul, vl, ur)
     global launches
-    n = lvl.shape[0]
-    I, H, W = pyr_stack.shape
-    if pyr_stack.dtype != torch.float32 or pyr_stack.dim() != 3:
-        raise ValueError(f"pyr_stack must be float32 (2L, H, W), got "
-                         f"{pyr_stack.dtype} {tuple(pyr_stack.shape)}")
+    lead = tuple(lvl.shape[:-1])
+    S = lead[0] if lead else 1
+    n = lvl.shape[-1]
+    I, H, W = pyr_stack.shape[-3:]
+    if pyr_stack.dtype != torch.float32 or tuple(pyr_stack.shape[:-3]) != lead \
+            or len(lead) > 1:
+        raise ValueError(f"pyr_stack must be float32 {lead + ('2L', 'H', 'W')}"
+                         f", got {pyr_stack.dtype} {tuple(pyr_stack.shape)}")
     if I != 2 * len(level_hw) or not 2 <= I <= 64:
         raise ValueError(f"pyr_stack holds {I} images; level_hw gives "
                          f"{len(level_hw)} levels (two views each, at most 32)")
+    if not 1 <= S <= 65535:
+        raise ValueError(f"K1b takes 1 to 65535 frames, got {S}")
     for name, t in (("lvl", lvl), ("ul", ul), ("vl", vl), ("ur", ur)):
-        if t.dtype != torch.int32 or tuple(t.shape) != (n,):
-            raise ValueError(f"{name} must be int32 {(n,)}, got {t.dtype} "
-                             f"{tuple(t.shape)}")
+        if t.dtype != torch.int32 or tuple(t.shape) != lead + (n,):
+            raise ValueError(f"{name} must be int32 {lead + (n,)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
     for t in (pyr_stack, lvl, ul, vl, ur):
         if t.device != pyr_stack.device or not t.is_contiguous():
             raise ValueError("K1b inputs must be contiguous on one CUDA device")
     hw = [hw_ for hw_ in level_hw for _ in range(2)]
     hs = (ctypes.c_int * I)(*(int(h) for h, _ in hw))
     ws = (ctypes.c_int * I)(*(int(w) for _, w in hw))
-    best_d = torch.empty((n,), dtype=torch.int32, device=lvl.device)
-    best_c = torch.empty((n,), dtype=torch.float32, device=lvl.device)
-    delta = torch.empty((n,), dtype=torch.float32, device=lvl.device)
-    err = cuda_build.library().lld_stereo_sad(
-        cuda_build.ptr(pyr_stack), I, H, W, hs, ws, cuda_build.ptr(lvl),
-        cuda_build.ptr(ul), cuda_build.ptr(vl), cuda_build.ptr(ur), n,
-        cuda_build.ptr(best_d), cuda_build.ptr(best_c), cuda_build.ptr(delta),
-        cuda_build.stream_ptr(lvl))
-    cuda_build.check(err, "K1b stereo_sad launch")
+    best_d = torch.empty(lead + (n,), dtype=torch.int32, device=lvl.device)
+    best_c = torch.empty(lead + (n,), dtype=torch.float32, device=lvl.device)
+    delta = torch.empty(lead + (n,), dtype=torch.float32, device=lvl.device)
+    p = cuda_build.ptr
+    cuda_build.launch(
+        "lld_stereo_sad", "K1b stereo_sad launch", lvl.device, p(pyr_stack),
+        S, I, H, W, hs, ws, p(lvl), p(ul), p(vl), p(ur), n, p(best_d),
+        p(best_c), p(delta))
     launches += 1
     return best_d, best_c, delta

@@ -12,7 +12,10 @@ round every edge is reclassified:
   threshold gamma^2-scaled, inliers at twice the threshold, with analytic
   Jacobians (`residuals.line_pose_jacobian`).
 Accept/reject stays on the device (`torch.where`), so the solver never
-waits for the host.
+waits for the host. Point-only problems take a leading batch axis (poses
+(S, 4, 4), observations (S, N, ...)): the multi-sequence driver's S frames
+solved together, with lambda, the accept test and the inlier rounds kept
+per sequence.
 """
 from __future__ import annotations
 
@@ -59,18 +62,19 @@ def _row_weights(is_stereo: torch.Tensor) -> torch.Tensor:
 
 def _point_terms(cam, T, p: PointPoseObs, inlier, delta_m2, delta_s2,
                  need_system: bool = True):
-    r = res.point_residual_stereo(cam, T, p.X, p.obs)           # (N, 3)
+    Tn = T.unsqueeze(-3)                                        # per edge
+    r = res.point_residual_stereo(cam, Tn, p.X, p.obs)          # (..., N, 3)
     row_w = _row_weights(p.is_stereo)
     chi2 = p.inv_sigma2 * torch.sum(r * r * row_w, dim=-1)
     delta_sq = torch.where(p.is_stereo, delta_s2, delta_m2)
-    cost = torch.sum(res.huber_rho(chi2, delta_sq) * inlier)
+    cost = torch.sum(res.huber_rho(chi2, delta_sq) * inlier, dim=-1)
     if not need_system:
         return None, None, cost, chi2
-    Jp, _, _ = res.point_jacobians_stereo(cam, T, p.X)          # (N, 3, 6)
+    Jp, _, _ = res.point_jacobians_stereo(cam, Tn, p.X)     # (..., N, 3, 6)
     w = p.inv_sigma2 * res.huber_weight(chi2, delta_sq) * inlier
-    W = w[:, None] * row_w
-    H = torch.einsum("nri,nr,nrj->ij", Jp, W, Jp)
-    b = -torch.einsum("nri,nr,nr->i", Jp, W, r)                  # -J^T W r
+    W = w[..., None] * row_w
+    H = torch.einsum("...nri,...nr,...nrj->...ij", Jp, W, Jp)
+    b = -torch.einsum("...nri,...nr,...nr->...i", Jp, W, r)     # -J^T W r
     return H, b, cost, chi2
 
 
@@ -109,7 +113,8 @@ def optimize_pose(cam: StereoCamera, T_init: torch.Tensor, pts: PointPoseObs,
                   lns: LinePoseObs | None = None, gamma: float = 0.5,
                   rounds: int = 4, iters: int = 10):
     """Returns (T_opt (4, 4), point inlier mask (N,), line inlier mask (M,)
-    (empty without lines), n_inliers (0-d): the point inliers)."""
+    (empty without lines), n_inliers (0-d): the point inliers); each with
+    the leading S of a batched point-only call (T_init (S, 4, 4))."""
     delta_m2, delta_s2 = res.CHI2_MONO, res.CHI2_STEREO
     dev, dt = T_init.device, T_init.dtype
     eye6 = torch.eye(6, dtype=dt, device=dev)
@@ -118,13 +123,14 @@ def optimize_pose(cam: StereoCamera, T_init: torch.Tensor, pts: PointPoseObs,
     ln_in = (lns.valid.to(torch.float32) if lns is not None
              else torch.zeros(0, dtype=torch.float32, device=dev))
     for _ in range(rounds):
-        lam = torch.full((), 1e-5, dtype=dt, device=dev)
+        lam = torch.full(T.shape[:-2], 1e-5, dtype=dt, device=dev)
         for _ in range(iters):
             H, b, cost, _ = _point_terms(cam, T, pts, pt_in, delta_m2, delta_s2)
             if lns is not None:
                 Hl, bl, cl, _, _ = _line_terms(cam, T, lns, ln_in, gamma)
                 H, b, cost = H + Hl, b + bl, cost + cl
-            Hd = H + lam * torch.diag(torch.diagonal(H)) + 1e-8 * eye6
+            Hd = H + lam[..., None, None] * torch.diag_embed(
+                torch.diagonal(H, dim1=-2, dim2=-1)) + 1e-8 * eye6
             dx = torch.linalg.solve_ex(Hd, b)[0]
             T_new = se3.exp(dx) @ T
             _, _, cost_new, _ = _point_terms(cam, T_new, pts, pt_in, delta_m2,
@@ -133,7 +139,7 @@ def optimize_pose(cam: StereoCamera, T_init: torch.Tensor, pts: PointPoseObs,
                 cost_new = cost_new + _line_terms(
                     cam, T_new, lns, ln_in, gamma, need_system=False)[2]
             accept = cost_new < cost
-            T = torch.where(accept, T_new, T)
+            T = torch.where(accept[..., None, None], T_new, T)
             lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0),
                               1e-9, 1e3)
         # reclassify every edge (outliers may return next round)
@@ -146,4 +152,4 @@ def optimize_pose(cam: StereoCamera, T_init: torch.Tensor, pts: PointPoseObs,
                 cam, T, lns, lns.valid.to(torch.float32), gamma,
                 need_system=False)
             ln_in = (lns.valid & (chi2_l <= 2.0 * th_l)).to(torch.float32)
-    return T, pt_in > 0, ln_in > 0, pt_in.sum().to(torch.int32)
+    return T, pt_in > 0, ln_in > 0, pt_in.sum(-1).to(torch.int32)

@@ -79,6 +79,9 @@ class LocalMapper:
         self.stage_times: dict[str, float] = {}
         self.cache = cache or KfCache(n_slots=32, n_kp=store.n_kp,
                                       device=self.device)
+        # when set, the tracking view always pads to this capacity (the
+        # multi-sequence driver needs one view shape across sequences)
+        self.fixed_tv_cap: int | None = None
 
     # ------------------------------------------------------------------
 
@@ -281,7 +284,7 @@ class LocalMapper:
             return None
         # tracking view selection (UpdateLocalPoints)
         view_pids = self._select_view_pids(kf_id)
-        tv_cap = view_capacity(len(view_pids))
+        tv_cap = self.fixed_tv_cap or view_capacity(len(view_pids))
         if len(view_pids) > tv_cap:
             self.stage_times["view_dropped"] = self.stage_times.get(
                 "view_dropped", 0) + (len(view_pids) - tv_cap)

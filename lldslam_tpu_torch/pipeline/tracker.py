@@ -31,6 +31,16 @@ Lines run on the stored-line route (`ldType: LBDFloat` with
 ROADMAP queue 1): the native line detector, the pipelined tracker (and with
 it the provisional point identities and the on-device keyframe decision).
 
+A map restored by `System.load_map` goes through `restore_map`: the loop
+closer's keyframe database is rebuilt from the stored keyframes and the
+tracker starts LOST, so the next frame relocalizes against the map; in
+localization mode the tracker never initializes a map of its own.
+
+The per-frame tracking math (`_track_core`) takes a leading sequence axis:
+`_step_batch` runs it once for several trackers (the multi-sequence driver,
+parallel/multi_seq.py) and reads every result back in one copy; a single
+tracker is the S = 1 case.
+
 RGB-D frames (`process_rgbd`) carry a virtual right coordinate from the
 depth map and take the stereo path above. Monocular frames
 (`process_mono`) have no depth: the first frame with more than 100
@@ -86,6 +96,15 @@ def _gather_pose_obs(cam, pt_pos: torch.Tensor, kp2pt: torch.Tensor,
         valid=(kp2pt >= 0) & feats.valid)
 
 
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[..., idx, :] (or x[..., idx] for a per-keypoint vector) along the
+    keypoint axis, per entry of the leading axes."""
+    idx = idx.long()
+    if x.dim() == idx.dim():
+        return torch.take_along_dim(x, idx, dim=-1)
+    return torch.take_along_dim(x, idx[..., None], dim=-2)
+
+
 def _track_core(cam, T_pred: torch.Tensor, last_feats: matching.FrameFeatures,
                 last_ptpos: torch.Tensor, last_haspt: torch.Tensor,
                 last_ismap: torch.Tensor, cur: matching.FrameFeatures,
@@ -96,8 +115,13 @@ def _track_core(cam, T_pred: torch.Tensor, last_feats: matching.FrameFeatures,
     wide) -> pose LM -> local-map projection search -> pose LM -> stats, and
     the next frame's motion-model state (associated features keep their
     landmark position; close unassociated ones seed from stereo depth).
-    Returns a dict of device tensors."""
-    obs = torch.cat([cur.xy, cur.ur[:, None]], dim=-1)
+    Returns a dict of device tensors. Every argument may carry a leading
+    sequence axis S (T_pred (S, 4, 4), features (S, N, ...), view
+    (S, P, ...)): S frames tracked at once, each against its own last frame
+    and local map (counterpart of lldslam_tpu/parallel/multi_seq.py
+    `batched_track_step`, without the pipelined path's provisional ids);
+    the results carry it too."""
+    obs = torch.cat([cur.xy, cur.ur[..., None]], dim=-1)
     lut = inv_sigma2_lut[cur.octave.long()]
     is_stereo = cur.ur >= 0
 
@@ -108,25 +132,26 @@ def _track_core(cam, T_pred: torch.Tensor, last_feats: matching.FrameFeatures,
     kp2last_b = matching.match_last_frame(
         cam, T_pred, last_feats, last_ptpos, last_haspt, cur,
         n_levels=n_levels, scale=scale, radius=14.0)
-    kp2last = torch.where((kp2last_a >= 0).sum() >= 20, kp2last_a, kp2last_b)
-    n_mm = (kp2last >= 0).sum()
+    kp2last = torch.where((kp2last_a >= 0).sum(-1, keepdim=True) >= 20,
+                          kp2last_a, kp2last_b)
+    n_mm = (kp2last >= 0).sum(-1)
     has_mm = n_mm >= min_mm
-    li = torch.clamp(kp2last, min=0).long()
-    pobs1 = pose_opt.PointPoseObs(X=last_ptpos[li], obs=obs, inv_sigma2=lut,
-                                  is_stereo=is_stereo,
+    li = torch.clamp(kp2last, min=0)
+    pobs1 = pose_opt.PointPoseObs(X=_rows(last_ptpos, li), obs=obs,
+                                  inv_sigma2=lut, is_stereo=is_stereo,
                                   valid=(kp2last >= 0) & cur.valid)
     T1, pt_in1, _, _ = pose_opt.optimize_pose(cam, T_pred, pobs1)
-    T1 = torch.where(has_mm, T1, T_pred)
-    kp2last = torch.where(pt_in1 & has_mm, kp2last, -1)
-    li = torch.clamp(kp2last, min=0).long()
+    T1 = torch.where(has_mm[..., None, None], T1, T_pred)
+    kp2last = torch.where(pt_in1 & has_mm[..., None], kp2last, -1)
+    li = torch.clamp(kp2last, min=0)
 
     # --- local-map association + final pose ---
     _, kp2pt_l, _, in_frustum = matching.search_by_projection(
         cam, T1, view, cur, n_levels=n_levels, scale=scale, th=1.0)
     use_l = kp2pt_l >= 0
-    X2 = torch.where(use_l[:, None],
-                     view.pos[torch.clamp(kp2pt_l, min=0).long()],
-                     last_ptpos[li])
+    X2 = torch.where(use_l[..., None],
+                     _rows(view.pos, torch.clamp(kp2pt_l, min=0)),
+                     _rows(last_ptpos, li))
     valid2 = (use_l | (kp2last >= 0)) & cur.valid
     pobs2 = pose_opt.PointPoseObs(X=X2, obs=obs, inv_sigma2=lut,
                                   is_stereo=is_stereo, valid=valid2)
@@ -135,21 +160,42 @@ def _track_core(cam, T_pred: torch.Tensor, last_feats: matching.FrameFeatures,
     final_ok = valid2 & pt_in2
     # map-only association: a local-view hit is a map point; a last-frame
     # hit inherits the flag (temporal seeds are not map points)
-    ismap2 = use_l | ((kp2last >= 0) & last_ismap[li])
+    ismap2 = use_l | ((kp2last >= 0) & _rows(last_ismap, li))
     map_ok = final_ok & ismap2
     close = (depth > 0) & (depth < close_depth) & cur.valid
-    stats = torch.stack([n_mm, map_ok.sum(), (close & map_ok).sum(),
-                         (close & ~map_ok).sum(), cur.valid.sum(),
-                         ((cur.ur >= 0) & cur.valid).sum()])
+    stats = torch.stack([n_mm, map_ok.sum(-1), (close & map_ok).sum(-1),
+                         (close & ~map_ok).sum(-1), cur.valid.sum(-1),
+                         ((cur.ur >= 0) & cur.valid).sum(-1)], dim=-1)
     # next-frame chain state with temporal seeding
     T_wc = torch.linalg.inv(T2)
     Xc = backproject(cam, cur.xy, torch.clamp(depth, min=1e-6))
-    Xw_depth = Xc @ T_wc[:3, :3].T + T_wc[:3, 3]
+    Xw_depth = Xc @ T_wc[..., :3, :3].transpose(-1, -2) \
+        + T_wc[..., None, :3, 3]
     return dict(
         T=T2, stats=stats, kp2last=kp2last, kp2pt_l=kp2pt_l, ok=map_ok,
         in_frustum=in_frustum, final=final_ok,
-        ptpos=torch.where(final_ok[:, None], X2, Xw_depth),
+        ptpos=torch.where(final_ok[..., None], X2, Xw_depth),
         haspt=final_ok | close, ismap=map_ok)
+
+
+def _read_back(step: dict) -> list[dict]:
+    """The host half of a batched step's results, per sequence, in one
+    device-to-host copy: T (4, 4) float32, stats (6 ints), kp2last and
+    kp2pt_l int32, ok and in_frustum bool."""
+    S = step["T"].shape[0]
+    i32 = lambda k: step[k].reshape(S, -1).to(torch.int32)
+    parts = [step["T"].reshape(S, 16).contiguous().view(torch.int32)] + [
+        i32(k) for k in ("stats", "kp2last", "kp2pt_l", "ok", "in_frustum")]
+    cuts = np.cumsum([p.shape[1] for p in parts])[:-1]
+    packed = torch.cat(parts, dim=1).cpu().numpy()
+    out = []
+    for row in packed:
+        T, stats, kp2last, kp2pt_l, ok, in_frustum = np.split(row, cuts)
+        out.append(dict(T=T.view(np.float32).reshape(4, 4).copy(),
+                        stats=[int(x) for x in stats], kp2last=kp2last,
+                        kp2pt_l=kp2pt_l, ok=ok.astype(bool),
+                        in_frustum=in_frustum.astype(bool)))
+    return out
 
 
 def _line_step(cam, T: torch.Tensor, view, fl: line_match.FrameLines,
@@ -201,6 +247,7 @@ class TrackMetrics:
     t_build: float = 0.0
     t_step: float = 0.0
     t_kf: float = 0.0
+    t_dispatch: float = 0.0   # batched step's share (multi-sequence driver)
 
 
 class StereoTracker:
@@ -242,6 +289,7 @@ class StereoTracker:
         self._has_velocity = False
         self._view = None
         self._view_pid = None
+        self._reloc_kp2pt = None   # kp -> point id of the last relocalization
         # monocular bootstrap: set by process_mono; the held reference frame
         self._mono = False
         self._init_ref = None
@@ -348,17 +396,22 @@ class StereoTracker:
     def _process_fd(self, fd: FrameData, timestamp: float, m: TrackMetrics):
         t0 = time.perf_counter()
         if self.state == TrackState.NOT_INITIALIZED:
-            self._initialize(fd, timestamp, m)
+            # localization mode tracks against a map, never starts one
+            if not self.localization_only:
+                self._initialize(fd, timestamp, m)
         else:
             self._track(fd, timestamp, m)
         m.t_step = time.perf_counter() - t0 - m.t_kf
+        self._finish_metrics(m)
+        return self.T_cw.copy(), m
+
+    def _finish_metrics(self, m: TrackMetrics):
         if not m.state:  # a reset path may have recorded LOST already
             m.state = self.state.name
         m.n_points = int(self.store.pt_valid.sum())
         m.n_kfs = self.store.n_kf
         m.n_lines = int(self.store.ln_valid.sum())
         self.metrics.append(m)
-        return self.T_cw.copy(), m
 
     # ------------------------------------------------------------------
 
@@ -536,7 +589,7 @@ class StereoTracker:
         """Rebuild the padded MapPointView over the local map (points of the
         reference keyframe's covisibility neighbourhood)."""
         ids = self.mapper._select_view_pids(self.ref_kf)
-        cap = local_mapping.view_capacity(len(ids))
+        cap = self.mapper.fixed_tv_cap or local_mapping.view_capacity(len(ids))
         ids = ids[-cap:]   # ascending covisibility weight: keep strongest
         self._view_pid = np.concatenate(
             [ids, np.full(cap - len(ids), -1, ids.dtype)])
@@ -579,17 +632,37 @@ class StereoTracker:
 
     def _run_step(self, fd: FrameData, T_pred: np.ndarray):
         """One `_track_core` from T_pred; returns (host results, step)."""
+        (out,) = self._step_batch(
+            [self], matching.FrameFeatures(*(a[None] for a in fd.feats)),
+            fd.depth[None], [T_pred])
+        return out
+
+    @staticmethod
+    def _step_batch(trackers: list["StereoTracker"],
+                    cur: matching.FrameFeatures, depth: torch.Tensor,
+                    T_preds: list[np.ndarray]) -> list[tuple[dict, dict]]:
+        """`_track_core` for S trackers of one configuration at once: frame
+        s (cur, depth with a leading S) against tracker s's last frame and
+        local-map view (equal view capacities), from T_preds[s]. One upload
+        of the poses, one batched step, one read-back. Returns (host results,
+        step slice) per tracker."""
+        tr0 = trackers[0]
+        stack = lambda xs: xs[0][None] if len(xs) == 1 else torch.stack(xs)
+        per = lambda get: [get(tr) for tr in trackers]
+        last = matching.FrameFeatures(*map(stack, zip(*per(
+            lambda tr: tr._last_feats))))
+        view = matching.MapPointView(*map(stack, zip(*per(
+            lambda tr: tr._view))))
         step = _track_core(
-            self.cam, self._t(T_pred.astype(np.float32)), self._last_feats,
-            self._last_ptpos, self._last_haspt, self._last_ismap, fd.feats,
-            fd.depth, self._view, self._inv_sigma2_lut, self.orb.n_levels,
-            self.orb.scale, self.cfg.tracking.min_motion_matches,
-            float(self.cfg.close_depth))
-        host = {k: step[k].cpu().numpy()
-                for k in ("T", "stats", "kp2last", "kp2pt_l", "ok",
-                          "in_frustum")}
-        host["stats"] = [int(x) for x in host["stats"]]
-        return host, step
+            tr0.cam, tr0._t(np.stack(T_preds).astype(np.float32)), last,
+            stack(per(lambda tr: tr._last_ptpos)),
+            stack(per(lambda tr: tr._last_haspt)),
+            stack(per(lambda tr: tr._last_ismap)), cur, depth, view,
+            tr0._inv_sigma2_lut, tr0.orb.n_levels, tr0.orb.scale,
+            tr0.cfg.tracking.min_motion_matches, float(tr0.cfg.close_depth))
+        hosts = _read_back(step)
+        return [(h, {k: v[i] for k, v in step.items()})
+                for i, h in enumerate(hosts)]
 
     def _attempt_reloc(self, fd: FrameData) -> np.ndarray | None:
         """Relocalization: BoW candidates (at most 5) -> ratio-0.7 mutual
@@ -647,6 +720,7 @@ class StereoTracker:
                 self.ref_kf = kf
                 self._refresh_local_view()
                 self._refresh_ref_matches()
+                self._reloc_kp2pt = kp2pt
                 return T2.cpu().numpy().astype(np.float32)
         return None
 
@@ -672,8 +746,10 @@ class StereoTracker:
         clear the map, database and trajectory bookkeeping, reinitialize."""
         self.store = MapStore(self.cam, self.orb)
         self.kf_cache.clear()
+        fixed_tv_cap = self.mapper.fixed_tv_cap
         self.mapper = local_mapping.LocalMapper(
             self.store, self.cfg, cache=self.kf_cache, device=self.device)
+        self.mapper.fixed_tv_cap = fixed_tv_cap
         if self.loop_closer is not None:
             self._make_loop_closer()
         self.state = TrackState.NOT_INITIALIZED
@@ -687,6 +763,53 @@ class StereoTracker:
         if self.enable_lines:
             self._refresh_line_view()
 
+    def restore_map(self):
+        """Make the map just loaded into the store trackable: rebuild the
+        loop closer's keyframe database from the stored keyframes'
+        descriptors (training the vocabulary from the first one when loops
+        are on and none was given) and, on a non-empty map, start LOST at
+        the newest valid keyframe, so that the next frame relocalizes
+        against the map. The JAX package restores only the store (its next
+        frame starts a second map at the identity); this is the port's
+        divergence."""
+        s = self.store
+        kfs = np.nonzero(s.kf_valid[:s.n_kf])[0]
+        self.kf_cache.clear()
+        self._last_feats = None
+        self._view = None
+        self._view_pid = None
+        self.velocity = np.eye(4, dtype=np.float32)
+        self._has_velocity = False
+        if len(kfs) == 0:
+            self.state = TrackState.NOT_INITIALIZED
+            return
+        if self.enable_loops and self.vocabulary is None:
+            k0 = kfs[0]
+            self.vocabulary = Vocabulary.train(
+                s.kf_desc[k0][s.kf_kp_valid[k0]], k=8, L=3, seed=0)
+        if self.enable_loops:
+            self._make_loop_closer()          # an empty database
+            for kf in kfs:
+                self.loop_closer.db.add(int(kf), *self.loop_closer.voc
+                                        .bow_vector(s.kf_desc[kf],
+                                                    s.kf_kp_valid[kf]))
+        self.ref_kf = int(kfs[-1])
+        self.last_kf_frame = -1
+        self.T_cw = s.kf_pose[self.ref_kf].copy()
+        self.state = TrackState.LOST
+
+    def _predict_pose(self, fd: FrameData) -> np.ndarray:
+        """The pose a tracked frame starts from: the motion model (velocity
+        times the last pose), or, with no velocity (right after
+        initialization or relocalization), the reference keyframe anchor
+        when it finds >= 10 associations."""
+        if not self._has_velocity and self.ref_kf >= 0 \
+                and self.state == TrackState.OK:
+            T_anchor = self._ref_anchor_pose(fd)
+            if T_anchor is not None:
+                return T_anchor.astype(np.float32)
+        return (self.velocity @ self.T_cw).astype(np.float32)
+
     def _track(self, fd: FrameData, timestamp: float, m: TrackMetrics):
         fid = self.frame_id
         if self.state == TrackState.LOST:
@@ -696,14 +819,14 @@ class StereoTracker:
                 self.T_cw = T_reloc
                 self.velocity = np.eye(4, dtype=np.float32)
                 self._has_velocity = False
-        if not self._has_velocity and self.ref_kf >= 0 \
-                and self.state == TrackState.OK:
-            # no motion model: anchor on the reference KF
-            T_anchor = self._ref_anchor_pose(fd)
-            T_pred = (T_anchor if T_anchor is not None
-                      else (self.velocity @ self.T_cw)).astype(np.float32)
-        else:
-            T_pred = (self.velocity @ self.T_cw).astype(np.float32)
+                if self._last_feats is None:
+                    # a restored map has no last frame: the motion model
+                    # starts from this frame's relocalization matches
+                    self._remember_frame(fd, self._reloc_kp2pt)
+            elif self._last_feats is None:
+                self._log_frame(timestamp, lost=True)
+                return
+        T_pred = self._predict_pose(fd)
         host, step = self._run_step(fd, T_pred)
         self._track_finalize(fd, host, step, timestamp, m, fid)
 

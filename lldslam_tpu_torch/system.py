@@ -162,8 +162,13 @@ class System:
 
     def load_map(self, path) -> None:
         """Restore a map saved by `save_map` (or by the JAX package) into
-        this System's store."""
+        this System's store, and make it trackable: the loop closer's
+        keyframe database is rebuilt from the stored keyframes and, on a
+        non-empty map, the tracker starts LOST, so the next frame
+        relocalizes against the map (`StereoTracker.restore_map`; the JAX
+        package restores the store alone)."""
         checkpoint.load_map(self.map, path)
+        self.tracker.restore_map()
 
     def shutdown(self) -> None:
         """Nothing to stop: the synchronous path starts no threads."""

@@ -19,7 +19,12 @@ JAX parity test (tests/test_torch_loop.py) states, and the solver loops of
 a loop event run without a host synchronisation. The single-view frame
 build of the monocular and RGB-D paths launches K1a once on one view's
 rounded float levels, exact against the plain version; the monocular
-initializer and the rectifier's remap on the card agree with the CPU.
+initializer and the rectifier's remap on the card agree with the CPU. With a
+leading sequence axis (the multi-sequence driver's S frames) each kernel
+launches once for all S and equals both its plain version and S = 1
+launches; a kernel given tensors on a second card launches there while the
+first is current (skipped on a one-card machine); and a loop correction
+with map lines on the card is held to the CPU like the points-only one.
 """
 import numpy as np
 import pytest
@@ -30,7 +35,8 @@ from lldslam_tpu_torch.frontend import frame
 from lldslam_tpu_torch.frontend.matching import (FrameFeatures, MapPointView,
                                                  search_by_projection)
 from lldslam_tpu_torch.geometry import lines as glines, se3
-from lldslam_tpu_torch.io.synthetic import make_loop_map, make_sequence
+from lldslam_tpu_torch.io.synthetic import (add_loop_lines, make_loop_map,
+                                            make_sequence)
 from lldslam_tpu_torch.loop.closing import LoopCloser
 from lldslam_tpu_torch.io import kernel_inputs
 from lldslam_tpu_torch.ops import match_best2, orb_describe, stereo_sad
@@ -91,6 +97,67 @@ def test_gated_best2_equals_plain(dev, M, N):
     assert int(got[1][e]) == 10000 and int(got[0][e]) == 0
     assert int(got[0][o]) == kernel_inputs.ONE_COL
     assert int(got[2][o]) == 10000
+
+
+def _batched_sets(dev, S=4):
+    """S seeded argument sets of each kernel at the main path's shapes."""
+    rng = np.random.default_rng(7)
+    return dict(
+        describe=[kernel_inputs.describe_inputs(rng, dev) for _ in range(S)],
+        sad=[kernel_inputs.sad_inputs(rng, dev) for _ in range(S)],
+        gated=[kernel_inputs.gated_best2_inputs(rng, dev, 4096)
+               for _ in range(S)])
+
+
+def _stack_args(sets):
+    return tuple(torch.stack(xs) if torch.is_tensor(xs[0]) else xs[0]
+                 for xs in zip(*sets))
+
+
+@pytest.mark.parametrize("kernel", ["describe", "sad", "gated"])
+def test_batched_kernels_equal_plain_and_single_launches(dev, kernel):
+    """S = 4 frames at the main path's shapes in one launch: every output
+    exact against the plain version of the batch and, sequence by sequence,
+    against an S = 1 launch on that sequence alone; one launch counted."""
+    mod, fn, plain = dict(
+        describe=(orb_describe, orb_describe.describe,
+                  orb_describe.describe_plain),
+        sad=(stereo_sad, stereo_sad.sad_refine, stereo_sad.sad_refine_plain),
+        gated=(match_best2, match_best2.gated_best2,
+               match_best2.gated_best2_plain))[kernel]
+    sets = _batched_sets(dev)[kernel]
+    args = _stack_args(sets)
+    before = mod.launches
+    got = fn(*args)
+    assert mod.launches == before + 1
+    _equal(got, plain(*args))
+    for s, one in enumerate(sets):
+        _equal([g[s] for g in got], fn(*one))
+
+
+def test_kernels_launch_on_the_tensors_device():
+    """With card 0 current, each kernel given tensors on card 1 launches
+    on card 1 (on its current stream) and equals its plain version there.
+    Needs two cards: the machine the port is measured on has one, so this
+    test skips there."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    d1 = torch.device("cuda", 1)
+    rng = np.random.default_rng(8)
+    cases = ((orb_describe.describe, orb_describe.describe_plain,
+              kernel_inputs.describe_inputs(rng, d1)),
+             (stereo_sad.sad_refine, stereo_sad.sad_refine_plain,
+              kernel_inputs.sad_inputs(rng, d1)),
+             (match_best2.gated_best2, match_best2.gated_best2_plain,
+              kernel_inputs.gated_best2_inputs(rng, d1, 4096)))
+    with torch.cuda.device(0):
+        for fn, plain, args in cases:
+            got = fn(*args)
+            assert torch.cuda.current_device() == 0
+            assert all(g.device == d1 for g in got)
+            torch.cuda.synchronize(d1)
+            want = plain(*args)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_gated_best2_rejects_bad_inputs(dev):
@@ -183,6 +250,56 @@ def test_loop_correct_on_card_matches_cpu(dev):
     err = np.linalg.norm(a.pt_pos[:a.n_pt][live] - b.pt_pos[:b.n_pt][live],
                          axis=-1)
     assert np.median(err) < 5e-3
+
+
+def test_loop_correct_with_lines_on_card_matches_cpu(dev):
+    """The loop map with map lines (io.synthetic.add_loop_lines): the same
+    correction as above, whose line half is the map-line remap and the joint
+    point+line global BA, on both devices: poses within 2e-3 m and 1e-3
+    rad, points within 5e-3 m (median), the map lines moved by the
+    correction and, card against CPU, within 2e-3 of their distance
+    (median; 2e-2 at most) and 1e-3 in direction (1 - |cos|)."""
+    cfg = SlamConfig(camera=CameraConfig(fx=400.0, fy=400.0, cx=256.0,
+                                         cy=192.0, bf=200.0, width=512,
+                                         height=384),
+                     orb=OrbConfig(n_features=600))
+    voc = _default_vocabulary()
+    cam = cfg.camera.stereo_camera()
+    stores = [MapStore(cam, cfg.orb, max_kf=64, max_pt=20000) for _ in "ab"]
+    for st in stores:
+        add_loop_lines(st, make_loop_map(st))
+    cpu = LoopCloser(stores[0], voc, cfg, device="cpu")
+    card = LoopCloser(stores[1], voc, cfg, device=dev)
+    S = cpu._compute_sim3(21, 2)[0]
+    Tm = stores[0].kf_pose[2]
+    T_corr = np.eye(4, dtype=np.float32)
+    T_corr[:3, :3] = S[0] @ Tm[:3, :3]
+    T_corr[:3, 3] = S[2] * (S[0] @ Tm[:3, 3]) + S[1]
+    pids = cpu._loop_points(2)
+    kp2lp = card._project_match(21, pids, T_corr, th=2.5)
+    assert np.array_equal(kp2lp, cpu._loop_guided[0])
+    card._loop_guided = (kp2lp, pids)
+    before = stores[1].ln_x0[:stores[1].n_ln].copy()
+    cpu._correct(21, 2, S)
+    card._correct(21, 2, S)
+    torch.cuda.synchronize()
+    a, b = stores
+    K, n = a.n_kf, a.n_ln
+    np.testing.assert_allclose(b.kf_pose[:K, :3, 3], a.kf_pose[:K, :3, 3],
+                               rtol=0, atol=2e-3)
+    assert _angle(a.kf_pose[:K, :3, :3], b.kf_pose[:K, :3, :3]).max() < 1e-3
+    live = a.pt_valid[:a.n_pt] & b.pt_valid[:b.n_pt]
+    assert np.median(np.linalg.norm(
+        a.pt_pos[:a.n_pt][live] - b.pt_pos[:b.n_pt][live], axis=-1)) < 5e-3
+    lv = a.ln_valid[:n] & b.ln_valid[:n]
+    assert lv.sum() >= 100
+    assert np.isfinite(b.ln_x0[:n]).all() and np.isfinite(b.ln_dir[:n]).all()
+    assert np.linalg.norm(b.ln_x0[:n] - before, axis=-1).max() > 0.05
+    ex = np.linalg.norm(b.ln_x0[:n] - a.ln_x0[:n], axis=-1)[lv] \
+        / np.maximum(1.0, np.linalg.norm(a.ln_x0[:n], axis=-1)[lv])
+    ed = np.abs(np.abs(np.sum(b.ln_dir[:n] * a.ln_dir[:n], -1)) - 1.0)[lv]
+    assert np.median(ex) < 2e-3 and ex.max() < 2e-2, (np.median(ex), ex.max())
+    assert ed.max() < 1e-3
 
 
 def test_loop_solvers_never_wait_for_the_host(dev):
@@ -286,6 +403,13 @@ def test_loop_solvers_never_wait_for_the_host(dev):
         octave=t(np.zeros(L, np.int32)), has_right=t(np.ones(L, bool)),
         valid=t(np.ones(L, bool)))
     T1 = t(T0[1])
+    on = [kk == k for k in (1, 2, 3)]
+    pobs_b = pose_opt.PointPoseObs(
+        X=t(np.stack([Pw[pp[o]] for o in on])),
+        obs=t(np.stack([uvr[o] for o in on])),
+        inv_sigma2=t(np.ones((3, 300), np.float32)),
+        is_stereo=t(np.ones((3, 300), bool)), valid=t(np.ones((3, 300), bool)))
+    T_b0 = t(T0[1:4])
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -297,6 +421,8 @@ def test_loop_solvers_never_wait_for_the_host(dev):
                                                         cg_iters=64)
         T_opt, _, ln_in, _ = pose_opt.optimize_pose(cam, T1, pobs, lpobs,
                                                     rounds=2, iters=6)
+        # the multi-sequence driver's batched pose LM: keyframes 1-3 at once
+        T_b, in_b, _, n_b = pose_opt.optimize_pose(cam, T_b0, pobs_b)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert float(pose_graph.total_error(g_opt)) < 0.1 * float(err_0)
@@ -309,6 +435,10 @@ def test_loop_solvers_never_wait_for_the_host(dev):
     err1 = np.linalg.norm(T_opt.cpu().numpy()[:3, 3] - T[1, :3, 3])
     assert err1 < 0.2 * np.linalg.norm(T0[1, :3, 3] - T[1, :3, 3])
     assert bool(ln_in.all())
+    err_b = np.linalg.norm(T_b.cpu().numpy()[:, :3, 3] - T[1:4, :3, 3], axis=-1)
+    assert (err_b < 0.2 * np.linalg.norm(T0[1:4, :3, 3] - T[1:4, :3, 3],
+                                         axis=-1)).all()
+    assert (n_b.cpu().numpy() >= 290).all() and tuple(in_b.shape) == (3, 300)
 
 
 def test_kernels_and_projection_search_never_wait_for_the_host(dev):

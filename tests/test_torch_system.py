@@ -234,9 +234,13 @@ def test_system_defaults_to_the_card():
 def test_multi_device_global_ba_has_no_counterpart():
     """The port runs on one device: the JAX package's multi-device global
     BA (lldslam_tpu/parallel/dist_schur.py, ROADMAP queue 1 item 7) has no
-    module and no switch in the port."""
+    module and no switch in the port; its parallel package holds the
+    multi-sequence driver alone."""
     assert importlib.util.find_spec("lldslam_tpu.parallel.dist_schur")
-    assert importlib.util.find_spec("lldslam_tpu_torch.parallel") is None
+    assert importlib.util.find_spec("lldslam_tpu_torch.parallel.multi_seq")
+    for name in ("dist_schur", "sharded_ba"):
+        assert importlib.util.find_spec(
+            f"lldslam_tpu_torch.parallel.{name}") is None
     assert list(inspect.signature(LoopCloser.global_ba).parameters) == [
         "self"]
 
