@@ -73,14 +73,27 @@ Phases, each fatal on failure (nonzero exit, no result line):
    frames against 5 solo frames (device kernels, busy share), each
    kernel's device time at S = 4 against its bound; then S = 13 at the JAX
    bench's multi-sequence config (640x240, 600 features, seeds 10-22) for
-   10 frames, every frame OK, timed.
+   10 frames, every frame OK, timed;
+14. native_lines: the port's CLI (`cli.main`, default device) on the
+   checked-in mini KITTI sequence, PNGs decoded by the native prefetcher,
+   once on its stored lines and once on the native line detector, each
+   against the same command on the CPU; then the lines world written as
+   KITTI-layout PNGs (ldType LBDFloat, mdThr 0.6, no detections path)
+   through the CLI on the native detector: states, keyframes, ATE and line
+   matches against the JAX package's CPU run of that world, the decoded
+   pairs against the rendered frames, ms per frame, the detector's ms per
+   view and peak memory, decode ms per image and the host's wait in the
+   prefetcher per frame; then the detector alone on one KITTI view: two
+   card calls bit-identical, the card against the CPU, and
+   precompute_sequence's files read back to the detector's outputs.
 The main path's last frame's K1a and K1b inputs are held exactly to the
 plain versions too. Kernel launches are counted per path (counts zeroed just
 before, read just after): main, lines, loop, reloc, mono and rgbd are
 System runs; reloc_site is the two direct calls of the relocalization call
 site; loop_lines the two corrections; multiseq and multiseq_13 the driver
-runs. The second-to-last line is the kernel table as JSON, the last line
-the device summary as JSON.
+runs; mini_kitti the two mini KITTI CLI runs; native_lines the KITTI-size
+CLI run on the native detector. The second-to-last line is the kernel table
+as JSON, the last line the device summary as JSON.
 """
 from __future__ import annotations
 
@@ -119,6 +132,19 @@ RGBD_POINT_RANGE = (750, 1020)     # 886 +- 15%
 RGBD_ATE_BOUND_M = 0.025           # 0.00459 m + 0.02 m
 RGBD_MAX_DEPTH_M = 8.0             # a Kinect-class sensor reads no further
 RECTIFY_TOL = 1e-3
+# the JAX package's CPU run of the native_lines world (its synchronous
+# System, loops on, the native detector, on the same 30 seed-2 frames and
+# config): every frame OK, keyframes at frames 0, 3, 6, 10, 14, 18, 22, 27,
+# line matches per frame median 1 (frames 1-29), ATE 0.006938 m
+NATIVE_LINES_JAX = dict(ate=0.006938189419458925, n_kf=8, line_matches=1)
+NATIVE_LINE_MATCH_RANGE = (0.9, 1.1)      # 1 +- 10%
+MINI_KITTI = "tests/data/mini_kitti"
+MINI_ATE_BOUND_M = 0.5                    # tests/test_cli_e2e.py
+MINI_CENTRE_BOUND_M = 0.05                # the card against the CPU
+# tests/test_torch_line_detect.py: endpoints within 1e-3 px, descriptors
+# within 1e-5 + 0.5 x the line's endpoint difference (px)
+DETECT_PX, DETECT_DESC, DETECT_DESC_PER_PX = 1e-3, 1e-5, 0.5
+DETECT_FED_PX, DETECT_FED_DESC = 0.5, 0.02
 MULTISEQ_SEEDS = (3, 10, 11, 12)
 MULTISEQ_FRAMES = 20
 MULTISEQ_VIEW_CAP = 4096    # a KITTI-size local view can exceed 2048 points
@@ -872,18 +898,22 @@ def run_lines(dev, cfg, frames, poses, world, label: str) -> dict:
     return out
 
 
-def phase_lines(dev) -> dict:
+def lines_sequence():
+    """The lines world's 30 seed-2 KITTI-size frames, their T_cw and the
+    world's dimensions."""
+    from lldslam_tpu_torch.io.synthetic import make_sequence
+    return make_sequence(kitti_config().camera.stereo_camera(), N_FRAMES,
+                         seed=2, with_lines=True, return_poses=True)
+
+
+def phase_lines(dev, frames, poses, world) -> dict:
     """The stored-line world of the JAX bench's lines section (bench.py
     `_bench_lines`): 30 seed-2 frames with lines painted on the walls, KITTI
     size, 2000 features, loops on; then the same frames with lines off."""
-    from lldslam_tpu_torch.io.synthetic import make_sequence
     from lldslam_tpu_torch.io.trajectory import ate_rmse
     from lldslam_tpu_torch.system import System
 
     cfg = kitti_config()
-    frames, poses, world = make_sequence(cfg.camera.stereo_camera(), N_FRAMES,
-                                         seed=2, with_lines=True,
-                                         return_poses=True)
     out = run_lines(dev, cfg, frames, poses, world, "lines")
     out["line_fit"] = eigh_against_power(dev)
     out["jacobians"] = jacobians_against_jacfwd(dev, cfg.camera.stereo_camera())
@@ -919,6 +949,324 @@ def phase_lines(dev) -> dict:
     if bad:
         raise AssertionError("lines: " + "; ".join(bad))
     need_launches(out["counts"], "lines", ("tracking", "fusion"))
+    return out
+
+
+def _kitti_rows(path) -> np.ndarray:
+    """(N, 4, 4) T_wc of a KITTI trajectory file."""
+    rows = np.loadtxt(path).reshape(-1, 3, 4)
+    T = np.tile(np.eye(4), (len(rows), 1, 1))
+    T[:, :3] = rows
+    return T
+
+
+def cli_run(args, out_dir, device=None) -> dict:
+    """`cli.main` on `args` (dataset, settings, sequence) with its default
+    device unless `device` is given: the trajectory (T_wc) and the
+    per-frame metrics it wrote."""
+    from lldslam_tpu_torch import cli
+    out, met = f"{out_dir}/traj.txt", f"{out_dir}/metrics.jsonl"
+    extra = [] if device is None else ["--device", device]
+    if cli.main([*args, "--out", out, "--metrics", met, *extra]) != 0:
+        raise AssertionError(f"cli {args} returned nonzero")
+    with open(met) as f:
+        ms = [json.loads(x) for x in f]
+    return dict(T=_kitti_rows(out), metrics=ms,
+                kfs=[m["frame_id"] for m in ms if m["new_kf"]],
+                states=[m["state"] for m in ms],
+                line_matches=[m["n_line_matches"] for m in ms])
+
+
+def mini_kitti_runs(dev) -> dict:
+    """The CLI on mini KITTI on the card, with the shipped settings (stored
+    lines) and with a copy that lacks the detection paths (the native
+    detector), each held to tests/test_cli_e2e.py's bounds and to the same
+    command on the CPU (keyframes equal, camera centres within 0.05 m);
+    kernel launches of the two card runs."""
+    import os
+    import tempfile
+    from lldslam_tpu_torch.io.trajectory import ate_rmse
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mini_")
+    native = f"{tmp}/native.yaml"
+    with open(f"{MINI_KITTI}/settings.yaml") as f:
+        keep = [ln for ln in f if not ln.startswith(("lineDetectionsPath",
+                                                      "lineDescriptorsPath"))]
+    with open(native, "w") as f:
+        f.writelines(keep)
+    gt = _kitti_rows(f"{MINI_KITTI}/gt.txt")
+    out, bad = dict(counts=dict(k1a=0, k1b=0, k2g=0, k2g_sites={})), []
+    reset_counts()
+    for label, settings in (("stored", f"{MINI_KITTI}/settings.yaml"),
+                            ("native", native)):
+        os.makedirs(f"{tmp}/{label}/card")
+        os.makedirs(f"{tmp}/{label}/cpu")
+        t = time.perf_counter()
+        card = cli_run(["kitti", settings, MINI_KITTI], f"{tmp}/{label}/card")
+        card_s = time.perf_counter() - t
+        counts = read_counts()
+        cpu = cli_run(["kitti", settings, MINI_KITTI], f"{tmp}/{label}/cpu",
+                      device="cpu")
+        reset_counts()
+        total = out["counts"]
+        for k in ("k1a", "k1b", "k2g"):
+            total[k] += counts[k]
+        for site, c in counts["k2g_sites"].items():
+            total["k2g_sites"][site] = total["k2g_sites"].get(site, 0) + c
+        ate = ate_rmse(card["T"], gt, align=False)
+        dc = float(np.linalg.norm(card["T"][:, :3, 3] - cpu["T"][:, :3, 3],
+                                  axis=-1).max())
+        out[label] = dict(ate=ate, kfs=card["kfs"], cpu_kfs=cpu["kfs"],
+                          centre_diff=dc, line_matches=card["line_matches"],
+                          cpu_line_matches=cpu["line_matches"], s=card_s)
+        log(f"native_lines: mini KITTI CLI on the card, {label} lines: "
+            f"{card['states']}; keyframes {card['kfs']} (CPU {cpu['kfs']}); "
+            f"line matches {card['line_matches']} (CPU "
+            f"{cpu['line_matches']}); unaligned ATE {ate:.4f} m; centres "
+            f"within {dc:.5f} m of the CPU run; {card_s:.1f} s")
+        checks = [
+            (card["T"].shape == (10, 4, 4) and np.isfinite(card["T"]).all(),
+             "10 finite rows"),
+            (ate < MINI_ATE_BOUND_M, f"ATE {ate}"),
+            (card["states"][-1] == "OK", f"states {card['states']}"),
+            (any(x > 0 for x in card["line_matches"]), "no line match"),
+            (card["kfs"] == cpu["kfs"], "keyframes against the CPU"),
+            (dc < MINI_CENTRE_BOUND_M, f"centres {dc} m from the CPU run")]
+        bad += [f"{label}: {msg}" for ok, msg in checks if not ok]
+    if "PIL" in sys.modules:
+        bad.append("PIL was imported")
+    if bad:
+        raise AssertionError("native_lines, mini KITTI: " + "; ".join(bad))
+    return out
+
+
+def detector_work(H: int, W: int, L: int, chunk: int) -> dict:
+    """What the native detector must do on one (H, W) uint8 view with L peak
+    slots, and what its eager support pass moves. Least bytes: the image
+    read once, each slot's outputs (p1, p2, octave, length, 40-float
+    descriptor, valid) written once. Operations: per pixel the Sobel (12),
+    the magnitude (5), the orientation, its bin and rho (about 40 with
+    atan2, cos and sin); per (slot, pixel) the support test (band distance
+    3, orientation gap 4, 3 comparisons, 2 ands: 12) and, in the refit,
+    the weighted sums (2 each for the weight, x, y and the three
+    covariance terms, 3 for the centred coordinates, 4 for the span: 19).
+    A fused support pass would read phi, the magnitude and the edge mask
+    (9 bytes a pixel) once per chunk of peaks; the eager one reads or
+    writes about 61 float (chunk, H*W) arrays per chunk (19 in the support
+    test, 31 in the weighted sums, 11 in the span), 244 bytes per pixel and
+    slot."""
+    px = H * W
+    n_bytes = px + L * (4 * 4 + 4 + 4 + 40 * 4 + 1)
+    n_ops = px * 57 + L * px * (12 + 19)
+    b_ms, by = bound(n_bytes, n_ops)
+    chunks = -(-L // chunk)
+    return dict(bytes=n_bytes, ops=n_ops, bound_ms=b_ms, bound_by=by,
+                fused_bytes=9 * px * chunks,
+                fused_ms=1e3 * 9 * px * chunks / HBM_BYTES_PER_S,
+                eager_bytes=244 * px * chunks * chunk,
+                eager_ms=1e3 * 244 * px * chunks * chunk / HBM_BYTES_PER_S)
+
+
+def detector_alone(dev, img: np.ndarray, seq) -> dict:
+    """The native detector on one KITTI view: two card calls bit-identical;
+    the card against the CPU (valid masks and slots equal, endpoints within
+    1e-3 px, descriptors within 1e-5 + 0.5 x their endpoint difference,
+    apart from the lines a pixel feeds
+    whose bin or support an atan2 ulp moved, held to 0.5 px and a
+    descriptor distance of 0.02); then precompute_sequence on the first 3
+    frames of `seq` on the card, its files read back through
+    StoredLineSource equal to the detector's outputs."""
+    import tempfile
+    from lldslam_tpu_torch.frontend import line_extract as le
+    from lldslam_tpu_torch.io import stored_lines
+
+    cfg = le.LineDetConfig(max_lines=256)
+    x = torch.from_numpy(img).to(dev)
+    a, b = le.detect_lines(x, cfg), le.detect_lines(x, cfg)
+    same = all(torch.equal(u, v) for u, v in zip(a, b))
+    c = le.detect_lines(x.cpu(), cfg)
+    # the pixels an ulp moved: bins and the support masks of the CPU's peaks
+    vc, vg = le._votes(x.cpu().float(), cfg), le._votes(x.float(), cfg)
+    edge_c, phi_c, bins_c = vc[3], vc[4], vc[5]
+    edge_g, phi_g, bins_g = (t.cpu() for t in vg[3:6])
+    moved = (edge_c | edge_g) & (bins_c != bins_g)
+    H, W = img.shape
+    xs = torch.arange(W, dtype=torch.float32).repeat(H)[None]
+    ys = torch.arange(H, dtype=torch.float32).repeat_interleave(W)[None]
+    diag = float(np.hypot(H, W))
+    mag_c = vc[2]
+    acc = le._accumulate(bins_c.reshape(-1), torch.where(
+        edge_c, mag_c, 0.0).reshape(-1), vc[6] * cfg.n_phi)
+    accp = torch.nn.functional.pad(acc.reshape(vc[6], cfg.n_phi), (0, 0, 1, 1))
+    accp = torch.cat([accp[:, -1:], accp, accp[:, :1]], dim=1)
+    win = torch.nn.functional.max_pool2d(accp[None, None], 3, stride=1)[0, 0]
+    a2 = acc.reshape(vc[6], cfg.n_phi)
+    _, flat = le._top_k(torch.where((a2 >= win) & (a2 >= cfg.min_support), a2,
+                                    0.0).reshape(-1), cfg.max_lines)
+    rho_k = ((flat // cfg.n_phi).float() + 0.5) * cfg.rho_res * 2.0 - diag
+    phi_k = (flat % cfg.n_phi).float().add(0.5) * le._bin_to_phi(cfg.n_phi)
+    sup = [le._support(xs, ys, phi.reshape(1, -1), edge.reshape(1, -1), rho_k,
+                       torch.cos(phi_k), torch.sin(phi_k), phi_k, cfg)
+           for phi, edge in ((phi_c, edge_c), (phi_g, edge_g))]
+    fed = (sup[0] != sup[1]).any(-1)
+    for bin_ in torch.cat([bins_c[moved], bins_g[moved]]).tolist():
+        dr = (flat // cfg.n_phi - bin_ // cfg.n_phi).abs()
+        dp = (flat % cfg.n_phi - bin_ % cfg.n_phi).abs()
+        fed |= (dr <= 1) & (torch.minimum(dp, cfg.n_phi - dp) <= 1)
+    n_flip = int((sup[0] != sup[1]).any(0).sum()) + int(moved.sum())
+    g = [t.cpu() for t in a]
+    ep = torch.maximum((g[0] - c[0]).abs().amax(-1),
+                       (g[1] - c[1]).abs().amax(-1))
+    dd = (g[4] - c[4]).abs().amax(-1)
+    dist = torch.linalg.norm(g[4] - c[4], dim=-1)
+    strict, both = ~fed, fed & g[5] & c[5]
+    ok = (bool(torch.equal(g[5][strict], c[5][strict]))
+          and float(ep[strict].max()) <= DETECT_PX
+          and bool((dd[strict] <= DETECT_DESC
+                    + DETECT_DESC_PER_PX * ep[strict]).all())
+          and bool((ep[both] <= DETECT_FED_PX).all())
+          and bool((dist[both] <= DETECT_FED_DESC).all()))
+    n_fed = int((fed & (g[5] | c[5])).sum())
+    log(f"native_lines: detector on one KITTI view: {int(c[5].sum())} lines "
+        f"on the CPU, {int(g[5].sum())} on the card; two card calls "
+        f"bit-identical: {same}; {n_flip} pixels flipped by an ulp "
+        f"(of {int(edge_c.sum())} edge pixels), {n_fed} lines fed by one; "
+        f"the others within {float(ep[strict].max()):.2e} px and "
+        f"{float(dd[strict].max()):.2e} (descriptors) of the CPU")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pre_")
+    first = type(seq)(seq.left[:3], seq.right[:3], seq.timestamps[:3])
+    stored_lines.precompute_sequence(first, f"{tmp}/l", f"{tmp}/r", cfg,
+                                     device=dev)
+    exact = True
+    for i in range(3):
+        for side, path in (("l", first.left[i]), ("r", first.right[i])):
+            kl = le.detect_lines(torch.from_numpy(
+                first.frame(i)[0 if side == "l" else 1]).to(dev), cfg)
+            src = stored_lines.StoredLineSource(f"{tmp}/{side}", cap=256)
+            got = src.frame(i, device=dev)
+            n = int(kl.valid.sum())
+            exact &= bool(got.valid[:n].all()) and int(got.valid.sum()) == n
+            for k in (0, 1, 2, 4):
+                exact &= torch.equal(got[k][:n], kl[k][kl.valid])
+    log(f"native_lines: precompute_sequence on 3 frames on the card read back "
+        f"through StoredLineSource equal to the detector: {exact}")
+    if not (same and ok and exact):
+        raise AssertionError(f"native_lines detector: bit-identical {same}, "
+                             f"card against CPU {ok}, files {exact}")
+    return dict(bit_identical=same, flipped_pixels=n_flip, fed_lines=n_fed,
+                max_px=float(ep[strict].max()),
+                max_desc=float(dd[strict].max()))
+
+
+def phase_native_lines(dev, frames, poses) -> dict:
+    """mini KITTI through the CLI (stored and native lines), then the lines
+    world as KITTI-layout PNGs through the CLI on the native detector, then
+    the detector alone (see the module docstring, phase 14)."""
+    import dataclasses
+    import tempfile
+    from lldslam_tpu_torch import native
+    from lldslam_tpu_torch.config import LineConfig
+    from lldslam_tpu_torch.frontend import line_extract as le
+    from lldslam_tpu_torch.io import datasets
+    from lldslam_tpu_torch.io.synthetic import write_kitti_sequence
+    from lldslam_tpu_torch.io.trajectory import ate_rmse
+    from lldslam_tpu_torch.system import System
+
+    out = dict(mini=mini_kitti_runs(dev))
+    out["mini_counts"] = out["mini"].pop("counts")
+    cfg = dataclasses.replace(kitti_config(), line=LineConfig(
+        ld_type="LBDFloat", md_thr=0.6))
+    seq_dir = tempfile.mkdtemp(prefix="chip_smoke_native_")
+    t = time.perf_counter()
+    write_kitti_sequence(seq_dir, frames, cfg, poses)
+    log(f"native_lines: wrote {2 * len(frames)} KITTI-size PNGs in "
+        f"{time.perf_counter() - t:.1f} s")
+    seq = datasets.load_kitti(seq_dir)
+    paths = seq.left + seq.right
+    decode = []
+    for p in paths[:20]:
+        t = time.perf_counter()
+        native.read_png(p)
+        decode.append(1e3 * (time.perf_counter() - t))
+    frame_ms, wait_ms, det_ms = [], [], []
+    restore = [timed_calls(System, "track_stereo", frame_ms),
+               timed_calls(datasets.PrefetchedStereoSequence, "frame",
+                           wait_ms),
+               timed_calls(le, "detect_lines", det_ms)]
+    try:
+        reset_counts()
+        run = cli_run(["kitti", f"{seq_dir}/settings.yaml", seq_dir],
+                      f"{seq_dir}")
+        counts = read_counts()
+    finally:
+        for r in restore:
+            r()
+    gt = np.stack([np.linalg.inv(p) for p in poses])
+    ate = ate_rmse(run["T"], gt)
+    lm = statistics.median(run["line_matches"][1:])
+    pre = datasets.prefetch(seq)
+    pairs_equal = all(
+        np.array_equal(a, f[0]) and np.array_equal(b, f[1])
+        for (a, b, _), f in ((pre.frame(i), frames[i])
+                             for i in (0, len(frames) - 1)))
+    pre.close()
+    # the detector alone on frame 0's left view: CUDA events, peak memory
+    img = native.read_png(seq.left[0])
+    x = torch.from_numpy(img).to(dev)
+    dcfg = le.LineDetConfig(max_lines=256, min_len=cfg.line.min_line_len)
+    view_ms = cuda_ms(lambda: le.detect_lines(x, dcfg), reps=12)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    le.detect_lines(x, dcfg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    work = detector_work(*img.shape, dcfg.max_lines, le.SUPPORT_CHUNK)
+    steady = frame_ms[1:]
+    out.update(
+        counts=counts, states=run["states"], kfs=run["kfs"], ate=ate,
+        line_matches=run["line_matches"], line_matches_median=lm,
+        pairs_equal=pairs_equal, ms=frame_ms,
+        ms_median=statistics.median(steady),
+        ms_p90=float(np.percentile(steady, 90)),
+        detect_ms_per_view=view_ms, detect_host_ms=statistics.median(det_ms),
+        detect_work=work,
+        detect_peak_bytes=int(peak),
+        decode_ms_per_image=statistics.median(decode),
+        wait_ms_per_frame=statistics.median(wait_ms),
+        wait_ms_max=max(wait_ms))
+    log(f"native_lines: keyframes at {run['kfs']}; ATE {ate:.5f} m (JAX-CPU "
+        f"{NATIVE_LINES_JAX['ate']:.5f}); line matches per frame "
+        f"{run['line_matches']}, median {lm}; launches {counts}")
+    log(f"native_lines: ms/frame median {out['ms_median']:.1f} p90 "
+        f"{out['ms_p90']:.1f} (first {frame_ms[0]:.1f}); detector "
+        f"{view_ms:.3f} ms per view (CUDA events, median of 12; host-clock "
+        f"median in the run {out['detect_host_ms']:.2f} ms), peak memory of "
+        f"one call {peak / 2**20:.1f} MiB; PNG decode "
+        f"{out['decode_ms_per_image']:.2f} ms per image; host blocked in the "
+        f"prefetcher's frame(i) {out['wait_ms_per_frame']:.3f} ms per frame "
+        f"(max {out['wait_ms_max']:.3f}); first and last pairs equal to the "
+        f"rendered frames: {pairs_equal}")
+    log(f"native_lines: detector work on one view: {work['bytes']} bytes "
+        f"and {work['ops']:.3e} operations, bound {work['bound_ms']:.4f} ms "
+        f"({work['bound_by']}), {100 * work['bound_ms'] / view_ms:.2f}% of "
+        f"bound; a fused support pass would move "
+        f"{work['fused_bytes'] / 1e6:.1f} MB ({work['fused_ms']:.4f} ms), "
+        f"the eager one about "
+        f"{work['eager_bytes'] / 1e9:.1f} GB ({work['eager_ms']:.2f} ms)")
+    checks = [
+        (all(x == "OK" for x in run["states"]), f"states {run['states']}"),
+        (ate <= NATIVE_LINES_JAX["ate"] + 0.02, f"ATE {ate} m"),
+        (len(run["kfs"]) >= 5, f"keyframes {run['kfs']}"),
+        (NATIVE_LINE_MATCH_RANGE[0] <= lm <= NATIVE_LINE_MATCH_RANGE[1],
+         f"line matches median {lm}"),
+        (pairs_equal, "decoded pairs differ from the rendered frames")]
+    bad = [msg for ok, msg in checks if not ok]
+    if bad:
+        raise AssertionError("native_lines: " + "; ".join(bad))
+    need_launches(counts, "native_lines", ("tracking", "fusion"))
+    need_launches(out["mini_counts"], "mini_kitti", ("tracking", "fusion"))
+    out["detector"] = detector_alone(dev, img, seq)
     return out
 
 
@@ -1657,7 +2005,11 @@ def main() -> int:
     k2g = phase_k2g(dev)
     frames, poses = main_sequence()
     paths = dict(main=phase_main_path(dev, frames, poses))
-    paths["lines"] = phase_lines(dev)["counts"]
+    lines_world = lines_sequence()
+    paths["lines"] = phase_lines(dev, *lines_world)["counts"]
+    native = phase_native_lines(dev, *lines_world[:2])
+    paths["mini_kitti"] = native["mini_counts"]
+    paths["native_lines"] = native["counts"]
     paths["loop"] = phase_loop(dev)
     paths["reloc"], paths["reloc_site"] = phase_reloc(dev)
     mono = phase_mono(dev, frames, poses)

@@ -7,7 +7,9 @@ trajectory (and, with --metrics, one JSON line of TrackMetrics per frame).
     python -m lldslam_tpu_torch.cli kitti <settings.yaml> <sequence_dir>
     python -m lldslam_tpu_torch.cli euroc <settings.yaml> <sequence_dir> <times>
 
-The System runs on the card unless `--device cpu` is given. EuRoC settings
+The System runs on the card unless `--device cpu` is given. KITTI frames
+decode through the native threaded prefetcher (io/datasets.prefetch), EuRoC
+frames through the native decoder as they are asked for; EuRoC settings
 with rectification blocks (LEFT.K ...) undistort and rectify every pair on
 that device first (ops/rectify.py); `--save-map` writes the map checkpoint
 (io/checkpoint.py).
@@ -85,7 +87,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     if args.dataset == "kitti":
-        seq = datasets.load_kitti(args.sequence)
+        seq = datasets.prefetch(datasets.load_kitti(args.sequence))
         fmt = args.format or "kitti"
         seq_name = args.sequence.rstrip("/").split("/")[-1]
     else:
@@ -101,7 +103,11 @@ def main(argv=None):
                                     StereoRectifier(d, device=args.device))
 
     system = System(args.settings, sequence=seq_name, device=args.device)
-    run_sequence(system, seq, realtime=args.realtime, limit=args.limit)
+    try:
+        run_sequence(system, seq, realtime=args.realtime, limit=args.limit)
+    finally:
+        if isinstance(seq, datasets.PrefetchedStereoSequence):
+            seq.close()
     if fmt == "kitti":
         system.save_trajectory_kitti(args.out)
     else:

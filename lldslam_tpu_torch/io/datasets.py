@@ -1,10 +1,10 @@
 """Dataset loaders: KITTI odometry and EuRoC MAV stereo sequences.
 
-Counterpart of lldslam_tpu/io/datasets.py. Images decode on the host with
-PIL (where PIL is not installed, reading a frame raises) into float32
-grayscale arrays in [0, 255]. The JAX package's native threaded PNG
-prefetcher is not ported (ROADMAP queue 1 item 8): frames decode when
-asked for.
+Counterpart of lldslam_tpu/io/datasets.py. Images decode on the host
+through the port's native PNG decoder (lldslam_tpu_torch/native, 8-bit
+grayscale, as KITTI and EuRoC store them) into float32 arrays in [0, 255].
+`prefetch` wraps a sequence with the native threaded prefetcher, which
+decodes frames ahead of the tracker on worker threads.
 """
 from __future__ import annotations
 
@@ -15,16 +15,11 @@ import numpy as np
 
 
 def load_gray(path: str | Path) -> np.ndarray:
-    """Grayscale float32 image in [0, 255] (16-bit sources scaled down)."""
-    from PIL import Image
+    """8-bit grayscale PNG as a float32 image in [0, 255]; any other format
+    raises (native.read_png)."""
+    from .. import native
 
-    img = Image.open(path)
-    if img.mode not in ("L", "I;16"):
-        img = img.convert("L")
-    arr = np.asarray(img, dtype=np.float32)
-    if arr.max() > 255.0:
-        arr = arr / 256.0
-    return arr
+    return native.read_png(path).astype(np.float32)
 
 
 @dataclass
@@ -41,6 +36,38 @@ class StereoSequence:
     def frame(self, i: int):
         return (load_gray(self.left[i]), load_gray(self.right[i]),
                 float(self.timestamps[i]))
+
+
+class PrefetchedStereoSequence:
+    """A StereoSequence read through the native threaded prefetcher: each
+    view's frames decode ahead of the consumer on worker threads; frames
+    come back as uint8 images."""
+
+    def __init__(self, seq: StereoSequence, window: int = 8,
+                 n_threads: int = 2):
+        from ..native import NativeImageLoader
+
+        self._left = NativeImageLoader(seq.left, window, n_threads)
+        self._right = NativeImageLoader(seq.right, window, n_threads)
+        self.timestamps = seq.timestamps
+
+    def __len__(self) -> int:
+        return len(self._left)
+
+    def frame(self, i: int):
+        return (self._left.frame(i), self._right.frame(i),
+                float(self.timestamps[i]))
+
+    def close(self) -> None:
+        self._left.close()
+        self._right.close()
+
+
+def prefetch(seq: StereoSequence, window: int = 8,
+             n_threads: int = 2) -> PrefetchedStereoSequence:
+    """`seq` behind the native prefetcher; raises where the native library
+    cannot be built or a first frame cannot be read."""
+    return PrefetchedStereoSequence(seq, window, n_threads)
 
 
 def load_kitti(seq_dir: str | Path) -> StereoSequence:

@@ -5,8 +5,8 @@ camera holding p1, p2 (L, 2), octave (L,) and desc (L, D) float32. A source
 pads each frame to its capacity; a frame with more lines keeps the longest
 ones (stable order) and counts the event (`cap_events` frames,
 `cap_dropped` lines). `stage_stored_pair` sends both views of a frame to
-the device. The offline writer of the JAX package that runs its native
-detector (`precompute_sequence`) is not ported.
+the device. `precompute_sequence` writes such files for a whole sequence
+with the native detector (frontend/line_extract.py).
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..frontend.line_extract import KeyLines
+from ..frontend.line_extract import KeyLines, LineDetConfig, detect_lines
 
 
 def save_frame_lines(dir_path: str | Path, frame_id: int, p1, p2, octave,
@@ -96,7 +96,19 @@ def stage_stored_pair(left: StoredLineSource, right: StoredLineSource,
     return (KeyLines(*(x[0] for x in both)), KeyLines(*(x[1] for x in both)))
 
 
-def precompute_sequence(seq, out_left, out_right, cfg=None) -> int:
-    raise NotImplementedError(
-        "precompute_sequence runs the native line detector, which is not "
-        "ported to lldslam_tpu_torch yet; see ROADMAP queue 1 item 5")
+def precompute_sequence(seq, out_left: str | Path, out_right: str | Path,
+                        cfg: LineDetConfig | None = None,
+                        device="cuda") -> int:
+    """Run the native detector over a StereoSequence (`frame(i)` -> left,
+    right, timestamp) on `device` and store each view's valid detections
+    (`save_frame_lines`, one file per frame and view). Returns the number
+    of frames."""
+    cfg = cfg or LineDetConfig()
+    for i in range(len(seq)):
+        img_l, img_r, _ = seq.frame(i)
+        for img, out in ((img_l, out_left), (img_r, out_right)):
+            kl = detect_lines(torch.from_numpy(np.ascontiguousarray(img))
+                              .to(device), cfg)
+            save_frame_lines(out, i, *(x.cpu().numpy() for x in (
+                kl.p1, kl.p2, kl.octave, kl.desc, kl.valid)))
+    return len(seq)

@@ -547,3 +547,55 @@ def euroc_blocks() -> dict:
                     f"{side}.K": (3, 3, K), f"{side}.D": (1, 5, D),
                     f"{side}.R": (3, 3, R), f"{side}.P": (3, 4, P)})
     return out
+
+
+def settings_yaml(cfg) -> str:
+    """The reference-format settings file (config.load_config reads it back
+    to `cfg`) of a SlamConfig's camera, ORB, tracking-gate and line blocks;
+    stored-line paths are written only where `cfg` has them."""
+    c, o, t, ln = cfg.camera, cfg.orb, cfg.tracking, cfg.line
+    keys = {
+        "Camera.fx": c.fx, "Camera.fy": c.fy, "Camera.cx": c.cx,
+        "Camera.cy": c.cy, "Camera.k1": c.k1, "Camera.k2": c.k2,
+        "Camera.p1": c.p1, "Camera.p2": c.p2, "Camera.k3": c.k3,
+        "Camera.bf": c.bf, "Camera.fps": c.fps, "Camera.RGB": c.rgb,
+        "Camera.width": c.width, "Camera.height": c.height,
+        "ThDepth": t.th_depth, "ORBextractor.nFeatures": o.n_features,
+        "ORBextractor.nLevels": o.n_levels,
+        "ORBextractor.scaleFactor": o.scale,
+        "ORBextractor.iniThFAST": o.ini_th, "ORBextractor.minThFAST": o.min_th,
+        "minInitPoints": t.min_init_points,
+        "minTrackInliers": t.min_track_inliers, "ldType": ln.ld_type,
+        "mdThr": ln.md_thr, "gamma": ln.gamma, "minLineLen": ln.min_line_len,
+        "maxInCell": ln.max_in_cell, "mappingThr": ln.mapping_thr,
+    }
+    if ln.detections_path:
+        keys["lineDetectionsPath"] = ln.detections_path
+    if ln.descriptors_path:
+        keys["lineDescriptorsPath"] = ln.descriptors_path
+    return "%YAML:1.0\n" + "".join(f"{k}: {v!r}\n" if isinstance(v, float)
+                                   else f"{k}: {v}\n" for k, v in keys.items())
+
+
+def write_kitti_sequence(seq_dir, frames, cfg, poses=None) -> None:
+    """A KITTI-odometry-layout directory of stereo frames: image_0/%06d.png
+    (left) and image_1/%06d.png (right) as 8-bit grayscale PNGs, times.txt
+    at the camera's rate, settings.yaml of `cfg` and, where the frames' T_cw
+    `poses` are given, gt.txt (T_wc as 3x4 rows)."""
+    from pathlib import Path
+
+    from .png import write_png
+
+    seq_dir = Path(seq_dir)
+    for cam_dir in ("image_0", "image_1"):
+        (seq_dir / cam_dir).mkdir(parents=True, exist_ok=True)
+    for i, (left, right) in enumerate(frames):
+        for cam_dir, img in (("image_0", left), ("image_1", right)):
+            write_png(seq_dir / cam_dir / f"{i:06d}.png",
+                      np.asarray(img, np.uint8))
+    np.savetxt(seq_dir / "times.txt",
+               np.arange(len(frames)) / float(cfg.camera.fps), fmt="%.6e")
+    (seq_dir / "settings.yaml").write_text(settings_yaml(cfg))
+    if poses is not None:
+        T_wc = np.stack([np.linalg.inv(p) for p in poses])
+        np.savetxt(seq_dir / "gt.txt", T_wc[:, :3].reshape(len(T_wc), 12))

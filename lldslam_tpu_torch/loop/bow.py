@@ -8,9 +8,10 @@ device, where `_descend` walks every descriptor down the L levels at once
 (gather the children, popcount of the XORs, first argmin).
 
 Sources: `load_npz`/`save_npz` (the shipped `vocab_synth.npz`), `load_text`
-(the ORB-SLAM2 `ORBvoc.txt` format) and `train` (host hierarchical binary
-k-medians, used when no vocabulary is given). The batched offline trainer
-`train_device` of the JAX package is not ported.
+(the ORB-SLAM2 `ORBvoc.txt` format), `train` (host hierarchical binary
+k-medians, used when no vocabulary is given) and `train_device` (the
+offline trainer at ORBvoc scale: every node of a level split at once on the
+device).
 """
 from __future__ import annotations
 
@@ -163,6 +164,124 @@ class Vocabulary:
         counts = np.bincount(words, minlength=voc.n_words)
         idf = np.log(max(len(descs), 1) / np.maximum(counts, 1))
         voc.word_weight = idf.astype(np.float32)
+        return voc
+
+    @staticmethod
+    def train_device(descs: np.ndarray, k: int = 10, L: int = 5,
+                     seed: int = 0, iters: int = 8,
+                     doc_ids: np.ndarray | None = None,
+                     device="cuda") -> "Vocabulary":
+        """Hierarchical binary k-medians at ORBvoc scale (k=10, L=5: about
+        10^5 leaves) with every node of a level split at once on `device`:
+        per Lloyd iteration one (N, k) Hamming assignment (first child on a
+        tie) and one bit-majority count per (node, child). The initial
+        centres are k random members of each node, drawn with numpy from
+        `seed`; empty children are pruned. The JAX package's
+        `Vocabulary.train_device`, the same draws and arithmetic (integer
+        counts, so the result does not depend on the summation order).
+
+        descs: (N, 8) uint32 packed. doc_ids: (N,) document id of each
+        descriptor for the idf weights (default: 500-descriptor chunks).
+        Returns the vocabulary with its tree tensors on `device`."""
+        dev = torch.device(device)
+        rng = np.random.default_rng(seed)
+        descs = np.unique(descs, axis=0) if doc_ids is None else descs
+        N = len(descs)
+        d_dev = _desc_tensor(descs, dev)
+        bits_dev = torch.from_numpy(np.unpackbits(
+            descs.view(np.uint8), axis=-1).astype(np.int32)).to(dev)
+        lut = torch.from_numpy(_POPCOUNT8).to(dev)
+
+        def assign(centers: np.ndarray, group: torch.Tensor) -> torch.Tensor:
+            """centers (G, k, 8) uint32 -> each descriptor's nearest child
+            of its group (N,) int64."""
+            c = _desc_tensor(centers.reshape(-1, 8), dev).reshape(-1, k, 8)
+            out = []
+            for a in range(0, N, 1 << 16):
+                x = c[group[a:a + (1 << 16)]] ^ d_dev[a:a + (1 << 16), None]
+                dist = lut[x.contiguous().view(torch.uint8).long()].sum(-1)
+                out.append(torch.argmin(dist, dim=-1))
+            return torch.cat(out)
+
+        def majority(gc: torch.Tensor, n: int):
+            """Bit-majority centre (n, 8) uint32 and member count (n,) of
+            each (group * k + child) id."""
+            sums = torch.zeros((n, 256), dtype=torch.int32, device=dev)
+            sums.index_add_(0, gc, bits_dev)
+            cnt = torch.bincount(gc, minlength=n)
+            maj = (2 * sums >= cnt[:, None]).cpu().numpy().astype(np.uint8)
+            return (np.packbits(maj, axis=-1).view(np.uint32).reshape(-1, 8),
+                    cnt.cpu().numpy())
+
+        group = np.zeros(N, np.int64)   # node membership at the current level
+        n_groups = 1
+        node_desc = [np.zeros(8, np.uint32)]
+        children: list[list[int]] = [[]]
+        level_nodes = [np.array([0], np.int64)]
+        for _ in range(L):
+            # init: k random members per group (host, group-sorted CSR)
+            order = np.argsort(group, kind="stable")
+            starts = np.searchsorted(group[order], np.arange(n_groups + 1))
+            counts = starts[1:] - starts[:-1]
+            centers = np.zeros((n_groups, k, 8), np.uint32)
+            for g in range(n_groups):
+                c = counts[g]
+                if c == 0:
+                    continue
+                pick = order[starts[g] + rng.choice(c, size=min(k, c),
+                                                    replace=False)]
+                centers[g, : len(pick)] = descs[pick]
+                if c < k:  # duplicates fill the rest (empty children pruned)
+                    centers[g, len(pick):] = descs[pick[0]]
+            group_dev = torch.from_numpy(group).to(dev)
+            child = assign(centers, group_dev)
+            for _ in range(iters):
+                new_centers, cnt = majority(group_dev * k + child,
+                                            n_groups * k)
+                new_centers = new_centers.reshape(n_groups, k, 8)
+                keep = cnt.reshape(n_groups, k) > 0
+                new_centers[~keep] = centers[~keep]  # empties keep theirs
+                centers = new_centers
+                new_child = assign(centers, group_dev)
+                done = torch.equal(new_child, child)
+                child = new_child
+                if done:
+                    break
+            # this level's nodes, empty children pruned
+            gc = group * k + child.cpu().numpy()
+            occupied = np.unique(gc)
+            remap = np.full(n_groups * k, -1, np.int64)
+            base = len(node_desc)
+            remap[occupied] = base + np.arange(len(occupied))
+            for j, gc_id in enumerate(occupied):
+                g, c = divmod(int(gc_id), k)
+                node_desc.append(centers[g, c])
+                children.append([])
+                children[int(level_nodes[-1][g])].append(base + j)
+            group = remap[gc] - base
+            n_groups = len(occupied)
+            level_nodes.append(np.arange(base, base + n_groups,
+                                         dtype=np.int64))
+
+        ch = np.full((len(node_desc), k), -1, np.int32)
+        for i, c in enumerate(children):
+            ch[i, : len(c)] = c[:k]
+        node_word = np.full(len(node_desc), -1, np.int32)
+        leaves = level_nodes[-1]
+        node_word[leaves] = np.arange(len(leaves), dtype=np.int32)
+        voc = Vocabulary(ch, np.stack(node_desc), node_word,
+                         np.ones(len(leaves), np.float32), k, L, dev)
+        # idf: log(n_docs / documents containing the word)
+        words = voc.transform_words(descs)
+        if doc_ids is None:
+            doc_ids = np.arange(N) // 500
+        n_docs = int(doc_ids.max()) + 1
+        pair = np.unique(doc_ids.astype(np.int64) * voc.n_words + words)
+        n_i = np.bincount((pair % voc.n_words).astype(np.int64),
+                          minlength=voc.n_words)
+        voc.word_weight = np.log(
+            n_docs / np.maximum(n_i, 1e-9)).astype(np.float32)
+        voc.word_weight[n_i == 0] = 0.0
         return voc
 
     def save_npz(self, path: str | Path) -> None:

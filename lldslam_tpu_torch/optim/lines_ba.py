@@ -17,8 +17,9 @@ on the two paths of optim/ba.py:
 Line Jacobians are analytic (`residuals.line_jacobians`; the JAX package
 differentiates in forward mode, and the port's tests hold the two
 together). Accept/reject and damping stay on the device and the solves are
-the `_ex` variants, so the LM loops never wait for the host. The JAX package's `refine_lines_fixed_poses` has no
-caller on this path and is not ported.
+the `_ex` variants, so the LM loops never wait for the host.
+`refine_lines_fixed_poses` (line-only Gauss-Newton with the poses held) is a
+standalone utility: neither package calls it.
 """
 from __future__ import annotations
 
@@ -421,6 +422,36 @@ def joint_ba_solve_cg(cam: StereoCamera, problem: JointProblem, iters: int = 10,
         problem = _select(accept, problem, cand)
         lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 5.0), 1e-9, 1e4)
     return (problem, *_final_chi2(cam, problem, gamma))
+
+
+def refine_lines_fixed_poses(cam: StereoCamera, problem: JointProblem,
+                             gamma: float = 0.5, iters: int = 4):
+    """Line refinement with the poses held fixed: per line a damped 4x4
+    Gauss-Newton step over all its (robustly weighted) observations,
+    `iters` times; a step that leaves a line non-finite is dropped.
+    Returns (q, alpha)."""
+    L = problem.q.shape[0]
+    o = problem.lobs
+    q, a = problem.q, problem.alpha
+    dt, dev = q.dtype, q.device
+    damp = 1e-3 * torch.eye(4, dtype=dt, device=dev)
+    for _ in range(iters):
+        pb = problem._replace(q=q, alpha=a)
+        r, _, Jl, W, _ = _line_terms(cam, pb, gamma)
+        JlW = Jl * W[:, :, None]
+        Hll = torch.zeros((L, 4, 4), dtype=dt, device=dev).index_add_(
+            0, o.l, torch.einsum("ori,orj->oij", JlW, Jl)) + damp
+        bl = torch.zeros((L, 4), dtype=dt, device=dev).index_add_(
+            0, o.l, -torch.einsum("ori,or->oi", JlW, r))
+        dl = torch.einsum("lij,lj->li", _inv4x4(Hll), bl)
+        has = torch.zeros(L, dtype=dt, device=dev).index_add_(
+            0, o.l, W.sum(-1)) > 0
+        dl = torch.where((has & problem.line_valid)[:, None], dl, 0.0)
+        pb2 = _apply_line_update(pb, dl)
+        fin = torch.isfinite(pb2.q).all(-1) & torch.isfinite(pb2.alpha)
+        q = torch.where(fin[:, None], pb2.q, q)
+        a = torch.where(fin, pb2.alpha, a)
+    return q, a
 
 
 def classify_line_outliers(problem: JointProblem, chi2_l: torch.Tensor,

@@ -26,10 +26,12 @@ relocalizes through the loop closer's vocabulary and keyframe database
 rounds through K2 at 8192 rows). `localization_only` suppresses keyframes
 and the auto-reset.
 
-Lines run on the stored-line route (`ldType: LBDFloat` with
-`lineDetectionsPath`). Not ported yet (each raises NotImplementedError, see
-ROADMAP queue 1): the native line detector, the pipelined tracker (and with
-it the provisional point identities and the on-device keyframe decision).
+Lines (`ldType: LBDFloat`) come from stored detections where the config
+gives `lineDetectionsPath`, and otherwise from the native detector
+(frontend/line_extract.py) run on both views of the frame on the device.
+Not ported yet (it raises NotImplementedError, see ROADMAP queue 1): the
+pipelined tracker (and with it the provisional point identities and the
+on-device keyframe decision).
 
 A map restored by `System.load_map` goes through `restore_map`: the loop
 closer's keyframe database is rebuilt from the stored keyframes and the
@@ -63,9 +65,10 @@ import numpy as np
 import torch
 
 from ..config import SlamConfig
-from ..frontend import line_match, matching
+from ..frontend import line_extract, line_match, matching
 from ..frontend.frame import (FrameData, build_frame_mono,
                               build_frame_pair, build_frame_rgbd)
+from ..frontend.line_extract import LineDetConfig
 from ..geometry.camera import backproject
 from ..io import trajectory as traj
 from ..io.stored_lines import StoredLineSource, stage_stored_pair
@@ -295,30 +298,37 @@ class StereoTracker:
         self._init_ref = None
         # line pipeline: stored detections (<detections_path>/{left,right},
         # or detections_path and descriptors_path as the two views), the
-        # configured mdThr applying directly on their descriptor scale
+        # configured mdThr applying directly on their descriptor scale; or,
+        # without a detections path, the native detector on both views
         self.enable_lines = cfg.line.enabled
         self.line_view_cap = 512
         self.line_kf_times: dict[str, float] = {}
         self._cur_fl = None
         self._cur_det2ln = None
+        self._line_source = None
         if self.enable_lines:
-            if not (cfg.line.ld_type.lower() == "lbdfloat"
+            self.line_cfg = LineDetConfig(max_lines=self.store.n_ln_det,
+                                          min_len=cfg.line.min_line_len)
+            if (cfg.line.ld_type.lower() == "lbdfloat"
                     and cfg.line.detections_path):
-                raise NotImplementedError(
-                    "the native line detector (no lineDetectionsPath) is not "
-                    "ported to lldslam_tpu_torch yet; see ROADMAP queue 1 "
-                    "item 5")
-            base = Path(cfg.line.detections_path)
-            if (base / "left").is_dir():
-                left, right = base / "left", base / "right"
+                base = Path(cfg.line.detections_path)
+                if (base / "left").is_dir():
+                    left, right = base / "left", base / "right"
+                else:
+                    left = base
+                    right = Path(cfg.line.descriptors_path or base)
+                dim = self.store.ln_desc.shape[1]
+                self._line_source = (
+                    StoredLineSource(left, cap=self.store.n_ln_det,
+                                     desc_dim=dim),
+                    StoredLineSource(right, cap=self.store.n_ln_det,
+                                     desc_dim=dim))
+                self._md_gate = float(cfg.line.md_thr)
             else:
-                left, right = base, Path(cfg.line.descriptors_path or base)
-            dim = self.store.ln_desc.shape[1]
-            self._line_source = (
-                StoredLineSource(left, cap=self.store.n_ln_det, desc_dim=dim),
-                StoredLineSource(right, cap=self.store.n_ln_det,
-                                 desc_dim=dim))
-            self._md_gate = float(cfg.line.md_thr)
+                # native descriptors are L2-normalized: mdThr maps onto their
+                # gate in proportion to its LBDMOD default (2.0)
+                self._md_gate = float(
+                    self.line_cfg.desc_thr * cfg.line.md_thr / 2.0)
             self._refresh_line_view()
         self.kf_cache = KfCache(n_slots=32, n_kp=self.store.n_kp,
                                 device=self.device)
@@ -356,11 +366,15 @@ class StereoTracker:
         t0 = time.perf_counter()
         if img_l.dtype != np.uint8 and img_l.max(initial=0.0) <= 255.0:
             img_l, img_r = img_l.astype(np.uint8), img_r.astype(np.uint8)
-        fd = build_frame_pair(self._t(np.stack([img_l, img_r])), self.cam,
-                              self.orb)
+        pair = self._t(np.stack([img_l, img_r]))
+        fd = build_frame_pair(pair, self.cam, self.orb)
         if self.enable_lines:
-            kl, kr = stage_stored_pair(*self._line_source, self.frame_id,
-                                       device=self.device)
+            if self._line_source is not None:
+                kl, kr = stage_stored_pair(*self._line_source, self.frame_id,
+                                           device=self.device)
+            else:
+                kl = line_extract.detect_lines(pair[0], self.line_cfg)
+                kr = line_extract.detect_lines(pair[1], self.line_cfg)
             self._cur_fl = line_match.match_stereo_lines(
                 self.cam, kl, kr, md_thr=self._md_gate,
                 min_len=self.cfg.line.min_line_len)

@@ -392,7 +392,7 @@ class MapStore:
         raise NotImplementedError(
             "staged line retriangulation belongs to the pipelined line path, "
             "which is not ported to lldslam_tpu_torch yet; see ROADMAP queue "
-            "1 item 5")
+            "1 item 4 (with item 5b)")
 
     def create_points(self, kf_id: int, feat_idx: np.ndarray, positions: np.ndarray) -> np.ndarray:
         """Allocate new map points observed by (kf_id, feat_idx). Returns ids."""

@@ -13,9 +13,9 @@ lines), monocular and RGB-D input, trajectory export and map checkpoints:
 Loop closing and relocalization are on by default, with this package's copy
 of the shipped vocabulary (`loop/vocab_synth.npz`, the same file as the JAX
 package's); when that file is absent a vocabulary is trained from the first
-keyframe. Lines run when the config enables them with stored detections
-(`ldType: LBDFloat` plus `lineDetectionsPath`). `pipeline=True` and the
-native line detector raise NotImplementedError.
+keyframe. Lines run when the config enables them (`ldType: LBDFloat`): from
+stored detections where it gives `lineDetectionsPath`, else from the native
+detector on the device. `pipeline=True` raises NotImplementedError.
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@
 Counterpart of lldslam_tpu/viewer/render.py: pure-numpy rasterization of a
 top-down map view (points, map lines, keyframe centres, trajectory) and of
 keypoints and line segments over an input frame. Each function returns the
-(H, W, 3) uint8 image; PIL is imported only to write a PNG when a `path` is
+(H, W, 3) uint8 image, written as a PNG (io/png.py) when a `path` is
 given.
 """
 from __future__ import annotations
@@ -11,6 +11,8 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
+
+from ..io.png import write_png
 
 BG = np.array([18, 20, 24], np.uint8)
 PT = np.array([170, 175, 180], np.uint8)
@@ -22,8 +24,7 @@ UNTRACKED = np.array([140, 140, 140], np.uint8)
 
 
 def _to_png(img: np.ndarray, path: str | Path):
-    from PIL import Image
-    Image.fromarray(img).save(path)
+    write_png(path, img)
 
 
 def _draw_segment(img, p0, p1, color):

@@ -23,8 +23,10 @@ initializer and the rectifier's remap on the card agree with the CPU. With a
 leading sequence axis (the multi-sequence driver's S frames) each kernel
 launches once for all S and equals both its plain version and S = 1
 launches; a kernel given tensors on a second card launches there while the
-first is current (skipped on a one-card machine); and a loop correction
-with map lines on the card is held to the CPU like the points-only one.
+first is current (skipped on a one-card machine); a loop correction with
+map lines on the card is held to the CPU like the points-only one; and the
+native line detector is bit-identical across calls on the card and agrees
+with the CPU.
 """
 import numpy as np
 import pytest
@@ -560,3 +562,33 @@ def test_initializer_on_card_matches_cpu(dev):
     assert ok_c and ok_g
     assert np.abs(R_c - R_g).max() <= 1e-3
     assert (g_c != g_g).mean() <= 0.01
+
+
+def test_detect_lines_on_card(dev):
+    """The native line detector (frontend/line_extract.py, plain PyTorch
+    ops) on the card: two calls on one view of the line corridor are
+    bit-identical (the vote accumulates without atomics), and the card
+    agrees with the CPU: the same valid lines, endpoints within 1e-3 px and
+    descriptors within 1e-5 + 0.5 x the endpoint difference (px), the
+    bounds of tests/test_torch_line_detect.py; at most one line, fed by a
+    pixel an atan2 ulp moved, may differ, to 0.5 px and 0.02."""
+    from lldslam_tpu_torch.frontend import line_extract as le
+    cam = CameraConfig(fx=450.0, fy=450.0, cx=320.0, cy=120.0, bf=200.0,
+                       width=640, height=240).stereo_camera()
+    img = make_sequence(cam, 1, seed=3, with_lines=True)[0][0]
+    cfg = le.LineDetConfig(max_lines=256)
+    x = torch.from_numpy(img).to(dev)
+    a, b = le.detect_lines(x, cfg), le.detect_lines(x, cfg)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    c = le.detect_lines(x.cpu(), cfg)
+    g = [t.cpu() for t in a]
+    assert int(c.valid.sum()) >= 4
+    ep = torch.maximum((g[0] - c.p1).abs().amax(-1),
+                       (g[1] - c.p2).abs().amax(-1))
+    dd = (g[4] - c.desc).abs().amax(-1)
+    strict = (ep <= 1e-3) & (dd <= 1e-5 + 0.5 * ep) & (g[5] == c.valid)
+    loose = ~strict
+    assert int(loose.sum()) <= 1, (ep[loose], dd[loose])
+    assert (ep[loose] <= 0.5).all()
+    assert (torch.linalg.norm(g[4] - c.desc, dim=-1)[loose] <= 0.02).all()

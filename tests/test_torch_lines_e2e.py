@@ -139,17 +139,13 @@ def test_line_slice_loops_and_mapper(line_runs):
         assert tr.mapper.stage_times.get("line_view_dropped", 0) == 0
 
 
-def test_port_cli_on_mini_kitti(tmp_path):
-    """`python -m lldslam_tpu_torch.cli kitti settings.yaml seq_dir` on the
-    checked-in mini KITTI sequence (PNG files, stored lines, ldType
-    LBDFloat), on the CPU: tests/test_cli_e2e.py's bounds (10 finite KITTI
-    rows, unaligned ATE < 0.5 m, the last frame OK, lines seen); with
-    `--save-map` it writes a map checkpoint holding the run's keyframes."""
-    pytest.importorskip("PIL")
-    out, metrics = tmp_path / "traj.txt", tmp_path / "metrics.jsonl"
-    rc = cli.main(["kitti", str(MINI / "settings.yaml"), str(MINI),
-                   "--out", str(out), "--metrics", str(metrics),
-                   "--device", "cpu"])
+def _cli_run(settings, out, metrics):
+    """The CLI on mini KITTI with `settings`, on the CPU, within
+    tests/test_cli_e2e.py's bounds (10 finite KITTI rows, unaligned ATE
+    < 0.5 m, the last frame OK, line matches on some frame); returns the
+    per-frame metrics."""
+    rc = cli.main(["kitti", str(settings), str(MINI), "--out", str(out),
+                   "--metrics", str(metrics), "--device", "cpu"])
     assert rc == 0
     est, gt = np.loadtxt(out), np.loadtxt(MINI / "gt.txt")
     assert est.shape == gt.shape == (10, 12)
@@ -159,11 +155,31 @@ def test_port_cli_on_mini_kitti(tmp_path):
     T_gt = np.tile(np.eye(4), (10, 1, 1))
     T_gt[:, :3] = gt.reshape(-1, 3, 4)
     ate = ate_rmse(T_est, T_gt, align=False)
-    print(f"mini KITTI through the port's CLI: ATE {ate:.4f} m")
+    print(f"mini KITTI through the port's CLI ({settings}): ATE {ate:.4f} m")
     assert ate < 0.5
     ms = [json.loads(x) for x in metrics.read_text().splitlines()]
     assert len(ms) == 10 and ms[-1]["state"] == "OK"
     assert any(m["n_line_matches"] > 0 for m in ms)
+    return ms
+
+
+def test_port_cli_on_mini_kitti(tmp_path):
+    """`python -m lldslam_tpu_torch.cli kitti settings.yaml seq_dir` on the
+    checked-in mini KITTI sequence (PNG files decoded by the port's native
+    loader, ldType LBDFloat), on the CPU, once on the stored lines of the
+    shipped settings and once on the native detector (the settings without
+    the detection paths), each within tests/test_cli_e2e.py's bounds (10
+    finite KITTI rows, unaligned ATE < 0.5 m, the last frame OK, lines
+    seen); with `--save-map` it writes a map
+    checkpoint holding the run's keyframes."""
+    out, metrics = tmp_path / "traj.txt", tmp_path / "metrics.jsonl"
+    _cli_run(MINI / "settings.yaml", out, metrics)
+    native = tmp_path / "native.yaml"
+    native.write_text("".join(
+        ln for ln in (MINI / "settings.yaml").read_text().splitlines(True)
+        if not ln.startswith(("lineDetectionsPath", "lineDescriptorsPath"))))
+    ms = _cli_run(native, out, metrics)
+    assert sum(m["n_line_matches"] for m in ms) > 0
     assert cli.main(["kitti", str(MINI / "settings.yaml"), str(MINI),
                      "--out", str(out), "--limit", "1", "--device", "cpu",
                      "--save-map", str(tmp_path / "map.npz")]) == 0

@@ -13,6 +13,7 @@ most max(1.5 x JAX ATE, JAX ATE + 0.01 m).
 """
 import importlib.util
 import inspect
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -164,15 +165,16 @@ def _line_obs_error(s) -> float:
                                   "mono", "save_map", "load_map"])
 def test_unported_entries_raise(what, tmp_path):
     """Everything outside the ported slices raises NotImplementedError
-    naming the ROADMAP queue; nothing falls back to another path. `lines`
-    is the native line detector route (ldType LBDFloat without stored
-    detections). `loops` is ported whole: on a map with lines the loop
-    closer's global BA runs the joint point+line problem instead of
-    raising: it moves the map lines and lowers their median endpoint
-    distance to their keyframe observations (pixel noise 0.3) by a
-    quarter or more. `rgbd`, `mono`, `save_map` and `load_map` are ported
-    too and no longer raise: a blank RGB-D or monocular frame leaves the
-    tracker NOT_INITIALIZED, and an empty map saves and loads."""
+    naming the ROADMAP queue; nothing falls back to another path. `loops`
+    is ported whole: on a map with lines the loop closer's global BA runs
+    the joint point+line problem instead of raising: it moves the map lines
+    and lowers their median endpoint distance to their keyframe
+    observations (pixel noise 0.3) by a quarter or more. `lines` (the
+    native line detector route: ldType LBDFloat without stored
+    detections), `rgbd`, `mono`, `save_map` and `load_map` are ported too
+    and no longer raise: the native route builds its System on the
+    detector, and a blank stereo, RGB-D or monocular frame leaves the
+    tracker NOT_INITIALIZED; an empty map saves and loads."""
     cfg = _port_cfg()
     if what == "loops":
         lc = System(cfg, device="cpu").tracker.loop_closer
@@ -189,10 +191,16 @@ def test_unported_entries_raise(what, tmp_path):
         print(f"median line endpoint distance {err0:.3f} -> {err1:.3f} px")
         assert err1 < 0.75 * err0
         return
-    if what in ("rgbd", "mono", "save_map", "load_map"):
-        s = System(cfg, device="cpu")
+    if what in ("lines", "rgbd", "mono", "save_map", "load_map"):
+        s = System(cfg, device="cpu") if what != "lines" else System(
+            SlamConfig(camera=cfg.camera, orb=cfg.orb,
+                       line=LineConfig(ld_type="LBDFloat"),
+                       tracking=cfg.tracking), device="cpu")
         img = np.zeros((240, 640), np.uint8)
-        if what == "rgbd":
+        if what == "lines":
+            assert s.tracker.enable_lines and s.tracker._line_source is None
+            _, m = s.track_stereo(img, img)
+        elif what == "rgbd":
             _, m = s.track_rgbd(img, img.astype(np.float32))
         elif what == "mono":
             _, m = s.track_monocular(img)
@@ -203,13 +211,9 @@ def test_unported_entries_raise(what, tmp_path):
             return
         assert m.state == "NOT_INITIALIZED" and s.map.n_kf == 0
         return
+    assert what == "pipeline"
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        if what == "pipeline":
-            System(cfg, pipeline=True, device="cpu")
-        else:
-            System(SlamConfig(camera=cfg.camera, orb=cfg.orb,
-                              line=LineConfig(ld_type="LBDFloat"),
-                              tracking=cfg.tracking), device="cpu")
+        System(cfg, pipeline=True, device="cpu")
 
 
 def test_system_defaults_to_the_card():
@@ -246,12 +250,14 @@ def test_multi_device_global_ba_has_no_counterpart():
 
 
 def test_port_imports_without_jax():
-    """Every module of lldslam_tpu_torch imports with JAX made unimportable,
-    and none of them pulls in lldslam_tpu."""
+    """Every module of lldslam_tpu_torch imports with JAX and PIL made
+    unimportable, and none of them pulls in lldslam_tpu; no source file of
+    the port imports PIL, not even inside a function."""
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['jaxlib'] = None\n"
+        "sys.modules['PIL'] = None\n"
         "import lldslam_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
@@ -265,3 +271,6 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 25
+    pil = [p.name for p in (ROOT / "lldslam_tpu_torch").rglob("*.py")
+           if re.search(r"^\s*(from|import)\s+PIL\b", p.read_text(), re.M)]
+    assert not pil, pil
