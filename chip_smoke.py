@@ -86,14 +86,38 @@ Phases, each fatal on failure (nonzero exit, no result line):
    prefetcher per frame; then the detector alone on one KITTI view: two
    card calls bit-identical, the card against the CPU, and
    precompute_sequence's files read back to the detector's outputs.
+15. pipelined (after main): the main path's config and world through
+   System(pipeline=True) on the JAX bench's headline schedule (bench.py:
+   267-305: warmup, 6 frames through track_stereo, the other 24 staged by
+   stage_stereo and passed as pair_dev, the last 3 inside one profiler
+   window, then flush), loops on: every frame OK and finalized once, in
+   order; keyframes equal to the port's own pipelined run on the CPU
+   (tools/torch_pipelined_keyframes.py); camera centres within 0.35 m of
+   the synchronous main path; ATE under the JAX package's CPU run of the
+   same schedule + 0.02 m; 0 host syncs in a steady-state dispatch; K1a
+   and K1b on the last frame build and K2g on its last call at the
+   tracking and at the fusion site exact against their plain versions; ms
+   per call against the synchronous frames, the synchronous step's
+   read-back wait, the busy share; then the same schedule again: the same
+   keyframes, centres within 1e-3 m;
+16. pipelined_lines (after lines): the stored-line world on the same
+   schedule with its detections staged by stage_stored_pair: as 15 against
+   the synchronous lines run (centres within 0.25 m), line matches against
+   the JAX package's CPU run of that schedule (no profiler window);
+17. pipelined_multiseq (last): PipelinedMultiSequenceDriver, S = 4 KITTI-size
+   corridors for 20 frames with sequence 1 ending after 12, against each
+   sequence's solo pipelined System: every frame OK, centres within 0.35 m,
+   K1a and K1b once a batched frame, the last frame's batched K1a, K1b and
+   K2g exact against their plain versions, sequence-frames/s.
 The main path's last frame's K1a and K1b inputs are held exactly to the
 plain versions too. Kernel launches are counted per path (counts zeroed just
 before, read just after): main, lines, loop, reloc, mono and rgbd are
 System runs; reloc_site is the two direct calls of the relocalization call
 site; loop_lines the two corrections; multiseq and multiseq_13 the driver
 runs; mini_kitti the two mini KITTI CLI runs; native_lines the KITTI-size
-CLI run on the native detector. The second-to-last line is the kernel table
-as JSON, the last line the device summary as JSON.
+CLI run on the native detector; pipelined and pipelined_lines the staged
+frames and the flush; pipelined_multiseq the driver run. The second-to-last
+line is the kernel table as JSON, the last line the device summary as JSON.
 """
 from __future__ import annotations
 
@@ -152,6 +176,32 @@ MULTISEQ_BOUND_M = 0.05     # tests/test_multi_seq.py:117
 PROFILE_FRAMES = 5
 SWEEP_SEEDS = tuple(range(10, 23))   # bench.py:376-381, 13 sequences
 SWEEP_FRAMES = 10
+# the pipelined phases (the JAX bench's headline schedule, bench.py:267-305:
+# warm frames through track_stereo, then frames staged by stage_stereo and
+# passed as pair_dev, then flush). The JAX package's CPU runs of the same
+# schedule, loops on, on the main path's world (tools/
+# jax_cpu_pipelined_reference.py main, two runs; its staged absorbs follow
+# the host's timing): every frame OK, keyframes at 0, 3, 7, 10, 14, 17, 20,
+# 23, 26, 29 / 0, 3, 7, 10, 13, 16, 19, 22, 25, 28 (its synchronous run: 0,
+# 3, 6, 10, 15, 20, 24, 29), ATE 0.012774 / 0.016029 m, centres within
+# 0.0522 / 0.0530 m of its synchronous run; the bound takes the first
+PIPE_WARM = 6
+PIPE_PROFILE = 3                  # the last staged frames, profiled
+PIPE_ATE_BOUND_M = 0.012774 + 0.02
+PIPE_CENTRE_BOUND_M = 0.35        # tests/test_pipelined.py
+PIPE_LINES_CENTRE_BOUND_M = 0.25  # tests/test_lines_e2e.py
+PIPE_MULTISEQ_END = 12            # sequence 1 ends after this many frames
+# the stored-line world (tools/jax_cpu_pipelined_reference.py lines, two
+# runs; its staged absorbs follow the host's timing): every frame OK,
+# keyframes at 0, 3, 7, 10, 13, 16, 19, 22, 25, 28, line matches per frame
+# median 206 / 208 (frames 1-29), 409 valid map lines, ATE 0.008241 /
+# 0.008070 m
+PIPE_LINES_ATE_BOUND_M = 0.008241 + 0.02
+# the port's own pipelined runs of the two worlds on the CPU, on the same
+# schedule (tools/torch_pipelined_keyframes.py cpu)
+PIPE_KF_CPU = (0, 3, 7, 10, 16, 19, 22, 25, 28)
+PIPE_LINES_KF_CPU = (0, 3, 7, 10, 16, 19, 22, 25, 28)
+PIPE_LINE_MATCH_RANGE = (175, 237)      # 206 +- 15%
 
 
 def log(msg: str) -> None:
@@ -508,14 +558,15 @@ def need_launches(counts: dict, label: str, sites=()) -> None:
 
 def keep_inputs(mod, name: str, sites=None, last_only: bool = False):
     """Wraps the kernel wrapper mod.<name> so that a copy of the arguments
-    of its calls (those at one of `sites`, where given; the last one only,
-    where `last_only`) is kept as (site, args); returns (kept, restore)."""
+    of its calls (those at one of `sites`, where given; the last one at
+    each site only, where `last_only`) is kept as (site, args); returns
+    (kept, restore)."""
     kernel, kept = getattr(mod, name), []
 
     def wrapper(*args, **kw):
         if sites is None or kw.get("site") in sites:
-            if last_only:
-                kept.clear()
+            if last_only:   # the last call at each site
+                kept[:] = [k for k in kept if k[0] != kw.get("site")]
             kept.append((kw.get("site"), tuple(
                 a.clone() if torch.is_tensor(a) else a for a in args)))
         return kernel(*args, **kw)
@@ -600,12 +651,17 @@ def phase_main_path(dev, frames, poses) -> dict:
                                     sites=("tracking", "fusion"))
     kept_a, restore_a = keep_inputs(orb_describe, "describe", last_only=True)
     kept_b, restore_b = keep_inputs(stereo_sad, "sad_refine", last_only=True)
+    # the tracking step's read-back: the host's wait for the device and
+    # the one copy, what the pipelined schedule takes off the frame
+    from lldslam_tpu_torch.pipeline import tracker as tmod
+    rb_ms = []
+    restore_rb = timed_calls(tmod, "_read_back", rb_ms)
     try:
         reset_counts()
         ms, metrics = track(sys_, frames, label="main path")
         counts = read_counts()
     finally:
-        restore_g(), restore_a(), restore_b()
+        restore_g(), restore_a(), restore_b(), restore_rb()
     frame_k = frame_kernels("main path", kept_a, kept_b)
     gates = gate_density(kept_g)
     for site, o in gates.items():
@@ -631,6 +687,9 @@ def phase_main_path(dev, frames, poses) -> dict:
         f"{ms[0]:.1f}); {1e3 * len(steady) / sum(steady):.2f} frames/s; "
         f"ms per keyframe step (mapper + BA + loop) "
         f"{statistics.median(kf_ms) if kf_ms else float('nan'):.1f}")
+    log(f"main path: the tracking step's read-back (host wait and copy) ms "
+        f"median {statistics.median(rb_ms):.2f} p90 "
+        f"{float(np.percentile(rb_ms, 90)):.2f} over {len(rb_ms)} calls")
     log(f"main path: loop step ms per keyframe median "
         f"{statistics.median(loop_ms):.2f} (all {[round(x, 2) for x in loop_ms]}); "
         f"loop closer totals (s) bow {lc.stage_times.get('bow', 0):.4f} "
@@ -653,7 +712,8 @@ def phase_main_path(dev, frames, poses) -> dict:
     need_launches(counts, "main path", ("tracking", "fusion"))
     if not ate <= ATE_BOUND_M:
         raise AssertionError(f"ATE {ate} m above {ATE_BOUND_M} m")
-    return dict(counts, frame_kernels=frame_k, k2g_gated_pairs=gates)
+    return dict(counts, frame_kernels=frame_k, k2g_gated_pairs=gates,
+                kf_frames=kf_frames, T_wc=T_wc, ms=ms, read_back_ms=rb_ms)
 
 
 def timed_calls(mod, name: str, times: list, keep: list | None = None):
@@ -846,7 +906,8 @@ def run_lines(dev, cfg, frames, poses, world, label: str) -> dict:
     src = tr._line_source
     s = tr.store
     out = dict(
-        counts=counts, states=states, kf_frames=kf_frames,
+        counts=counts, states=states, kf_frames=kf_frames, T_wc=T_wc,
+        detections=(f"{tmp}/left", f"{tmp}/right"),
         ate=ate_rmse(T_wc, gt), ms=ms, step_ms=step_ms, stereo_ms=stereo_ms,
         jba_ms=jba_ms, line_matches=lm, n_lines=int(s.ln_valid.sum()),
         n_lines_created=int(s.n_ln),
@@ -1994,32 +2055,415 @@ def phase_multiseq(dev) -> dict:
         f"sequence-frames/s; launches {counts13}")
     out["sweep"] = dict(counts=counts13, ms=ms13, seq_fps=fps13,
                         first_frame_ms=rows13[0]["ms"])
+    out["seqs"] = seqs
     return out
+
+
+def _hold_kernels(label, kept_a, kept_b, kept_g) -> dict:
+    """K1a and K1b on the kept inputs of a pipelined run's last frame
+    build, K2g on its last call at the tracking site (the chained step) and
+    at the fusion site (the staged keyframe stage): each exact against its
+    plain version."""
+    from lldslam_tpu_torch.ops import match_best2 as mb
+    from lldslam_tpu_torch.ops import orb_describe, stereo_sad
+    sites = sorted(site for site, _ in kept_g)
+    if sites != ["fusion", "tracking"]:
+        raise AssertionError(f"{label}: K2g kept at the sites {sites}")
+    out = {}
+    for key, fn, plain, kept in (
+            ("k1a", orb_describe.describe, orb_describe.describe_plain,
+             kept_a),
+            ("k1b", stereo_sad.sad_refine, stereo_sad.sad_refine_plain,
+             kept_b),
+            ("k2g", mb.gated_best2, mb.gated_best2_plain, kept_g)):
+        for site, args in kept:
+            name = key if site is None else f"{key} at the {site} site"
+            out[name] = _exact(f"{label}, last {name}", fn(*args),
+                               plain(*args))
+    log(f"{label}: K1a, K1b (the last frame build) and K2g (its last call "
+        f"at the tracking and at the fusion site) exact against their plain "
+        f"versions")
+    return out
+
+
+def run_pipelined(dev, cfg, frames, label: str, lines: bool = False,
+                  measure: bool = True, profile: bool = True) -> dict:
+    """The JAX bench's headline schedule through System(cfg,
+    pipeline=True): warmup, PIPE_WARM frames through track_stereo, the
+    rest staged by stage_stereo (with lines, their stored detections by
+    stage_stored_pair) and passed as pair_dev, then flush. Kernel launches
+    counted over the staged frames and the flush, per-call host ms (no
+    per-frame synchronisation: a call dispatches its frame and finalizes
+    older ones); with `measure` and `profile` the last PIPE_PROFILE staged
+    frames inside one profiler window; with `measure` the host syncs of one
+    steady-state dispatch, and K1a, K1b and K2g (at both its sites) held
+    to their plain versions on their last calls' inputs."""
+    from lldslam_tpu_torch.io.stored_lines import stage_stored_pair
+    from lldslam_tpu_torch.ops import match_best2, orb_describe, stereo_sad
+    from lldslam_tpu_torch.pipeline import tracker as tmod
+    from lldslam_tpu_torch.system import System
+
+    sys_ = System(cfg, pipeline=True, device=dev)
+    sys_.warmup()
+    tr = sys_.tracker
+    warm_ms = []
+    for i in range(PIPE_WARM):
+        t = time.perf_counter()
+        _, m = sys_.track_stereo(*frames[i], timestamp=0.1 * i)
+        torch.cuda.synchronize()
+        warm_ms.append(1e3 * (time.perf_counter() - t))
+        log(f"{label} warm frame {i}: finalized "
+            f"{'none' if m is None else f'{m.frame_id} {m.state}'}, "
+            f"{warm_ms[-1]:.1f} ms")
+    staged_lines = [None] * len(frames)
+    if lines:
+        src = tr._line_source
+        staged_lines = [stage_stored_pair(src[0], src[1], i, device=dev)
+                        for i in range(len(frames))]
+    staged = [(i, sys_.stage_stereo(*frames[i]), staged_lines[i])
+              for i in range(PIPE_WARM, len(frames))]
+    torch.cuda.synchronize()
+    profile = measure and profile
+    n_meas = len(staged) - (PIPE_PROFILE if profile else 0)
+    step_name = "_track_step_chained_lines" if lines \
+        else "_track_step_chained"
+    restore = []
+    if measure:
+        kept_step, r = keep_inputs(tmod, step_name, last_only=True)
+        restore.append(r)
+        kept_a, r = keep_inputs(orb_describe, "describe", last_only=True)
+        restore.append(r)
+        kept_b, r = keep_inputs(stereo_sad, "sad_refine", last_only=True)
+        restore.append(r)
+        kept_g, r = keep_inputs(match_best2, "gated_best2",
+                                sites=("tracking", "fusion"), last_only=True)
+        restore.append(r)
+    results, ms = [], []
+    feed = iter(staged)
+
+    def one():
+        i, h, lv = next(feed)
+        results.append(sys_.track_stereo(None, None, timestamp=0.1 * i,
+                                         pair_dev=h, lines_dev=lv))
+
+    prof = None
+    try:
+        reset_counts()
+        for _ in range(n_meas):
+            t = time.perf_counter()
+            one()
+            ms.append(1e3 * (time.perf_counter() - t))
+        if profile:
+            prof = profile_window(one, PIPE_PROFILE)
+        t = time.perf_counter()
+        sys_.flush()
+        torch.cuda.synchronize()
+        flush_ms = 1e3 * (time.perf_counter() - t)
+        counts = read_counts()
+    finally:
+        for r in restore:
+            r()
+    metrics = tr.metrics
+    _, T_wc = tr.trajectory()
+    out = dict(
+        counts=counts, tracker=tr, T_wc=T_wc, metrics=metrics,
+        states=[m.state for m in metrics],
+        kf_frames=[m.frame_id for m in metrics if m.new_kf],
+        ms=ms, warm_ms=warm_ms, flush_ms=flush_ms, profile=prof,
+        finalized_in_calls=[m.frame_id for _, m in results if m is not None],
+        t_get_ms=[1e3 * m.t_get for m in metrics if m.t_get > 0],
+        t_dispatch_ms=[1e3 * m.t_dispatch for m in metrics[PIPE_WARM:]])
+    log(f"{label}: staged frames {PIPE_WARM}-{len(frames) - 1}: per call "
+        f"ms median {statistics.median(ms):.1f} p90 "
+        f"{float(np.percentile(ms, 90)):.1f} mean "
+        f"{statistics.mean(ms):.1f} over {n_meas} unprofiled calls; flush "
+        f"{flush_ms:.1f} ms; the chained step's dispatch ms median "
+        f"{statistics.median(out['t_dispatch_ms']):.2f}; host wait on the "
+        f"window copies ms {[round(x, 2) for x in out['t_get_ms']]}; "
+        f"keyframes at {out['kf_frames']}; launches {counts}")
+    if measure:
+        args = kept_step[-1][1]
+        out["dispatch_syncs"] = host_syncs(
+            lambda: getattr(tmod, step_name)(*args))
+        out["kernels_exact"] = _hold_kernels(label, kept_a, kept_b, kept_g)
+        log(f"{label}: host syncs in one steady-state dispatch: "
+            f"{out['dispatch_syncs']}" + (
+                f"; profiler window of {PIPE_PROFILE} staged frames: "
+                f"{_window(prof)}" if profile else ""))
+    return out
+
+
+def _parity(label, out, ref_kf, ref_T, bound_m, cpu_kf) -> list:
+    """Checks of a pipelined run against its synchronous reference and the
+    keyframes of the port's own pipelined run of it on the CPU."""
+    dc = np.linalg.norm(out["T_wc"][:, :3, 3] - ref_T[:, :3, 3], axis=-1)
+    out["max_centre_diff"] = float(dc.max())
+    log(f"{label}: keyframes {out['kf_frames']} against the synchronous "
+        f"run's {ref_kf}; camera centres within {dc.max():.5f} m of it")
+    fids = [m.frame_id for m in out["metrics"]]
+    kf = out["kf_frames"]
+    return [
+        (all(x == "OK" for x in out["states"]), f"states {out['states']}"),
+        (fids == list(range(len(ref_T))), f"finalized frames {fids}"),
+        # the device decision lags the host's reference count, so the
+        # keyframes move off the synchronous run's (the JAX package's own
+        # pipelined CPU run makes 10 keyframes to its synchronous 8 on the
+        # main world); the schedule reads no clock, so the card's keyframes
+        # are the CPU's
+        (kf == list(cpu_kf), f"keyframes {kf}, the CPU's {list(cpu_kf)}"),
+        (dc.max() < bound_m, f"centres {dc.max()} m from the synchronous "
+                             f"run"),
+        (out["dispatch_syncs"] == 0,
+         f"{out['dispatch_syncs']} host syncs in a dispatch"),
+        (len(out["finalized_in_calls"]) >= 1,
+         "no frame finalized before the flush"),
+    ]
+
+
+def phase_pipelined(dev, frames, poses, main) -> dict:
+    """The main path's config and world through the pipelined System (the
+    JAX bench's headline), loops on, against the synchronous main path."""
+    from lldslam_tpu_torch.io.trajectory import ate_rmse
+    out = run_pipelined(dev, kitti_config(), frames, "pipelined")
+    # the same schedule again: on the card the device runs behind the host
+    # by a varying amount, and nothing in the schedule may depend on it
+    again = run_pipelined(dev, kitti_config(), frames, "pipelined again",
+                          measure=False)
+    d2 = float(np.linalg.norm(again["T_wc"][:, :3, 3]
+                              - out["T_wc"][:, :3, 3], axis=-1).max())
+    out.update(again_kf_frames=again["kf_frames"], again_centre_diff=d2,
+               again_ms=again["ms"])
+    log(f"pipelined: a second run: keyframes {again['kf_frames']}, camera "
+        f"centres within {d2:.2e} m of the first (local BA sums with atomic "
+        f"adds on the card)")
+    gt = np.stack([np.linalg.inv(p) for p in poses])
+    out["ate"] = ate_rmse(out["T_wc"], gt)
+    sync_ms = main["ms"][PIPE_WARM:]
+    out["sync_ms"] = sync_ms
+    lc = out["tracker"].loop_closer
+    log(f"pipelined: ATE {out['ate']:.5f} m (bound {PIPE_ATE_BOUND_M:.5f}); "
+        f"synchronous main path ms/frame over the same frames median "
+        f"{statistics.median(sync_ms):.1f} p90 "
+        f"{float(np.percentile(sync_ms, 90)):.1f}; synchronous median less "
+        f"pipelined median {statistics.median(sync_ms) - statistics.median(out['ms']):.1f} "
+        f"ms (its read-back {statistics.median(main['read_back_ms'][PIPE_WARM:]):.2f} "
+        f"ms median); loop closer keyframes "
+        f"{lc.stage_times.get('n', 0)} (staged words "
+        f"{lc.stage_times.get('n_words_staged', 0)}), events {len(lc.events)}")
+    checks = _parity("pipelined", out, main["kf_frames"], main["T_wc"],
+                     PIPE_CENTRE_BOUND_M, PIPE_KF_CPU)
+    s = out["tracker"].store
+    checks += [
+        (out["ate"] <= PIPE_ATE_BOUND_M, f"ATE {out['ate']} m"),
+        (again["kf_frames"] == out["kf_frames"] and d2 < 1e-3,
+         f"second run: keyframes {again['kf_frames']}, centres {d2} m"),
+        (lc.stage_times.get("n", 0) == s.n_kf,
+         f"{lc.stage_times.get('n', 0)} keyframes through the loop closer, "
+         f"{s.n_kf} exist"),
+        (not lc.events, f"loop event on a corridor: {lc.events}")]
+    bad = [msg for ok, msg in checks if not ok]
+    if bad:
+        raise AssertionError("pipelined: " + "; ".join(bad))
+    need_launches(out["counts"], "pipelined", ("tracking", "fusion"))
+    return out
+
+
+def phase_pipelined_lines(dev, frames, poses, sync_lines) -> dict:
+    """The stored-line world through the pipelined System (the JAX bench's
+    lines section), loops on, against the synchronous lines run."""
+    import dataclasses
+    from lldslam_tpu_torch.config import LineConfig
+    from lldslam_tpu_torch.io.trajectory import ate_rmse
+    left, right = sync_lines["detections"]
+    cfg = dataclasses.replace(kitti_config(), line=LineConfig(
+        ld_type="LBDFloat", md_thr=0.6, detections_path=left,
+        descriptors_path=right))
+    # no profiler window here: the main world's is the phase's busy share,
+    # and a lines frame's 32,000 device records cost the script ~30 s
+    out = run_pipelined(dev, cfg, frames, "pipelined_lines", lines=True,
+                        profile=False)
+    gt = np.stack([np.linalg.inv(p) for p in poses])
+    out["ate"] = ate_rmse(out["T_wc"], gt)
+    lm = [m.n_line_matches for m in out["metrics"]]
+    s = out["tracker"].store
+    out.update(line_matches=lm, n_lines=int(s.ln_valid.sum()))
+    log(f"pipelined_lines: ATE {out['ate']:.5f} m (synchronous "
+        f"{sync_lines['ate']:.5f}); line matches per frame {lm}; valid map "
+        f"lines {out['n_lines']} (synchronous {sync_lines['n_lines']}); "
+        f"staged line solves left {len(s._pending_retri)}")
+    checks = _parity("pipelined_lines", out, sync_lines["kf_frames"],
+                     sync_lines["T_wc"], PIPE_LINES_CENTRE_BOUND_M,
+                     PIPE_LINES_KF_CPU)
+    checks += [
+        (out["ate"] <= PIPE_LINES_ATE_BOUND_M, f"ATE {out['ate']} m"),
+        (PIPE_LINE_MATCH_RANGE[0] <= statistics.median(lm[1:])
+         <= PIPE_LINE_MATCH_RANGE[1],
+         f"line matches median {statistics.median(lm[1:])}"),
+        (out["n_lines"] > 0 and not s._pending_retri,
+         f"map lines {out['n_lines']}, unwritten solves "
+         f"{len(s._pending_retri)}")]
+    bad = [msg for ok, msg in checks if not ok]
+    if bad:
+        raise AssertionError("pipelined_lines: " + "; ".join(bad))
+    need_launches(out["counts"], "pipelined_lines", ("tracking", "fusion"))
+    return out
+
+
+def phase_pipelined_multiseq(dev, seqs) -> dict:
+    """The multiseq phase's S = 4 KITTI-size corridors (`seqs`, their first
+    MULTISEQ_FRAMES frames) through PipelinedMultiSequenceDriver (loops
+    off, view capacity 4096) against each sequence's own pipelined System,
+    sequence 1 ending after PIPE_MULTISEQ_END frames. The last frame's
+    batched K1a, K1b and K2g (tracking site) calls are held to their plain
+    versions."""
+    from lldslam_tpu_torch.ops import match_best2, orb_describe, stereo_sad
+    from lldslam_tpu_torch.parallel.multi_seq import \
+        PipelinedMultiSequenceDriver
+    from lldslam_tpu_torch.system import System
+
+    cfg = kitti_config()
+    n_seq, n = len(MULTISEQ_SEEDS), MULTISEQ_FRAMES
+    ends = [PIPE_MULTISEQ_END if s == 1 else n for s in range(n_seq)]
+    solo, solo_ms = [], []
+    for s, frames in enumerate(seqs):
+        sys_ = System(cfg, enable_loops=False, pipeline=True, device=dev)
+        sys_.tracker.mapper.fixed_tv_cap = MULTISEQ_VIEW_CAP
+        t = time.perf_counter()
+        for i in range(ends[s]):
+            sys_.track_stereo(*frames[i], timestamp=0.1 * i)
+        sys_.flush()
+        torch.cuda.synchronize()
+        solo_ms.append(1e3 * (time.perf_counter() - t) / ends[s])
+        solo.append(sys_.tracker)
+    drv = PipelinedMultiSequenceDriver(cfg, n_seq, enable_loops=False,
+                                       view_cap=MULTISEQ_VIEW_CAP, device=dev)
+    rows, armed = [], [False]
+    kept = dict(
+        k1a=keep_batched(orb_describe, "describe", 4, armed),
+        k1b=keep_batched(stereo_sad, "sad_refine", 4, armed),
+        k2g=keep_batched(match_best2, "gated_best2", 3, armed,
+                         site="tracking"))
+    reset_counts()
+    t_all = time.perf_counter()
+    for i in range(n):
+        c0 = read_counts()
+        armed[0] = i == n - 1
+        t = time.perf_counter()
+        drv.process([seqs[s][i] if i < ends[s] else None
+                     for s in range(n_seq)], [0.1 * i] * n_seq)
+        armed[0] = False
+        c1 = read_counts()
+        rows.append(dict(frame=i, ms=1e3 * (time.perf_counter() - t),
+                         members=len(drv._members),
+                         k1a=c1["k1a"] - c0["k1a"], k1b=c1["k1b"] - c0["k1b"],
+                         k2g_tracking=c1["k2g_sites"].get("tracking", 0)
+                         - c0["k2g_sites"].get("tracking", 0)))
+        r = rows[-1]
+        log(f"pipelined_multiseq frame {i:2d}: {r['members']} batched, "
+            f"launches K1a {r['k1a']} K1b {r['k1b']} K2g tracking "
+            f"{r['k2g_tracking']}, {r['ms']:.1f} ms")
+    drv.flush()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t_all)
+    counts = read_counts()
+    for _, restore in kept.values():
+        restore()
+    exact = {}
+    for key, fn, plain in (
+            ("k1a", orb_describe.describe, orb_describe.describe_plain),
+            ("k1b", stereo_sad.sad_refine, stereo_sad.sad_refine_plain),
+            ("k2g", match_best2.gated_best2, match_best2.gated_best2_plain)):
+        (args,) = kept[key][0]
+        if args[0].shape[0] < 2:
+            raise AssertionError(f"pipelined_multiseq: the last frame's {key} "
+                                 f"call has S = {args[0].shape[0]}")
+        exact[key] = _exact(f"pipelined_multiseq, last batched {key}",
+                            fn(*args), plain(*args))
+    log(f"pipelined_multiseq: the last frame's batched K1a, K1b and K2g "
+        f"(tracking site, S = {kept['k2g'][0][0][0].shape[0]}) exact against "
+        f"their plain versions")
+    live = sum(ends)
+    parity, bad = [], []
+    for s, tr in enumerate(drv.trackers):
+        _, T = tr.trajectory()
+        _, T_solo = solo[s].trajectory()
+        dc = np.linalg.norm(T[:, :3, 3] - T_solo[:, :3, 3], axis=-1)
+        states = [m.state for m in tr.metrics]
+        parity.append(dict(max_centre_diff=float(dc.max()),
+                           kf=tr.store.n_kf, kf_solo=solo[s].store.n_kf))
+        log(f"pipelined_multiseq: sequence {s} (seed {MULTISEQ_SEEDS[s]}, "
+            f"{ends[s]} frames): centres within {dc.max():.5f} m of its solo "
+            f"pipelined run; keyframes {tr.store.n_kf} batched, "
+            f"{solo[s].store.n_kf} solo")
+        if (len(T) != ends[s] or states != ["OK"] * ends[s]
+                or dc.max() >= PIPE_CENTRE_BOUND_M):
+            bad.append((s, len(T), states, float(dc.max())))
+    full = [r for r in rows if r["members"] >= 2]
+    if bad or len(full) < n - 4 or any(
+            r["k1a"] != 1 or r["k1b"] != 1 or r["k2g_tracking"] < 1
+            for r in full) or drv.n_rebuilds < 2:
+        raise AssertionError(f"pipelined_multiseq: {bad}; rows {rows}; "
+                             f"rebuilds {drv.n_rebuilds}")
+    ms_b = [r["ms"] for r in full]
+    out = dict(counts=counts, parity=parity, rows=rows, wall_ms=wall_ms,
+               kernels_exact=exact,
+               seq_fps=1e3 * live / wall_ms,
+               solo_fps=1e3 / statistics.mean(solo_ms), solo_ms=solo_ms)
+    log(f"pipelined_multiseq: S={n_seq}: per call ms median "
+        f"{statistics.median(ms_b):.1f} p90 "
+        f"{float(np.percentile(ms_b, 90)):.1f} over {len(full)} batched "
+        f"calls; {out['seq_fps']:.2f} sequence-frames/s incl. the flush "
+        f"against {out['solo_fps']:.2f} frames/s solo pipelined; rebuilds "
+        f"{drv.n_rebuilds}; launches {counts}")
+    return out
+
+
+_T0 = time.perf_counter()
+
+
+def phase_done(label: str, value=None):
+    """Logs the seconds since the script started after a phase; returns
+    the phase's value."""
+    log(f"phase {label} done at {time.perf_counter() - _T0:.1f} s")
+    return value
 
 
 def main() -> int:
     name = phase_device()
     dev = torch.device("cuda", 0)
-    phase_build()
-    k1a, k1b = phase_k1(dev)
-    k2g = phase_k2g(dev)
+    phase_done("build", phase_build())
+    k1a, k1b = phase_done("k1", phase_k1(dev))
+    k2g = phase_done("k2g", phase_k2g(dev))
     frames, poses = main_sequence()
-    paths = dict(main=phase_main_path(dev, frames, poses))
+    main_out = phase_done("main", phase_main_path(dev, frames, poses))
+    paths = dict(main=main_out)
+    paths["pipelined"] = phase_done("pipelined", phase_pipelined(
+        dev, frames, poses, main_out))["counts"]
     lines_world = lines_sequence()
-    paths["lines"] = phase_lines(dev, *lines_world)["counts"]
-    native = phase_native_lines(dev, *lines_world[:2])
+    sync_lines = phase_done("lines", phase_lines(dev, *lines_world))
+    paths["lines"] = sync_lines["counts"]
+    paths["pipelined_lines"] = phase_done(
+        "pipelined_lines", phase_pipelined_lines(dev, *lines_world[:2],
+                                                 sync_lines))["counts"]
+    native = phase_done("native_lines",
+                        phase_native_lines(dev, *lines_world[:2]))
     paths["mini_kitti"] = native["mini_counts"]
     paths["native_lines"] = native["counts"]
-    paths["loop"] = phase_loop(dev)
-    paths["reloc"], paths["reloc_site"] = phase_reloc(dev)
-    mono = phase_mono(dev, frames, poses)
+    paths["loop"] = phase_done("loop", phase_loop(dev))
+    paths["reloc"], paths["reloc_site"] = phase_done("reloc",
+                                                     phase_reloc(dev))
+    mono = phase_done("mono", phase_mono(dev, frames, poses))
     paths["mono"] = mono["counts"]
-    paths["rgbd"] = phase_rgbd(dev)["counts"]
-    phase_rectify(dev)
-    paths["loop_lines"] = phase_loop_lines(dev)["counts"]
-    multi = phase_multiseq(dev)
+    paths["rgbd"] = phase_done("rgbd", phase_rgbd(dev))["counts"]
+    phase_done("rectify", phase_rectify(dev))
+    paths["loop_lines"] = phase_done("loop_lines",
+                                     phase_loop_lines(dev))["counts"]
+    multi = phase_done("multiseq", phase_multiseq(dev))
     paths["multiseq"] = multi["counts"]
     paths["multiseq_13"] = multi["sweep"]["counts"]
+    paths["pipelined_multiseq"] = phase_done(
+        "pipelined_multiseq",
+        phase_pipelined_multiseq(dev, multi["seqs"]))["counts"]
     by_path = lambda k: {p: c[k] for p, c in paths.items()}
     batched = lambda k: dict(
         multi["kernels"][k], launches=paths["multiseq"][k],

@@ -344,6 +344,14 @@ class Vocabulary:
             words = np.where(valid, words, -1)
         return words
 
+    def device_words(self, descs: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+        """`transform_words` left on the device (no read-back): (N,) int32
+        word ids, -1 where `valid` is False."""
+        words = _descend(self._children, self._desc, self._word,
+                         _desc_tensor(descs, self.device), self.L)
+        return torch.where(valid.to(self.device), words, -1).to(torch.int32)
+
     def bow_vector(self, descs, valid=None):
         """(word_ids sorted unique, l1-normalized tf-idf values)."""
         return self.vector_from_words(self.transform_words(descs, valid))

@@ -19,6 +19,11 @@ step the tracker calls after local mapping:
    joint point+line problem (`lines_ba.joint_ba_solve_cg`) when the map
    holds lines with >= 4 (stereo-weighted) observations.
 
+The pipelined tracker runs the step in two halves: the keyframe's word ids
+computed on the device (`dispatch_bow`, or the mapper's keyframe stage) and,
+once they are read back, `finish_keyframe` (detection, verification,
+correction), which gives what `process_keyframe` gives.
+
 Scale stays fixed (stereo). Host numpy bookkeeping is ported line for line;
 the solvers run on the loop closer's device (the card by default). The
 RANSAC draw uses a `torch.Generator` seeded 0 on that device. Global BA
@@ -116,6 +121,23 @@ class LoopCloser:
             angle=self._t(s.kf_angle[kf]),
             desc=self._t(s.kf_desc[kf].view(np.int32)),
             valid=self._t(s.kf_kp_valid[kf]))
+
+    def dispatch_bow(self, desc: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+        """The staged first half of `process_keyframe`: the keyframe's word
+        ids from its device descriptors, left on the device (int32, -1
+        where not valid). Absorb with `finish_keyframe`."""
+        return self.voc.device_words(desc, valid)
+
+    def finish_keyframe(self, kf_id: int, words: np.ndarray) -> bool:
+        """The staged second half of `process_keyframe`, from word ids read
+        back from `dispatch_bow` (or from the mapper's keyframe stage):
+        detection, and Sim(3) verification and correction when a loop
+        fires. Returns True when the map was corrected."""
+        self.stage_times["n_words_staged"] = self.stage_times.get(
+            "n_words_staged", 0) + 1
+        return self._finish(kf_id, *self.voc.vector_from_words(
+            np.asarray(words)))
 
     def process_keyframe(self, kf_id: int) -> bool:
         """Run the loop pipeline for a new keyframe. Returns True when a loop

@@ -1,7 +1,7 @@
 """Deterministic local mapping: the keyframe-rate map update + local BA.
 
-Counterpart of lldslam_tpu/pipeline/local_mapping.py, synchronous path.
-`process_keyframe` runs, in the reference LocalMapping order:
+Counterpart of lldslam_tpu/pipeline/local_mapping.py. `process_keyframe`
+(the synchronous tracker) runs, in the reference LocalMapping order:
 
     recent-point culling -> epipolar triangulation + duplicate fusion
     (one device stage, `mapper_fast.kf_stage_cached`) -> host writeback
@@ -13,12 +13,28 @@ Counterpart of lldslam_tpu/pipeline/local_mapping.py, synchronous path.
     observations too) -> keyframe culling (a culled keyframe's line
     observations go with its point observations).
 
-The JAX package's dispatch/absorb pairs, IO thread pools, packed buffers and
-adaptive BA cadence serve its pipelined tracker over a slow host link; here
-the stages are direct calls on tensors. As there, fusion projects the
-keyframe's pre-triangulation points, and the BA window is padded to fixed
-capacities (k_local + k_fixed keyframes, a point bucket, an observation
-bucket) so every keyframe's BA has one of a few shapes.
+The pipelined tracker uses the staged API instead, one step per finalized
+frame: `dispatch_kf_stage(kf, voc, fuse_ba=True)` queues the keyframe's
+triangulation + fusion, its BoW words (the loop closer's vocabulary
+descended on the cached device descriptors) and its windowed BA built from
+the store as it is at keyframe creation (this keyframe's triangulations
+join the next window), with the results' host copy behind one event
+(ops/transfer.HostCopy); `step_pending` absorbs a stage at the first
+finalized frame after its dispatch (writeback, `absorbed_words`), a
+standalone `dispatch_ba` at the second; `flush` absorbs everything. The
+post-BA view is `pending_view` (the JAX package's `pending_view_fut`, here
+a plain attribute: its tensors are ordered after the BA on the device).
+A BA is skipped while another is in flight, and, with
+`adaptive_ba_cadence` (pipelined mode), unless 6 frames separate it from
+the last one once the map has more than 4 keyframes. The JAX package
+absorbs a stage when its fetch has landed; here the absorb points are
+fixed, so the schedule does not depend on timing. Its IO thread pools and
+flat int32 buffers have no counterpart: the stages take and return tensors.
+
+As in the JAX package, fusion projects the keyframe's pre-triangulation
+points, and the BA window is padded to fixed capacities (k_local + k_fixed
+keyframes, a point bucket, an observation bucket) so every keyframe's BA
+has one of a few shapes.
 """
 from __future__ import annotations
 
@@ -30,6 +46,7 @@ import torch
 
 from ..config import SlamConfig
 from ..frontend import matching
+from ..ops.transfer import HostCopy, upload
 from ..optim import lines_ba
 from ..slammap.map_store import MapStore
 from . import mapper_fast
@@ -82,6 +99,16 @@ class LocalMapper:
         # when set, the tracking view always pads to this capacity (the
         # multi-sequence driver needs one view shape across sequences)
         self.fixed_tv_cap: int | None = None
+        # staged work (pipelined tracker): queued keyframe stages, a
+        # standalone BA and its age in finalized frames, the post-BA view
+        # and the absorbed stage's BoW words (kf_id, words)
+        self._pending_kfq: deque = deque()
+        self._pending_ba: dict | None = None
+        self._ba_age = 0
+        self.pending_view = None
+        self.absorbed_words: tuple | None = None
+        self.adaptive_ba_cadence = False
+        self._last_ba_frame = -(1 << 30)
 
     # ------------------------------------------------------------------
 
@@ -104,8 +131,7 @@ class LocalMapper:
                 kf = int(kf)
                 self.stage_times["n_cache_miss"] = self.stage_times.get(
                     "n_cache_miss", 0) + 1
-                t = lambda a: torch.from_numpy(np.ascontiguousarray(a)) \
-                    .to(self.device)
+                t = lambda a: upload(a, self.device)
                 feats = matching.FrameFeatures(
                     xy=t(s.kf_xy[kf]), ur=t(s.kf_ur[kf]),
                     octave=t(s.kf_oct[kf].astype(np.int32)),
@@ -122,16 +148,111 @@ class LocalMapper:
         """The LocalMapping::Run loop body, synchronous. Returns the post-BA
         (MapPointView, view point ids) for the tracker, or None when BA was
         skipped."""
-        self._kf_stage(kf_id)
+        self.flush()
+        stage, out = self._launch_stage(kf_id)
+        self._stage_writeback(stage, HostCopy(out).result())
         prep = self._prepare_ba(kf_id)
         if prep is None:
             return None
         return self._run_ba(kf_id, prep)
 
     # ------------------------------------------------------------------
+    # staged API (pipelined tracker)
 
-    def _kf_stage(self, kf_id: int):
-        """Culling, triangulation + fusion on the device, host writeback."""
+    @property
+    def busy(self) -> bool:
+        return bool(self._pending_kfq) or self._pending_ba is not None
+
+    def step_pending(self):
+        """One step per finalized frame: absorb the oldest keyframe stage
+        (then, when its BA was not fused, dispatch that BA); else age the
+        standalone BA and absorb it at age 2."""
+        if self._pending_kfq:
+            self._absorb_head()
+        elif self._pending_ba is not None:
+            self._ba_age += 1
+            if self._ba_age >= 2:
+                self.absorb_ba()
+
+    def flush(self):
+        """Absorb all staged work now."""
+        while self._pending_kfq:
+            self._absorb_head()
+        if self._pending_ba is not None:
+            self.absorb_ba()
+
+    def _absorb_head(self):
+        kf_id = self._pending_kfq[0]["kf_id"]
+        if not self.absorb_kf_stage()["fused"]:
+            self.dispatch_ba(kf_id)
+
+    def dispatch_kf_stage(self, kf_id: int, voc=None, fuse_ba: bool = False):
+        """Queue the keyframe's stage on the device: culling and the stage
+        inputs on the host, triangulation + fusion, the BoW words of its
+        cached descriptors when `voc` (a Vocabulary) is given, and with
+        `fuse_ba` its windowed BA (problem built now, before this stage's
+        writeback) whose post-BA view becomes `pending_view`. A third
+        queued stage forces the oldest's absorb."""
+        t0 = time.perf_counter()
+        while len(self._pending_kfq) >= 2:
+            self._absorb_head()
+        stage, out = self._launch_stage(kf_id)
+        if voc is not None:
+            c = self.cache.arrays
+            s0 = stage["slots"][0]
+            out["words"] = voc.device_words(c.desc[s0], c.valid[s0])
+        prep = self._prepare_ba(kf_id) if fuse_ba else None
+        if prep is not None:
+            ba_out = self._launch_ba(prep)
+            self.pending_view = (ba_out.pop("view"), prep["vp"])
+            out["ba"] = ba_out
+        stage.update(fused=fuse_ba, ba=prep, host=HostCopy(out))
+        self._pending_kfq.append(stage)
+        self._time("dispatch_kf_staged", t0)
+
+    def absorb_kf_stage(self) -> dict:
+        """Write back the oldest queued stage (triangulated points, fusion,
+        and its fused BA); its words go to `absorbed_words`."""
+        stage = self._pending_kfq.popleft()
+        out = stage["host"].result()
+        self.absorbed_words = ((stage["kf_id"], out["words"])
+                               if "words" in out else None)
+        self._stage_writeback(stage, out)
+        if stage["ba"] is not None:
+            self._ba_writeback(stage["kf_id"], stage["ba"], out["ba"])
+        return stage
+
+    def dispatch_ba(self, kf_id: int):
+        """Queue this keyframe's windowed BA alone (when eligible); its
+        post-BA view becomes `pending_view`, its writeback waits for
+        `absorb_ba`. Returns (view, view point ids) or None."""
+        prep = self._prepare_ba(kf_id)
+        if prep is None:
+            return None
+        out = self._launch_ba(prep)
+        self.pending_view = (out.pop("view"), prep["vp"])
+        self._pending_ba = dict(kf_id=kf_id, prep=prep, host=HostCopy(out))
+        self._ba_age = 0
+        return self.pending_view
+
+    def absorb_ba(self):
+        """Write back the standalone BA."""
+        rec, self._pending_ba = self._pending_ba, None
+        self._ba_writeback(rec["kf_id"], rec["prep"], rec["host"].result())
+
+    def _ba_inflight(self) -> bool:
+        """A BA dispatched and not yet written back: the standalone one
+        before its absorb age, or one fused into a queued stage."""
+        if self._pending_ba is not None and self._ba_age < 2:
+            return True
+        return any(st["ba"] is not None for st in self._pending_kfq)
+
+    # ------------------------------------------------------------------
+
+    def _launch_stage(self, kf_id: int):
+        """Culling and the stage inputs on the host, then triangulation +
+        fusion queued on the device. Returns (the stage's host record,
+        its device outputs)."""
         t0 = time.perf_counter()
         s = self.store
         dev = self.device
@@ -155,19 +276,33 @@ class LocalMapper:
                              for k in [kf_id] + nbs_tri])
         valid_fuse = np.stack([s.kf_kp_valid[k] for k in nbs_fuse]) \
             if nbs_fuse else np.zeros((0, s.n_kp), bool)
-        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        t = lambda a: upload(a, dev)
         view = mapper_fast.view_from_store(s, pids, FUSE_VIEW_CAP, dev)
         tri, fuse = mapper_fast.kf_stage_cached(
             self.cam, self.cache.arrays, slots[:1 + len(nbs_tri)],
             t(s.kf_pose[[kf_id] + nbs_tri]), t(free_tri),
             slots[1 + len(nbs_tri):], t(s.kf_pose[nbs_fuse]), t(valid_fuse),
             view, self._lut_dev, s.cfg.n_levels, s.cfg.scale)
-        t1 = self._time("dispatch_kf", t0)
+        self._time("dispatch_kf", t0)
+        stage = dict(kf_id=kf_id, slots=slots, nbs_tri=nbs_tri,
+                     nbs_fuse=nbs_fuse,
+                     pid_arr=np.concatenate(
+                         [pids, np.full(FUSE_VIEW_CAP - len(pids), -1,
+                                        np.int64)]))
+        out = dict(tri=[dict(match=m, X=X) for _, m, X in tri],
+                   fuse=[kp2pt for _, kp2pt in fuse])
+        return stage, out
 
+    def _stage_writeback(self, stage: dict, out: dict):
+        """Host writeback of a stage's results (numpy): new points from the
+        triangulated matches, then fusion."""
+        t1 = time.perf_counter()
+        s = self.store
+        kf_id = stage["kf_id"]
         created: list[int] = []
         claimed = np.zeros(s.n_kp, bool)
-        for (_, match, X), nb in zip(tri, nbs_tri):
-            match, X = match.cpu().numpy(), X.cpu().numpy()
+        for tri, nb in zip(out["tri"], stage["nbs_tri"]):
+            match, X = tri["match"], tri["X"]
             sel = np.nonzero((match >= 0) & ~claimed)[0]
             if len(sel) == 0:
                 continue
@@ -183,10 +318,7 @@ class LocalMapper:
             self.note_created(kf_id, np.asarray(created, np.int32))
             s.refresh_obs_counts()
         t2 = self._time("triangulate", t1)
-        pid_arr = np.concatenate(
-            [pids, np.full(FUSE_VIEW_CAP - len(pids), -1, np.int64)])
-        self._fuse_writeback([kp2pt.cpu().numpy() for _, kp2pt in fuse],
-                             pid_arr, nbs_fuse)
+        self._fuse_writeback(out["fuse"], stage["pid_arr"], stage["nbs_fuse"])
         self._time("fuse", t2)
         self.stage_times["n"] = self.stage_times.get("n", 0) + 1
 
@@ -272,12 +404,30 @@ class LocalMapper:
 
     def _prepare_ba(self, kf_id: int):
         """Eligibility check + padded problem tensors for this keyframe's
-        windowed BA; None (after keyframe culling) when BA is skipped."""
+        windowed BA; None (after keyframe culling) when BA is skipped:
+        another BA in flight (the reference interrupts a running local BA
+        when a keyframe arrives), a map of one keyframe, or the adaptive
+        cadence."""
         t0 = time.perf_counter()
         s = self.store
+        if self._ba_inflight():
+            self.stage_times["ba_skip_dropped"] = self.stage_times.get(
+                "ba_skip_dropped", 0) + 1
+            self.cull_keyframes(kf_id)
+            return None
+        if self._pending_ba is not None:
+            self.absorb_ba()
         if s.n_kf < 2:
             self.cull_keyframes(kf_id)
             return None
+        fid = int(s.kf_frame_id[kf_id])
+        if self.adaptive_ba_cadence and s.n_kf > 4 \
+                and fid - self._last_ba_frame < 6:
+            self.stage_times["ba_cadence_skipped"] = self.stage_times.get(
+                "ba_cadence_skipped", 0) + 1
+            self.cull_keyframes(kf_id)
+            return None
+        self._last_ba_frame = fid
         meta = self._build_problem_np(kf_id)
         if meta is None:
             self.cull_keyframes(kf_id)
@@ -309,7 +459,7 @@ class LocalMapper:
         obs[:, :n_obs] = (meta["okf"], meta["ofe"], meta["p_idx"])
         tv_pidx = np.full(tv_cap, -1, np.int64)
         tv_pidx[:len(view_pids)] = pt_lut[view_pids]
-        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        t = lambda a: upload(a, self.device)
         prep = dict(
             meta=meta, slots=t(slots_pad), poses=t(poses), fixed=t(fixed),
             points=t(points), pvalid=t(pvalid), obs=t(obs), n_obs=n_obs,
@@ -344,7 +494,7 @@ class LocalMapper:
         oct_[:O] = s.kf_ln_oct[kf, det]
         hasr = np.zeros(LO, bool)
         hasr[:O] = s.kf_ln_has_r[kf, det]
-        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        t = lambda a: upload(a, self.device)
         xs = t(xs)
         lobs = lines_ba.LineBAObs(
             k=t(k), l=t(l), x1l=xs[0], x2l=xs[1], x1r=xs[2], x2r=xs[3],
@@ -379,6 +529,16 @@ class LocalMapper:
         """Windowed BA on the device, then writeback + outlier erasure +
         keyframe culling. Returns (post-BA view, view point ids)."""
         t0 = time.perf_counter()
+        out = self._launch_ba(prep)
+        view = out.pop("view")
+        self._ba_writeback(kf_id, prep, HostCopy(out).result())
+        self._time("ba", t0)
+        return view, prep["vp"]
+
+    def _launch_ba(self, prep: dict) -> dict:
+        """The windowed BA (joint with lines when the problem has them)
+        queued on the device: poses, points, keep (and X0, d, keep_l) and
+        the post-BA view."""
         obs = prep["obs"]
         args = (self.cam, self.cache.arrays, prep["slots"], prep["poses"],
                 prep["fixed"], prep["points"], prep["pvalid"], obs[0], obs[1],
@@ -388,15 +548,18 @@ class LocalMapper:
             poses, points, X0, d, keep, keep_l, view = \
                 mapper_fast.joint_ba_view_cached(
                     *args, *prep["lines"], gamma=float(self.cfg.line.gamma))
+            return dict(poses=poses, points=points, keep=keep, X0=X0, d=d,
+                        keep_l=keep_l, view=view)
+        poses, points, keep, view = mapper_fast.ba_view_cached(*args)
+        return dict(poses=poses, points=points, keep=keep, view=view)
+
+    def _ba_writeback(self, kf_id: int, prep: dict, out: dict):
+        """A BA's host results (numpy) into the store: lines first."""
+        if "lines" in prep:
             self._writeback_lines(prep["meta"]["window"], prep["lmeta"],
-                                  X0.cpu().numpy(), d.cpu().numpy(),
-                                  keep_l.cpu().numpy())
-        else:
-            poses, points, keep, view = mapper_fast.ba_view_cached(*args)
-        self._writeback_ba(kf_id, prep["meta"], poses.cpu().numpy(),
-                           points.cpu().numpy(), keep.cpu().numpy())
-        self._time("ba", t0)
-        return view, prep["vp"]
+                                  out["X0"], out["d"], out["keep_l"])
+        self._writeback_ba(kf_id, prep["meta"], out["poses"], out["points"],
+                           out["keep"])
 
     def _writeback_lines(self, window, lmeta: dict, X0, d, keep_l):
         """Solved line geometry where finite; outlier line observations

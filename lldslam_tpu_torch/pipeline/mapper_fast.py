@@ -13,6 +13,12 @@ here the stages take and return tensors.
    view (solved position where the point is in the problem).
 3. `joint_ba_view_cached`: the same windowed BA with the map lines of the
    window as a second landmark class (`lines_ba.local_joint_ba`).
+
+The JAX package's fused keyframe programs (`kf_stage_words_flat`,
+`fused_kf_ba_flat`, `fused_kf_joint_ba_flat`) run stage 1, the keyframe's
+BoW descent and stage 2 or 3 as one program with one flat readback; the
+port queues the same calls in that order (`LocalMapper.dispatch_kf_stage`,
+`Vocabulary.device_words`) and reads their tensors back in one copy.
 """
 from __future__ import annotations
 

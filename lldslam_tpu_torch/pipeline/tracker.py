@@ -1,8 +1,8 @@
-"""Deterministic per-frame tracking, synchronous path: stereo with points
-and lines, monocular and RGB-D.
+"""Deterministic per-frame tracking: stereo with points and lines,
+monocular and RGB-D, synchronous or pipelined.
 
-Counterpart of lldslam_tpu/pipeline/tracker.py (`StereoTracker` with
-`pipeline=False`). Every stereo frame runs
+Counterpart of lldslam_tpu/pipeline/tracker.py (`StereoTracker`). Every
+synchronous stereo frame runs
 
     build_frame_pair (+ with lines: both views' stored detections, stereo
     line match and triangulation) -> (LOST: relocalization) -> motion-model
@@ -19,6 +19,29 @@ when the motion model is weak, temporal seeding of close unassociated
 features into the next frame's motion model, NeedNewKeyFrame with a minimum
 gap of 3 frames, and trajectory bookkeeping relative to reference keyframes.
 
+Pipelined mode (`pipeline=True`, stereo frames in state OK): frame i+1 is
+dispatched before frame i's results reach the host. The chained step
+(`_track_step_chained`, with lines `_track_step_chained_lines`) predicts
+the pose (velocity @ last pose), updates the velocity, takes the keyframe
+decision (`_kf_decision`) and carries provisional point identities
+(`_prov_update`) on the device. Each frame's host-bound results stay device
+tensors in its record; every `readback_window` frames one non-blocking copy
+moves the window's results (and each frame's feature snapshot) into pinned
+host memory behind one CUDA event (ops/transfer.HostCopy), and at most
+`max_inflight_windows` windows stay unread (1 and 2 frames a window while
+the map is young). `_finalize_rec` then does the host half of each frame in
+order: associations, visibility counts, provisional ids resolved to the
+points the last keyframe created, and the reaction to the device's
+decision, with keyframe work staged one step per finalized frame
+(LocalMapper.dispatch_kf_stage / step_pending, the loop queue). A weak frame
+rolls the chain back and re-tracks synchronously; a chain poisoned by a
+loop correction, relocalization or reset resyncs from the host. The
+schedule reads no clock and no event state: windows are read, stages
+absorbed and reference counts adopted at fixed places in it, so two runs
+give the same keyframes and poses (the JAX package absorbs whatever fetch
+has landed). Monocular, localization-only and non-OK frames stay
+synchronous.
+
 Loop closing is on by default, as in the JAX package: with no vocabulary
 given, one is trained from the first keyframe's descriptors. A LOST tracker
 relocalizes through the loop closer's vocabulary and keyframe database
@@ -29,19 +52,17 @@ and the auto-reset.
 Lines (`ldType: LBDFloat`) come from stored detections where the config
 gives `lineDetectionsPath`, and otherwise from the native detector
 (frontend/line_extract.py) run on both views of the frame on the device.
-Not ported yet (it raises NotImplementedError, see ROADMAP queue 1): the
-pipelined tracker (and with it the provisional point identities and the
-on-device keyframe decision).
 
 A map restored by `System.load_map` goes through `restore_map`: the loop
 closer's keyframe database is rebuilt from the stored keyframes and the
 tracker starts LOST, so the next frame relocalizes against the map; in
 localization mode the tracker never initializes a map of its own.
 
-The per-frame tracking math (`_track_core`) takes a leading sequence axis:
-`_step_batch` runs it once for several trackers (the multi-sequence driver,
-parallel/multi_seq.py) and reads every result back in one copy; a single
-tracker is the S = 1 case.
+The per-frame tracking math (`_track_core`, and the chained step around it)
+takes a leading sequence axis: `_step_batch` runs it once for several
+trackers (the multi-sequence driver, parallel/multi_seq.py) and reads every
+result back in one copy, and the pipelined driver runs the chained step on
+its members' stacked chain state; a single tracker is the S = 1 case.
 
 RGB-D frames (`process_rgbd`) carry a virtual right coordinate from the
 depth map and take the stereo path above. Monocular frames
@@ -58,6 +79,7 @@ from __future__ import annotations
 
 import enum
 import time
+from collections import deque
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -75,6 +97,7 @@ from ..io.stored_lines import StoredLineSource, stage_stored_pair
 from ..ops import hamming
 from ..loop.bow import Vocabulary
 from ..loop.closing import LoopCloser, project_match
+from ..ops.transfer import HostCopy, upload
 from ..optim import initializer, pnp, pose_opt
 from ..slammap.map_store import MapStore
 from . import local_mapping, mapper_fast
@@ -113,7 +136,8 @@ def _track_core(cam, T_pred: torch.Tensor, last_feats: matching.FrameFeatures,
                 last_ismap: torch.Tensor, cur: matching.FrameFeatures,
                 depth: torch.Tensor, view: matching.MapPointView,
                 inv_sigma2_lut: torch.Tensor, n_levels: int, scale: float,
-                min_mm: int, close_depth: float) -> dict:
+                min_mm: int, close_depth: float,
+                last_prov: torch.Tensor | None = None) -> dict:
     """The per-frame tracking math: motion-model association (narrow, else
     wide) -> pose LM -> local-map projection search -> pose LM -> stats, and
     the next frame's motion-model state (associated features keep their
@@ -122,8 +146,16 @@ def _track_core(cam, T_pred: torch.Tensor, last_feats: matching.FrameFeatures,
     sequence axis S (T_pred (S, 4, 4), features (S, N, ...), view
     (S, P, ...)): S frames tracked at once, each against its own last frame
     and local map (counterpart of lldslam_tpu/parallel/multi_seq.py
-    `batched_track_step`, without the pipelined path's provisional ids);
-    the results carry it too."""
+    `batched_track_step`); the results carry it too.
+
+    Provisional identity (`last_prov` (N,) int32, -1 none): the feature
+    index, in the last keyframe, of the point the pipelined path expects a
+    last-frame feature to become (see `_prov_update`). It is carried
+    through the last-frame match (`carried`), and a carried feature counts
+    as a map point in the keyframe statistics; the host resolves it to the
+    created point id. None (or all -1) carries nothing and leaves every
+    result as without it. `close_unassoc` marks the close features without
+    an association: the points a keyframe at this frame would create."""
     obs = torch.cat([cur.xy, cur.ur[..., None]], dim=-1)
     lut = inv_sigma2_lut[cur.octave.long()]
     is_stereo = cur.ur >= 0
@@ -162,42 +194,154 @@ def _track_core(cam, T_pred: torch.Tensor, last_feats: matching.FrameFeatures,
 
     final_ok = valid2 & pt_in2
     # map-only association: a local-view hit is a map point; a last-frame
-    # hit inherits the flag (temporal seeds are not map points)
+    # hit inherits the flag (temporal seeds are not map points), and so
+    # does a carried provisional identity
     ismap2 = use_l | ((kp2last >= 0) & _rows(last_ismap, li))
+    if last_prov is None:
+        carried = torch.full_like(kp2last, -1)
+    else:
+        carried = torch.where((kp2last >= 0) & final_ok,
+                              _rows(last_prov, li), -1)
+        ismap2 = ismap2 | (carried >= 0)
     map_ok = final_ok & ismap2
     close = (depth > 0) & (depth < close_depth) & cur.valid
     stats = torch.stack([n_mm, map_ok.sum(-1), (close & map_ok).sum(-1),
                          (close & ~map_ok).sum(-1), cur.valid.sum(-1),
                          ((cur.ur >= 0) & cur.valid).sum(-1)], dim=-1)
-    # next-frame chain state with temporal seeding
-    T_wc = torch.linalg.inv(T2)
+    # next-frame chain state with temporal seeding (inv_ex: no host check)
+    T_wc = torch.linalg.inv_ex(T2)[0]
     Xc = backproject(cam, cur.xy, torch.clamp(depth, min=1e-6))
     Xw_depth = Xc @ T_wc[..., :3, :3].transpose(-1, -2) \
         + T_wc[..., None, :3, 3]
     return dict(
         T=T2, stats=stats, kp2last=kp2last, kp2pt_l=kp2pt_l, ok=map_ok,
-        in_frustum=in_frustum, final=final_ok,
+        in_frustum=in_frustum, final=final_ok, carried=carried,
+        close_unassoc=close & ~final_ok,
         ptpos=torch.where(final_ok[..., None], X2, Xw_depth),
         haspt=final_ok | close, ismap=map_ok)
 
 
+def _kf_decision(stats: torch.Tensor, since_kf: torch.Tensor,
+                 kf_scal: torch.Tensor, min_gap: int, max_gap: int):
+    """NeedNewKeyFrame on the device, from a step's stats (n_mm, n_in,
+    tracked_close, untracked_close, ...), so the pipelined host reacts to a
+    decision taken at frame rate. since_kf: frames since the last fired
+    decision (int32); kf_scal (2,) float32 [ref_m, kappa]: the reference
+    keyframe's tracked-point count, refreshed at a decision to
+    kappa * n_in (kappa: the host's last measured ref_matches / n_in).
+    Returns (decide int32, since', kf_scal'); leading axes pass through."""
+    n_in = stats[..., 1]
+    tracked_close, untracked_close = stats[..., 2], stats[..., 3]
+    ref_m, kappa = kf_scal[..., 0], kf_scal[..., 1]
+    gap = since_kf + 1
+    weak = n_in.to(torch.float32) < 0.75 * ref_m
+    need_close = (tracked_close < 100) & (untracked_close > 70)
+    decide = (n_in > 15) & (gap >= min_gap) \
+        & (weak | need_close | (gap >= max_gap))
+    since2 = torch.where(decide, torch.zeros_like(gap), gap)
+    refm2 = torch.where(decide, kappa * n_in.to(torch.float32), ref_m)
+    return decide.to(torch.int32), since2, torch.stack([refm2, kappa], -1)
+
+
+def _prov_update(decide: torch.Tensor, carried: torch.Tensor,
+                 close_unassoc: torch.Tensor) -> torch.Tensor:
+    """The next frame's provisional identities: where the decision fired,
+    the frame's close unassociated features (the points the keyframe will
+    create) by their own feature index; elsewhere the carried table."""
+    n = carried.shape[-1]
+    fresh = torch.where(close_unassoc, torch.arange(
+        n, dtype=torch.int32, device=carried.device), -1)
+    return torch.where(decide[..., None] > 0, fresh, carried)
+
+
+def _track_step_chained(cam, T_prev: torch.Tensor, vel_prev: torch.Tensor,
+                        last_feats: matching.FrameFeatures,
+                        last_ptpos: torch.Tensor, last_haspt: torch.Tensor,
+                        cur: matching.FrameFeatures, depth: torch.Tensor,
+                        view: matching.MapPointView,
+                        inv_sigma2_lut: torch.Tensor,
+                        last_ismap: torch.Tensor, last_prov: torch.Tensor,
+                        since_kf: torch.Tensor, kf_scal: torch.Tensor,
+                        n_levels: int, scale: float, min_mm: int,
+                        close_depth: float, min_gap: int,
+                        max_gap: int) -> dict:
+    """The pipelined step: T_pred = vel_prev @ T_prev, `_track_core`, the
+    keyframe decision and the provisional-identity update, and the velocity
+    vel = T @ T_prev^-1, all on the device with no host sync, so the next
+    frame can be dispatched before this one's results are read. Returns
+    `_track_core`'s dict plus decide, since, scal (the decision chain),
+    prov (next last_prov) and vel."""
+    step = _track_core(cam, vel_prev @ T_prev, last_feats, last_ptpos,
+                       last_haspt, last_ismap, cur, depth, view,
+                       inv_sigma2_lut, n_levels, scale, min_mm, close_depth,
+                       last_prov=last_prov)
+    return _chain_tail(step, step["T"], T_prev, since_kf, kf_scal, min_gap,
+                       max_gap)
+
+
+def _chain_tail(step: dict, T: torch.Tensor, T_prev: torch.Tensor,
+                since_kf, kf_scal, min_gap: int, max_gap: int) -> dict:
+    decide, since2, scal2 = _kf_decision(step["stats"], since_kf, kf_scal,
+                                         min_gap, max_gap)
+    return dict(step, T=T, decide=decide, since=since2, scal=scal2,
+                prov=_prov_update(decide, step["carried"],
+                                  step["close_unassoc"]),
+                vel=T @ torch.linalg.inv_ex(T_prev)[0])
+
+
+def _track_step_chained_lines(cam, T_prev, vel_prev, last_feats, last_ptpos,
+                              last_haspt, cur, depth, view, inv_sigma2_lut,
+                              last_ismap, last_prov, since_kf, kf_scal,
+                              n_levels, scale, min_mm, close_depth, min_gap,
+                              max_gap, line_view, fl: line_match.FrameLines,
+                              gamma: float, md_thr: float) -> dict:
+    """`_track_step_chained` with the line step chained in (one frame, no
+    sequence axis): association with the local map lines `line_view` and
+    the joint point+line pose LM from the point step's pose, on its
+    association inliers. T is the line-refined pose (the velocity follows
+    it); det2ln (view index per line inlier) and n_line join the dict."""
+    step = _track_core(cam, vel_prev @ T_prev, last_feats, last_ptpos,
+                       last_haspt, last_ismap, cur, depth, view,
+                       inv_sigma2_lut, n_levels, scale, min_mm, close_depth,
+                       last_prov=last_prov)
+    T3, det2ln, n_line = _line_step(
+        cam, step["T"], line_view, fl,
+        _line_point_obs(cur, step, inv_sigma2_lut), gamma, md_thr)
+    out = _chain_tail(step, T3, T_prev, since_kf, kf_scal, min_gap, max_gap)
+    out.update(det2ln=det2ln, n_line=n_line)
+    return out
+
+
+def _line_point_obs(cur: matching.FrameFeatures, step: dict,
+                    inv_sigma2_lut: torch.Tensor) -> pose_opt.PointPoseObs:
+    """The point observations of the joint point+line pose LM: the step's
+    association inliers only (freshly depth-seeded rows have zero residual
+    at the step's pose and would anchor the refinement there)."""
+    return pose_opt.PointPoseObs(
+        X=step["ptpos"], obs=torch.cat([cur.xy, cur.ur[..., None]], dim=-1),
+        inv_sigma2=inv_sigma2_lut[cur.octave.long()],
+        is_stereo=cur.ur >= 0, valid=step["final"])
+
+
 def _read_back(step: dict) -> list[dict]:
     """The host half of a batched step's results, per sequence, in one
-    device-to-host copy: T (4, 4) float32, stats (6 ints), kp2last and
-    kp2pt_l int32, ok and in_frustum bool."""
+    device-to-host copy: T (4, 4) float32, stats (6 ints), kp2last,
+    kp2pt_l and carried int32, ok and in_frustum bool."""
     S = step["T"].shape[0]
     i32 = lambda k: step[k].reshape(S, -1).to(torch.int32)
     parts = [step["T"].reshape(S, 16).contiguous().view(torch.int32)] + [
-        i32(k) for k in ("stats", "kp2last", "kp2pt_l", "ok", "in_frustum")]
+        i32(k) for k in ("stats", "kp2last", "kp2pt_l", "ok", "in_frustum",
+                         "carried")]
     cuts = np.cumsum([p.shape[1] for p in parts])[:-1]
     packed = torch.cat(parts, dim=1).cpu().numpy()
     out = []
     for row in packed:
-        T, stats, kp2last, kp2pt_l, ok, in_frustum = np.split(row, cuts)
+        T, stats, kp2last, kp2pt_l, ok, in_frustum, carried = \
+            np.split(row, cuts)
         out.append(dict(T=T.view(np.float32).reshape(4, 4).copy(),
                         stats=[int(x) for x in stats], kp2last=kp2last,
                         kp2pt_l=kp2pt_l, ok=ok.astype(bool),
-                        in_frustum=in_frustum.astype(bool)))
+                        in_frustum=in_frustum.astype(bool), carried=carried))
     return out
 
 
@@ -219,6 +363,33 @@ def _line_step(cam, T: torch.Tensor, view, fl: line_match.FrameLines,
                                              rounds=2, iters=6)
     det2ln = torch.where(ln_in, det2ln, -1)
     return T3, det2ln, (det2ln >= 0).sum()
+
+
+def _line_fields(fl: line_match.FrameLines) -> dict:
+    """The frame lines a keyframe keeps (MapStore.add_keyframe_lines keys,
+    plus the stereo-triangulated X0 and d in the camera frame)."""
+    return dict(p1=fl.kl.p1, p2=fl.kl.p2, p1r=fl.p1_r, p2r=fl.p2_r,
+                has_r=fl.has_stereo, octave=fl.kl.octave, desc=fl.kl.desc,
+                valid=fl.kl.valid, X0=fl.X0, d=fl.d)
+
+
+def _snapshot_fields(fd: FrameData) -> dict:
+    """The frame's features and depth as a keyframe stores them."""
+    f = fd.feats
+    return dict(xy=f.xy, ur=f.ur, octave=f.octave, angle=f.angle,
+                desc=f.desc, valid=f.valid, depth=fd.depth)
+
+
+def _snapshot_host(h: dict):
+    """(features dict, depth) from the host copy of `_snapshot_fields`."""
+    feats = {k: h[k] for k in ("xy", "ur", "octave", "angle", "valid")}
+    feats["desc"] = h["desc"].view(np.uint32)
+    return feats, h["depth"]
+
+
+# the host-bound results of a pipelined step
+_HOST_KEYS = ("T", "stats", "decide", "kp2last", "kp2pt_l", "ok",
+              "in_frustum", "carried")
 
 
 @dataclass
@@ -250,18 +421,19 @@ class TrackMetrics:
     t_build: float = 0.0
     t_step: float = 0.0
     t_kf: float = 0.0
-    t_dispatch: float = 0.0   # batched step's share (multi-sequence driver)
+    t_dispatch: float = 0.0   # the step's dispatch (a batched step's share)
+    t_get: float = 0.0        # pipelined: host wait for the window's copy
 
 
 class StereoTracker:
     def __init__(self, cfg: SlamConfig, store: MapStore | None = None,
                  enable_loops: bool = True,
                  vocabulary: Vocabulary | None = None,
-                 pipeline: bool = False, device="cuda"):
-        if pipeline:
-            raise NotImplementedError(
-                "the pipelined tracker is not ported to lldslam_tpu_torch "
-                "yet; see ROADMAP queue 1 item 4")
+                 pipeline: bool = False, pipeline_depth: int = 2,
+                 readback_window: int = 3, device="cuda"):
+        """pipeline: the pipelined schedule (module docstring);
+        readback_window: frames per host copy. pipeline_depth is accepted
+        for the JAX package's signature; no schedule reads it."""
         self.cfg = cfg
         self.device = torch.device(device)
         self.cam = cfg.camera.stereo_camera()
@@ -285,7 +457,11 @@ class StereoTracker:
         self._last_ptpos = None    # (N, 3) world position per keypoint
         self._last_haspt = None    # (N,) bool
         self._last_ismap = None    # (N,) bool: position is a real MapPoint
+        self._last_prov = None     # (N,) int32 provisional identity
         self._last_kp2pt = None    # (N,) np global point id
+        # feature -> created point id of the last keyframe: resolves the
+        # provisional identities carried by later frames
+        self._prov_kf_pid = None
         self._inv_sigma2_lut = torch.from_numpy(np.power(
             1.0 / self.orb.scale ** 2, np.arange(self.orb.n_levels))
             .astype(np.float32)).to(self.device)
@@ -334,6 +510,22 @@ class StereoTracker:
                                 device=self.device)
         self.mapper = local_mapping.LocalMapper(
             self.store, cfg, cache=self.kf_cache, device=self.device)
+        # pipelined mode (module docstring)
+        self.pipeline = pipeline
+        self.readback_window = max(1, readback_window)
+        # copied windows left unread before the oldest is finalized
+        self.max_inflight_windows = 3
+        self._pending: list[dict] = []     # dispatched, not yet copied
+        self._windows: deque = deque()     # (records, HostCopy), oldest first
+        self._chain = None                 # device T, vel, since, scal
+        self._resync = True
+        self._refm_host = None             # ([ref_m, kappa], keyframe fid)
+        # measured ref_matches / n_in at the last keyframe: calibrates the
+        # device decision's reference count
+        self._kappa = 0.7
+        self._pending_loops: deque = deque()   # [kf_id, staged words|None]
+        if pipeline:
+            self._pipeline_mapper()
         # loop closing: the vocabulary given, or one trained from the first
         # keyframe's descriptors at initialization
         self.enable_loops = enable_loops
@@ -341,6 +533,15 @@ class StereoTracker:
         self.loop_closer = None
         if enable_loops and vocabulary is not None:
             self._make_loop_closer()
+
+    def _pipeline_mapper(self):
+        """Pipelined wiring of a (new) mapper and store: the tracking view
+        pinned at 4096 rows unless pinned already, the load-adaptive BA
+        cadence, staged line retriangulation."""
+        if self.mapper.fixed_tv_cap is None:
+            self.mapper.fixed_tv_cap = 4096
+        self.mapper.adaptive_ba_cadence = True
+        self.store.staged_retriangulation = True
 
     def _make_loop_closer(self):
         self.loop_closer = LoopCloser(self.store, self.vocabulary, self.cfg,
@@ -350,7 +551,7 @@ class StereoTracker:
     # ------------------------------------------------------------------
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return upload(a, self.device)
 
     def _image(self, img: np.ndarray) -> torch.Tensor:
         """A frame on the device, as uint8 when its values fit."""
@@ -358,18 +559,33 @@ class StereoTracker:
             img = img.astype(np.uint8)
         return self._t(img)
 
-    def process(self, img_l: np.ndarray, img_r: np.ndarray,
-                timestamp: float = 0.0):
-        """Track one stereo pair; returns (T_cw (4,4) np, TrackMetrics)."""
+    def stage_pair(self, img_l: np.ndarray, img_r: np.ndarray) -> torch.Tensor:
+        """A stereo pair on the device as one (2, H, W) upload (uint8 when
+        its values fit), for `process(..., pair_dev=)`: staging frames
+        ahead takes the upload out of the tracking loop."""
+        if img_l.dtype != np.uint8 and img_l.max(initial=0.0) <= 255.0:
+            img_l, img_r = img_l.astype(np.uint8), img_r.astype(np.uint8)
+        return self._t(np.stack([img_l, img_r]))
+
+    def process(self, img_l: np.ndarray | None, img_r: np.ndarray | None,
+                timestamp: float = 0.0, pair_dev: torch.Tensor | None = None,
+                lines_dev=None):
+        """Track one stereo pair; returns (T_cw (4,4) np, TrackMetrics).
+        pair_dev: the pair staged by `stage_pair` (then the images may be
+        None); lines_dev: the frame's (left, right) KeyLines staged by
+        io.stored_lines.stage_stored_pair, in place of the stored source.
+        In pipelined mode the result is that of the last frame finalized
+        in this call, or (current pose, None) when none was."""
         self.frame_id += 1
         m = TrackMetrics(frame_id=self.frame_id)
         t0 = time.perf_counter()
-        if img_l.dtype != np.uint8 and img_l.max(initial=0.0) <= 255.0:
-            img_l, img_r = img_l.astype(np.uint8), img_r.astype(np.uint8)
-        pair = self._t(np.stack([img_l, img_r]))
+        pair = pair_dev if pair_dev is not None \
+            else self.stage_pair(img_l, img_r)
         fd = build_frame_pair(pair, self.cam, self.orb)
         if self.enable_lines:
-            if self._line_source is not None:
+            if lines_dev is not None:
+                kl, kr = lines_dev
+            elif self._line_source is not None:
                 kl, kr = stage_stored_pair(*self._line_source, self.frame_id,
                                            device=self.device)
             else:
@@ -408,6 +624,10 @@ class StereoTracker:
         return self._process_fd(fd, timestamp, m)
 
     def _process_fd(self, fd: FrameData, timestamp: float, m: TrackMetrics):
+        if self.pipeline and self.state == TrackState.OK and not self._mono \
+                and not self.localization_only:
+            return self._process_pipelined(fd, timestamp, m)
+        self.flush()
         t0 = time.perf_counter()
         if self.state == TrackState.NOT_INITIALIZED:
             # localization mode tracks against a map, never starts one
@@ -415,6 +635,7 @@ class StereoTracker:
                 self._initialize(fd, timestamp, m)
         else:
             self._track(fd, timestamp, m)
+        self._resync = True   # the device chain reseeds at its next dispatch
         m.t_step = time.perf_counter() - t0 - m.t_kf
         self._finish_metrics(m)
         return self.T_cw.copy(), m
@@ -428,24 +649,288 @@ class StereoTracker:
         self.metrics.append(m)
 
     # ------------------------------------------------------------------
+    # pipelined mode (module docstring). Records hold device tensors; the
+    # only host reads are the windows' HostCopy results and the staged
+    # mapping work's, each at a fixed place in the schedule.
+
+    def _process_pipelined(self, fd: FrameData, timestamp: float,
+                           m: TrackMetrics):
+        ret = None
+        cur_fl = self._cur_fl    # finalizing older records overwrites it
+        if self._resync and (self._pending or self._windows):
+            ret = self.flush()   # poisoned chain: settle the host first
+        if self._resync or self._chain is None:
+            self._chain = dict(
+                T=self._t(self.T_cw), vel=self._t(self.velocity),
+                since=self._t(np.int32(max(0, self.frame_id - 1
+                                          - self.last_kf_frame))),
+                scal=self._t(np.float32([self._ref_matches, self._kappa])))
+            self._refm_host = None
+            self._resync = False
+        if self._refm_host is not None:
+            self._chain["scal"] = self._adopted_scal(
+                self._chain["since"], self._chain["scal"], self.frame_id)
+        self._cur_fl = cur_fl
+        with_lines = self.enable_lines and cur_fl is not None
+        # minimum gap 3: the staged mapper is busy for about 3 finalized
+        # frames after a keyframe (the reference waits for an idle mapper)
+        min_gap = max(self.cfg.tracking.min_frames_between_kf, 3)
+        max_gap = self.cfg.tracking.max_frames_between_kf
+        if self.localization_only:
+            # no keyframes: keep the device decision from ever firing
+            min_gap = max_gap = 1 << 28
+        t0 = time.perf_counter()
+        c = self._chain
+        prev = (self._last_feats, self._last_ptpos, self._last_haspt,
+                self._last_ismap, self._last_prov)
+        args = (self.cam, c["T"], c["vel"], self._last_feats,
+                self._last_ptpos, self._last_haspt, fd.feats, fd.depth,
+                self._view, self._inv_sigma2_lut, self._last_ismap,
+                self._last_prov, c["since"], c["scal"], self.orb.n_levels,
+                self.orb.scale, self.cfg.tracking.min_motion_matches,
+                float(self.cfg.close_depth), min_gap, max_gap)
+        if with_lines:
+            out = _track_step_chained_lines(
+                *args, self._line_view, cur_fl, float(self.cfg.line.gamma),
+                self._md_gate)
+        else:
+            out = _track_step_chained(*args)
+        host = {k: out[k] for k in _HOST_KEYS}
+        host.update(_snapshot_fields(fd))
+        rec = dict(fd=fd, ts=timestamp, m=m, fid=self.frame_id, prev=prev,
+                   view_pid=self._view_pid, host=host)
+        if with_lines:
+            host.update(det2ln=out["det2ln"], n_line=out["n_line"],
+                        lines=_line_fields(cur_fl))
+            rec.update(fl=cur_fl, line_view_ids=self._line_view_ids)
+        m.t_dispatch = time.perf_counter() - t0
+        # the chain moves on to new tensors: a record's `prev` stays valid
+        self._chain = {k: out[k] for k in ("T", "vel", "since", "scal")}
+        self._last_feats = fd.feats
+        self._last_ptpos, self._last_haspt = out["ptpos"], out["haspt"]
+        self._last_ismap, self._last_prov = out["ismap"], out["prov"]
+        self._pending.append(rec)
+        # young-map damper: while the map is young (and, with lines, while
+        # map lines are sparse) short windows, one left unread
+        young = self.store.n_kf < 4 or (
+            with_lines and int(self.store.ln_valid.sum()) < 8)
+        W = self.readback_window if self.store.n_kf >= 4 \
+            else min(self.readback_window, 2)
+        inflight = 1 if young else self.max_inflight_windows
+        if len(self._pending) >= W:
+            recs, self._pending = self._pending, []
+            self._windows.append((recs, HostCopy([r["host"] for r in recs])))
+            while len(self._windows) > inflight and not self._resync:
+                ret = self._absorb_window()
+            if self._resync and self._windows:
+                # results computed from a poisoned chain: those frames go
+                # through the resync path at the next call's flush
+                self._pending = [r for recs_, _ in self._windows
+                                 for r in recs_] + self._pending
+                self._windows.clear()
+        return ret if ret is not None else (self.T_cw.copy(), None)
+
+    def _adopted_scal(self, since: torch.Tensor, scal: torch.Tensor,
+                      fid: int) -> torch.Tensor:
+        """The decision chain's [ref_m, kappa] for dispatching frame `fid`
+        with the last keyframe's exact reference count and kappa taken in:
+        kappa always, the count only when the device fired no decision
+        after that keyframe (a later one's estimate is newer). A device-side
+        select: no host sync."""
+        host, kf_fid = self._refm_host
+        self._refm_host = None
+        new = self._t(host)
+        same_ref = since == fid - 1 - kf_fid
+        return torch.stack([torch.where(same_ref, new[0], scal[0]), new[1]])
+
+    def _absorb_window(self):
+        """Finalize the oldest copied window, frame by frame (waits on its
+        copy's event alone)."""
+        recs, copy = self._windows.popleft()
+        t = time.perf_counter()
+        hosts = copy.result()
+        recs[-1]["m"].t_get = time.perf_counter() - t
+        ret = None
+        for rec, h in zip(recs, hosts):
+            rec["host"] = h
+            ret = self._finalize_rec(rec)
+        return ret
+
+    def flush(self):
+        """Finalize every in-flight pipelined frame and absorb the staged
+        keyframe work (sequence end, resync, or before a synchronous
+        frame). Returns the last finalized frame's (T_cw, metrics), or
+        None."""
+        ret = None
+        while self._windows:
+            ret = self._absorb_window()
+        if self._pending:
+            recs, self._pending = self._pending, []
+            self._windows.append((recs, HostCopy([r["host"] for r in recs])))
+            ret = self._absorb_window()
+        self._flush_kf_pipeline()
+        return ret
+
+    def _flush_kf_pipeline(self):
+        """Absorb the staged mapping, line and loop work now."""
+        self.mapper.flush()
+        self.store.absorb_retriangulate()
+        self._adopt_view()
+        self._match_loop_words()
+        while self._pending_loops:
+            self._absorb_loop()
+
+    def _adopt_view(self):
+        """Take the mapper's post-BA tracking view once a staged BA has
+        produced it (its device tensors are ordered after the BA)."""
+        if self.mapper.pending_view is not None:
+            self._view, self._view_pid = self.mapper.pending_view
+            self.mapper.pending_view = None
+
+    def _step_kf_pipeline(self) -> bool:
+        """One step of the staged keyframe work per finalized frame: the
+        mapper's stage, the view, the loop queue's head once its words are
+        in and the mapper idle. True when a loop correction rewrote the
+        map (the chain then resyncs)."""
+        self.mapper.step_pending()
+        self._adopt_view()
+        self._match_loop_words()
+        if self._pending_loops and self._pending_loops[0][1] is not None \
+                and not self.mapper.busy:
+            return self._absorb_loop()
+        return False
+
+    def _match_loop_words(self):
+        """Attach the mapper's freshly absorbed BoW words to their queued
+        loop entry."""
+        if self.mapper.absorbed_words is not None:
+            wkf, words = self.mapper.absorbed_words
+            self.mapper.absorbed_words = None
+            for e in self._pending_loops:
+                if e[0] == wkf:
+                    e[1] = words
+                    break
+
+    def _absorb_loop(self) -> bool:
+        """The loop step of the queue's oldest keyframe (staged words, or
+        the host descent when they never came); on a correction the
+        tracker's pose is re-expressed through its corrected reference
+        keyframe and the chain resyncs."""
+        kf_id, words = self._pending_loops.popleft()
+        if self.loop_closer is None:
+            return False
+        T_ref_old = self.store.kf_pose[self.ref_kf].copy()
+        if words is None:
+            corrected = self.loop_closer.process_keyframe(kf_id)
+        else:
+            corrected = self.loop_closer.finish_keyframe(kf_id, words)
+        if corrected:
+            T_cr = self.T_cw @ np.linalg.inv(T_ref_old)
+            self.T_cw = (T_cr @ self.store.kf_pose[self.ref_kf]).astype(
+                np.float32)
+            self._refresh_local_view()
+            self._refresh_ref_matches()
+            if self.enable_lines:
+                self._refresh_line_view()
+            self._resync = True
+        return corrected
+
+    def _finalize_rec(self, rec: dict):
+        """The host half of one pipelined frame, in order: a step of the
+        staged keyframe work, then (chain poisoned) a synchronous re-track,
+        (weak: fewer than min_track_inliers) the chain rolled back and a
+        synchronous re-track, or the frame's associations, provisional ids,
+        visibility counts, pose and the reaction to the device decision."""
+        m: TrackMetrics = rec["m"]
+        t0 = time.perf_counter()
+        self._step_kf_pipeline()
+        fd = rec["fd"]() if callable(rec["fd"]) else rec["fd"]
+        if self._resync:
+            # the predecessor was finalized synchronously: the _last_*
+            # state is already its own, not the poisoned chain's
+            self._cur_fl = rec.get("fl")
+            if self.state == TrackState.NOT_INITIALIZED:
+                self._initialize(fd, rec["ts"], m, fid=rec["fid"])
+            else:
+                self._track(fd, rec["ts"], m, fid=rec["fid"])
+            return self._close_rec(m, t0)
+        h = rec["host"]
+        n_mm, n_in, tracked_close, untracked_close, n_kp, n_st = \
+            (int(x) for x in h["stats"])
+        m.n_motion_matches, m.n_kp, m.n_stereo = n_mm, n_kp, n_st
+        if n_in < self.cfg.tracking.min_track_inliers:
+            self._resync = True
+            prev = rec["prev"]
+            (self._last_feats, self._last_ptpos, self._last_haspt,
+             self._last_ismap, self._last_prov) = \
+                prev() if callable(prev) else prev
+            self._cur_fl = rec.get("fl")
+            self._track(fd, rec["ts"], m, fid=rec["fid"])
+            return self._close_rec(m, t0)
+        m.n_inliers = n_in
+        self._cur_det2ln = None
+        if "fl" in rec:
+            self._cur_fl = rec["fl"]
+            det2ln = h["det2ln"]
+            self._cur_det2ln = np.where(
+                det2ln >= 0, rec["line_view_ids"][np.maximum(det2ln, 0)],
+                -1).astype(np.int32)
+            m.n_line_matches = int(h["n_line"])
+        pid = rec["view_pid"]
+        kp2last, kp2pt_l = h["kp2last"], h["kp2pt_l"]
+        kp2pt = np.where(
+            kp2pt_l >= 0, pid[np.maximum(kp2pt_l, 0)],
+            np.where(kp2last >= 0, self._last_kp2pt[np.maximum(kp2last, 0)],
+                     -1)).astype(np.int32)
+        kp2pt = self._resolve_provisional(kp2pt, h["carried"])
+        kp2pt[~h["ok"]] = -1
+        np.add.at(self.store.pt_visible, pid[h["in_frustum"] & (pid >= 0)], 1)
+        np.add.at(self.store.pt_found, kp2pt[kp2pt >= 0], 1)
+        T_np = h["T"]
+        self.state = TrackState.OK
+        self.velocity = (T_np @ np.linalg.inv(self.T_cw)).astype(np.float32)
+        self.T_cw = T_np.astype(np.float32)
+        if int(h["decide"]) > 0 and not self.localization_only:
+            t_kf = time.perf_counter()
+            self._create_kf(fd, kp2pt, rec["ts"], rec["fid"],
+                            snap=_snapshot_host(h), lines_np=h.get("lines"),
+                            n_in_kf=n_in)
+            m.t_kf = time.perf_counter() - t_kf
+            m.new_kf = True
+        self._last_kp2pt = kp2pt
+        self._log_frame(rec["ts"])
+        return self._close_rec(m, t0)
+
+    def _close_rec(self, m: TrackMetrics, t0: float):
+        m.t_step = time.perf_counter() - t0 - m.t_kf
+        self._finish_metrics(m)
+        return self.T_cw.copy(), m
+
+    def _resolve_provisional(self, kp2pt: np.ndarray,
+                             carried: np.ndarray) -> np.ndarray:
+        """Features without an association that carry a provisional
+        identity get the point the last keyframe created for it."""
+        if self._prov_kf_pid is not None:
+            sel = (kp2pt < 0) & (carried >= 0)
+            kp2pt[sel] = self._prov_kf_pid[carried[sel]]
+        return kp2pt
+
+    # ------------------------------------------------------------------
 
     def _snapshot_np(self, fd: FrameData):
         """Host copy of the frame's features and depth."""
-        f = fd.feats
-        feats = dict(xy=f.xy.cpu().numpy(), ur=f.ur.cpu().numpy(),
-                     octave=f.octave.cpu().numpy(),
-                     angle=f.angle.cpu().numpy(),
-                     desc=f.desc.cpu().numpy().view(np.uint32),
-                     valid=f.valid.cpu().numpy())
-        return feats, fd.depth.cpu().numpy()
+        return _snapshot_host({k: v.cpu().numpy() for k, v in
+                               _snapshot_fields(fd).items()})
 
-    def _initialize(self, fd: FrameData, timestamp: float, m: TrackMetrics):
+    def _initialize(self, fd: FrameData, timestamp: float, m: TrackMetrics,
+                    fid: int | None = None):
         """StereoInitialization: every stereo-depth'd keypoint becomes a map
         point, the frame becomes KF 0 at identity. Monocular input goes to
         the H/F bootstrap instead."""
+        self._flush_kf_pipeline()
         if self._mono:
             return self._initialize_mono(fd, timestamp, m)
-        fid = self.frame_id
+        fid = self.frame_id if fid is None else fid
         feats, depth = self._snapshot_np(fd)
         if int(((depth > 0) & feats["valid"]).sum()) \
                 <= self.cfg.tracking.min_init_points:
@@ -563,14 +1048,18 @@ class StereoTracker:
                         step: dict | None = None):
         """Stash what the next frame's motion model needs: the device state
         of the step, or (at keyframes and initialization) positions rebuilt
-        from the store."""
+        from the store and no provisional identities."""
         self._last_feats = fd.feats
         self._last_kp2pt = kp2pt
         if step is not None:
             self._last_ptpos = step["ptpos"]
             self._last_haspt = step["haspt"]
             self._last_ismap = step["ismap"]
+            self._last_prov = step["carried"]
         else:
+            self._last_prov = torch.full((self.store.n_kp,), -1,
+                                         dtype=torch.int32,
+                                         device=self.device)
             haspt = kp2pt >= 0
             pos = np.zeros((self.store.n_kp, 3), np.float32)
             pos[haspt] = self.store.pt_pos[kp2pt[haspt]]
@@ -673,7 +1162,8 @@ class StereoTracker:
             stack(per(lambda tr: tr._last_haspt)),
             stack(per(lambda tr: tr._last_ismap)), cur, depth, view,
             tr0._inv_sigma2_lut, tr0.orb.n_levels, tr0.orb.scale,
-            tr0.cfg.tracking.min_motion_matches, float(tr0.cfg.close_depth))
+            tr0.cfg.tracking.min_motion_matches, float(tr0.cfg.close_depth),
+            last_prov=stack(per(lambda tr: tr._last_prov)))
         hosts = _read_back(step)
         return [(h, {k: v[i] for k, v in step.items()})
                 for i, h in enumerate(hosts)]
@@ -757,13 +1247,21 @@ class StereoTracker:
 
     def _reset_full(self):
         """Auto-reset when tracking is lost right after initialization:
-        clear the map, database and trajectory bookkeeping, reinitialize."""
+        clear the map, database and trajectory bookkeeping, reinitialize.
+        In-flight pipelined frames stay queued: each is finalized through
+        the resync path, the first good one initializing the new map."""
         self.store = MapStore(self.cam, self.orb)
         self.kf_cache.clear()
         fixed_tv_cap = self.mapper.fixed_tv_cap
         self.mapper = local_mapping.LocalMapper(
             self.store, self.cfg, cache=self.kf_cache, device=self.device)
         self.mapper.fixed_tv_cap = fixed_tv_cap
+        if self.pipeline:
+            self._pipeline_mapper()
+        self._pending_loops.clear()
+        self._prov_kf_pid = None
+        self._chain = None
+        self._resync = True
         if self.loop_closer is not None:
             self._make_loop_closer()
         self.state = TrackState.NOT_INITIALIZED
@@ -824,8 +1322,10 @@ class StereoTracker:
                 return T_anchor.astype(np.float32)
         return (self.velocity @ self.T_cw).astype(np.float32)
 
-    def _track(self, fd: FrameData, timestamp: float, m: TrackMetrics):
-        fid = self.frame_id
+    def _track(self, fd: FrameData, timestamp: float, m: TrackMetrics,
+               fid: int | None = None):
+        fid = self.frame_id if fid is None else fid
+        self._flush_kf_pipeline()
         if self.state == TrackState.LOST:
             T_reloc = self._attempt_reloc(fd)
             if T_reloc is not None:
@@ -871,6 +1371,7 @@ class StereoTracker:
             kp2pt_l >= 0, pid[np.maximum(kp2pt_l, 0)],
             np.where(kp2last >= 0, self._last_kp2pt[np.maximum(kp2last, 0)],
                      -1)).astype(np.int32)
+        kp2pt = self._resolve_provisional(kp2pt, host["carried"])
         kp2pt[~host["ok"]] = -1
         # visibility stats (SearchLocalPoints IncreaseVisible)
         np.add.at(self.store.pt_visible, pid[host["in_frustum"] & (pid >= 0)], 1)
@@ -915,12 +1416,9 @@ class StereoTracker:
         anchor the refinement at the step's pose). Records the global map
         line id per detection; returns the refined T_cw."""
         cur = fd.feats
-        pobs = pose_opt.PointPoseObs(
-            X=step["ptpos"], obs=torch.cat([cur.xy, cur.ur[:, None]], dim=-1),
-            inv_sigma2=self._inv_sigma2_lut[cur.octave.long()],
-            is_stereo=cur.ur >= 0, valid=step["final"])
         T3, det2ln, n_line = _line_step(
-            self.cam, step["T"], self._line_view, self._cur_fl, pobs,
+            self.cam, step["T"], self._line_view, self._cur_fl,
+            _line_point_obs(cur, step, self._inv_sigma2_lut),
             float(self.cfg.line.gamma), self._md_gate)
         det2ln = det2ln.cpu().numpy()
         self._cur_det2ln = np.where(
@@ -983,13 +1481,20 @@ class StereoTracker:
         return weak or need_close or too_old
 
     def _create_kf(self, fd: FrameData, kp2pt: np.ndarray, timestamp: float,
-                   fid: int) -> bool:
+                   fid: int, snap: tuple | None = None,
+                   lines_np: dict | None = None,
+                   n_in_kf: int | None = None) -> bool:
         """CreateNewKeyFrame: insert the KF, create close-depth points (all
         under ThDepth, or the 100 nearest), then run the local-mapping and
         loop-closing steps. Returns True when a loop closure corrected the
-        map."""
+        map. Pipelined (a finalized record's host snapshot `snap` and
+        `lines_np` given, n_in_kf its inliers): the mapping stage is
+        dispatched and the loop step queued, both absorbed at later
+        finalized frames (`_step_kf_pipeline`); the reference count and
+        kappa go to the device decision chain at the next dispatch."""
         s = self.store
-        feats, depth = self._snapshot_np(fd)
+        pipelined = snap is not None
+        feats, depth = snap if pipelined else self._snapshot_np(fd)
         kf = s.add_keyframe(self.T_cw, feats, depth, kp2pt, fid, timestamp)
         cand = np.nonzero((depth > 0) & feats["valid"] & (kp2pt < 0))[0]
         order = cand[np.argsort(depth[cand])]
@@ -1005,13 +1510,34 @@ class StereoTracker:
                            (uv[:, 1] - cam.cy) * zz / cam.fy, zz], -1)
             Xw = (T_wc[:3, :3] @ Xc.T).T + T_wc[:3, 3]
             kp2pt[sel] = s.create_points(kf, sel, Xw.astype(np.float32))
+        self._prov_kf_pid = kp2pt.copy()
         if self.enable_lines and self._cur_fl is not None:
-            self._create_kf_lines(kf)
+            self._create_kf_lines(kf, lines_np)
         s.set_parent_from_covisibility(kf)
         self.ref_kf = kf
         self.last_kf_frame = fid
         self.mapper.cache_frame(kf, fd.feats)
         t0 = time.perf_counter()
+        if pipelined:
+            lc = self.loop_closer
+            self.mapper.dispatch_kf_stage(kf, voc=None if lc is None
+                                          else lc.voc, fuse_ba=True)
+            self._adopt_view()
+            self._match_loop_words()
+            if lc is not None:
+                self._pending_loops.append([kf, None])
+            t1 = time.perf_counter()
+            self._refresh_ref_matches()
+            if n_in_kf:
+                self._kappa = float(np.clip(
+                    self._ref_matches / max(n_in_kf, 1), 0.2, 1.2))
+            self._refm_host = (np.float32([self._ref_matches, self._kappa]),
+                               fid)
+            if self.enable_lines:
+                self._refresh_line_view()
+            self.kf_timings.append(dict(mapper=t1 - t0, loop=0.0,
+                                        view=time.perf_counter() - t1))
+            return False
         view_out = self.mapper.process_keyframe(kf)
         t1 = time.perf_counter()
         corrected = False
@@ -1031,13 +1557,14 @@ class StereoTracker:
                                     view=time.perf_counter() - t2))
         return corrected
 
-    def _create_kf_lines(self, kf: int):
-        """Line half of keyframe creation: the frame's lines become the
+    def _create_kf_lines(self, kf: int, lines_np: dict | None = None):
+        """Line half of keyframe creation: the frame's lines (`lines_np`,
+        the host copy of `_cur_fl`, read here when not given) become the
         keyframe's line snapshot with its map-line associations, valid
         stereo-triangulated lines of 28 px or more without one become new
-        map lines (world frame at the current pose), then retriangulation,
-        culling and the distinctive-descriptor update. Seconds per stage
-        accumulate in `line_kf_times`."""
+        map lines (world frame at the current pose), then retriangulation
+        (staged in pipelined mode), culling and the distinctive-descriptor
+        update. Seconds per stage accumulate in `line_kf_times`."""
         lt = self.line_kf_times
         t_prev = time.perf_counter()
 
@@ -1048,13 +1575,10 @@ class StereoTracker:
             t_prev = now
 
         s = self.store
-        fl = self._cur_fl
-        h = lambda x: x.cpu().numpy()
-        lines_np = dict(p1=h(fl.kl.p1), p2=h(fl.kl.p2), p1r=h(fl.p1_r),
-                        p2r=h(fl.p2_r), has_r=h(fl.has_stereo),
-                        octave=h(fl.kl.octave), desc=h(fl.kl.desc),
-                        valid=h(fl.kl.valid))
-        X0c, dc = h(fl.X0), h(fl.d)
+        if lines_np is None:
+            lines_np = {k: v.cpu().numpy()
+                        for k, v in _line_fields(self._cur_fl).items()}
+        X0c, dc = lines_np["X0"], lines_np["d"]
         mark("snap")
         det2ln = (self._cur_det2ln if self._cur_det2ln is not None
                   else np.full(s.n_ln_det, -1, np.int32))
@@ -1072,7 +1596,7 @@ class StereoTracker:
             s.create_lines(kf, newsel, X0w.astype(np.float32),
                            dw.astype(np.float32))
         mark("create")
-        s.retriangulate_lines(device=self.device)
+        s.retriangulate_lines(device=self.device)   # staged when pipelined
         mark("retri")
         s.cull_lines()
         mark("cull")

@@ -1,9 +1,10 @@
 """The SLAM map as a struct-of-arrays store with fixed capacities.
 
 Counterpart of lldslam_tpu/slammap/map_store.py: host-side numpy, copied
-from the JAX package, except that line retriangulation runs synchronously
-(its multi-view solve on the device given) instead of through the staged
-queue of the pipelined path. Descriptors stay uint32 here; the tracker and
+from the JAX package, except that line retriangulation (its multi-view
+solve on the device given) writes back at once unless
+`staged_retriangulation` is set, as the pipelined tracker does; the JAX
+package always stages it. Descriptors stay uint32 here; the tracker and
 mapper move them to the device as int32 views.
 
 Replaces the pointer-graph data model of the reference (`Map`, `KeyFrame`,
@@ -30,6 +31,7 @@ per-object mutexes (SURVEY.md §5.2). The rebuild's schedule is deterministic
 """
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -62,6 +64,9 @@ class MapStore:
         self.n_ln_det = n_ln_det
         n = cfg.max_kp
         self.n_kp = n
+        # line solves queued for write-back: (line ids, HostCopy)
+        self.staged_retriangulation = False
+        self._pending_retri: deque = deque()
 
         # keyframes
         self.kf_pose = np.zeros((max_kf, 4, 4), np.float32)  # T_cw
@@ -310,15 +315,22 @@ class MapStore:
 
     def retriangulate_lines(self, max_lines: int = 256, max_obs: int = 8,
                             device="cuda"):
-        """Multi-view line refinement, synchronous: every valid map line
-        with >= 2 keyframe observations (only those the newest keyframe
-        observes, when there are any; the last `max_lines`) is
-        re-triangulated on `device` from all its observation planes (left
-        and right camera per stereo observation, at most `max_obs`), and
-        written back where the solve is finite, the direction keeping the
-        sign of the stored one."""
+        """Multi-view line refinement: every valid map line with >= 2
+        keyframe observations (only those the newest keyframe observes,
+        when there are any; the last `max_lines`) is re-triangulated on
+        `device` from all its observation planes (left and right camera per
+        stereo observation, at most `max_obs`), and written back where the
+        solve is finite and the line still valid, the direction keeping the
+        sign of the stored one. With `staged_retriangulation` (the
+        pipelined tracker) the solve is queued and written back two
+        keyframes later, as the JAX package's staged path does
+        (`absorb_retriangulate(keep=1)` first); otherwise at once."""
         import torch
         from ..geometry import lines as gl
+        from ..ops.transfer import HostCopy
+
+        if self.staged_retriangulation:
+            self.absorb_retriangulate(keep=1)
 
         K = self.n_kf
         kf_idx, det_idx = np.nonzero(self.kf_ln_ids[:K] >= 0)
@@ -378,21 +390,23 @@ class MapStore:
         centers[rows_pi[keep], col[keep]] = rows_c[keep]
         mask[rows_pi[keep], col[keep]] = True
         t = lambda a: torch.from_numpy(a).to(device)
-        X0, d, ok = (x.cpu().numpy() for x in gl.triangulate_multi_view(
-            t(normals), t(centers), t(mask)))
-        good = ok & np.isfinite(X0).all(-1) & np.isfinite(d).all(-1)
-        flip = np.sum(d * self.ln_dir[cand], -1) < 0
-        d[flip] *= -1
-        self.ln_x0[cand[good]] = X0[good]
-        self.ln_dir[cand[good]] = d[good]
+        X0, d, ok = gl.triangulate_multi_view(t(normals), t(centers), t(mask))
+        solve = HostCopy(dict(X0=X0, d=d, ok=ok))
+        self._pending_retri.append((cand, solve))
+        if not self.staged_retriangulation:
+            self.absorb_retriangulate()
 
     def absorb_retriangulate(self, keep: int = 0):
-        """The staged write-back of the JAX package's pipelined line path;
-        the synchronous `retriangulate_lines` writes back directly."""
-        raise NotImplementedError(
-            "staged line retriangulation belongs to the pipelined line path, "
-            "which is not ported to lldslam_tpu_torch yet; see ROADMAP queue "
-            "1 item 4 (with item 5b)")
+        """Write back the queued line solves but the newest `keep`."""
+        while len(self._pending_retri) > keep:
+            cand, solve = self._pending_retri.popleft()
+            r = solve.result()
+            good = (r["ok"] & np.isfinite(r["X0"]).all(-1)
+                    & np.isfinite(r["d"]).all(-1) & self.ln_valid[cand])
+            d = r["d"]
+            d[np.sum(d * self.ln_dir[cand], -1) < 0] *= -1
+            self.ln_x0[cand[good]] = r["X0"][good]
+            self.ln_dir[cand[good]] = d[good]
 
     def create_points(self, kf_id: int, feat_idx: np.ndarray, positions: np.ndarray) -> np.ndarray:
         """Allocate new map points observed by (kf_id, feat_idx). Returns ids."""

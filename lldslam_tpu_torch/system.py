@@ -1,12 +1,15 @@
 """System facade: the public API of the port.
 
-Counterpart of lldslam_tpu/system.py, synchronous: stereo (points and
-lines), monocular and RGB-D input, trajectory export and map checkpoints:
+Counterpart of lldslam_tpu/system.py: stereo (points and lines), monocular
+and RGB-D input, synchronous or pipelined, trajectory export and map
+checkpoints:
 
-    sys = System(cfg, device="cuda")
+    sys = System(cfg, device="cuda")          # pipeline=True: pipelined
     T_cw, metrics = sys.track_stereo(img_l, img_r, timestamp)
+    # or sys.track_stereo(None, None, ts, pair_dev=sys.stage_stereo(l, r))
     # or sys.track_monocular(img, timestamp)
     # or sys.track_rgbd(img, depthmap, timestamp, depth_factor)
+    sys.flush()                               # pipelined: the last frames
     sys.save_trajectory_kitti(path)
     sys.save_map(path)
 
@@ -15,7 +18,12 @@ of the shipped vocabulary (`loop/vocab_synth.npz`, the same file as the JAX
 package's); when that file is absent a vocabulary is trained from the first
 keyframe. Lines run when the config enables them (`ldType: LBDFloat`): from
 stored detections where it gives `lineDetectionsPath`, else from the native
-detector on the device. `pipeline=True` raises NotImplementedError.
+detector on the device.
+
+With `pipeline=True` stereo frames take the pipelined tracker
+(pipeline/tracker.py): `track_stereo` returns the last frame finalized in
+that call, or (current pose estimate, None) when none was, and `flush()`
+finalizes the frames still in flight at the end of a sequence.
 """
 from __future__ import annotations
 
@@ -91,10 +99,21 @@ class System:
         torch.cuda.synchronize(dev)
 
     # -- frame input ------------------------------------------------------
-    def track_stereo(self, img_l: np.ndarray, img_r: np.ndarray,
-                     timestamp: float = 0.0):
-        """Returns (T_cw (4,4), per-frame metrics)."""
-        return self.tracker.process(img_l, img_r, timestamp)
+    def track_stereo(self, img_l: np.ndarray | None,
+                     img_r: np.ndarray | None, timestamp: float = 0.0,
+                     pair_dev: torch.Tensor | None = None, lines_dev=None):
+        """Returns (T_cw (4,4), per-frame metrics). pair_dev: the pair
+        staged by `stage_stereo` (the images may then be None); lines_dev:
+        the frame's stored detections staged by
+        io.stored_lines.stage_stored_pair."""
+        return self.tracker.process(img_l, img_r, timestamp,
+                                    pair_dev=pair_dev, lines_dev=lines_dev)
+
+    def stage_stereo(self, img_l: np.ndarray,
+                     img_r: np.ndarray) -> torch.Tensor:
+        """One stereo pair on the device (one upload), for
+        `track_stereo(..., pair_dev=)`."""
+        return self.tracker.stage_pair(img_l, img_r)
 
     def track_rgbd(self, img: np.ndarray, depthmap: np.ndarray,
                    timestamp: float = 0.0, depth_factor: float = 1.0):
@@ -109,8 +128,10 @@ class System:
         return self.tracker.process_mono(img, timestamp)
 
     def flush(self):
-        """No-op: the synchronous tracker has nothing in flight."""
-        return None
+        """Finalize the pipelined frames in flight and absorb the staged
+        keyframe work; returns the last finalized (T_cw, metrics), or None
+        (always None for the synchronous tracker)."""
+        return self.tracker.flush()
 
     @property
     def state(self) -> TrackState:
@@ -142,11 +163,20 @@ class System:
 
     # -- mode switches and lifecycle --------------------------------------
     def activate_localization_mode(self) -> None:
-        """Track against the frozen map: no keyframes, no map growth."""
+        """Track against the frozen map: no keyframes, no map growth. The
+        pipelined frames in flight were dispatched with the mapping mode's
+        keyframe decision: they are finalized first and the chain reseeds."""
+        self._drain()
         self.tracker.localization_only = True
 
     def deactivate_localization_mode(self) -> None:
+        self._drain()
         self.tracker.localization_only = False
+
+    def _drain(self):
+        if self.pipeline:
+            self.tracker.flush()
+            self.tracker._resync = True
 
     def reset(self) -> None:
         """Full reset: clear map and trajectory, reinitialize."""
@@ -171,5 +201,5 @@ class System:
         self.tracker.restore_map()
 
     def shutdown(self) -> None:
-        """Nothing to stop: the synchronous path starts no threads."""
-        return None
+        """Finalize what is in flight; the port starts no threads."""
+        self.tracker.flush()

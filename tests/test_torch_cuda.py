@@ -24,9 +24,10 @@ leading sequence axis (the multi-sequence driver's S frames) each kernel
 launches once for all S and equals both its plain version and S = 1
 launches; a kernel given tensors on a second card launches there while the
 first is current (skipped on a one-card machine); a loop correction with
-map lines on the card is held to the CPU like the points-only one; and the
+map lines on the card is held to the CPU like the points-only one; the
 native line detector is bit-identical across calls on the card and agrees
-with the CPU.
+with the CPU; the pipelined tracker's chained step runs without a host
+synchronisation, and a pipelined run on the card gives the CPU's keyframes.
 """
 import numpy as np
 import pytest
@@ -592,3 +593,64 @@ def test_detect_lines_on_card(dev):
     assert int(loose.sum()) <= 1, (ep[loose], dd[loose])
     assert (ep[loose] <= 0.5).all()
     assert (torch.linalg.norm(g[4] - c.desc, dim=-1)[loose] <= 0.02).all()
+
+
+def _corridor_system(device, **kw):
+    from lldslam_tpu_torch.config import TrackingConfig
+    from lldslam_tpu_torch.system import System
+    cfg = SlamConfig(camera=CameraConfig(fx=450.0, fy=450.0, cx=320.0,
+                                         cy=120.0, bf=200.0, width=640,
+                                         height=240),
+                     orb=OrbConfig(n_features=600),
+                     tracking=TrackingConfig(min_init_points=80))
+    frames = make_sequence(cfg.camera.stereo_camera(), 14, n_per_m=25.0,
+                           seed=3)
+    return System(cfg, enable_loops=False, device=device, **kw), frames
+
+
+def test_chained_step_never_waits_for_the_host(dev):
+    """The pipelined tracker's dispatch on the card: after the first
+    frames of the corridor, one chained step (`_track_step_chained`) on
+    the tracker's own device chain state and the next frame runs under
+    CUDA's sync debug mode set to "error"."""
+    from lldslam_tpu_torch.pipeline import tracker as trk
+    s, frames = _corridor_system(dev, pipeline=True)
+    for i in range(4):
+        s.track_stereo(*frames[i], timestamp=0.1 * i)
+    tr = s.tracker
+    fd = frame.build_frame_pair(tr.stage_pair(*frames[4]), tr.cam, tr.orb)
+    c = tr._chain
+    args = (tr.cam, c["T"], c["vel"], tr._last_feats, tr._last_ptpos,
+            tr._last_haspt, fd.feats, fd.depth, tr._view,
+            tr._inv_sigma2_lut, tr._last_ismap, tr._last_prov, c["since"],
+            c["scal"], tr.orb.n_levels, tr.orb.scale,
+            tr.cfg.tracking.min_motion_matches, float(tr.cfg.close_depth),
+            3, 10)
+    trk._track_step_chained(*args)            # builds cached constants
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = trk._track_step_chained(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(out["stats"][1]) > 100
+
+
+def test_pipelined_run_on_card_matches_cpu(dev):
+    """The 14-frame corridor through the pipelined System on the card and
+    on the CPU: the same keyframes, every frame OK, camera centres within
+    0.05 m (the frame builds differ by an ulp of atan2 here and there)."""
+    runs = []
+    for device in (dev, "cpu"):
+        s, frames = _corridor_system(device, pipeline=True)
+        for i, (l, r) in enumerate(frames):
+            s.track_stereo(l, r, timestamp=0.1 * i)
+        s.flush()
+        runs.append(s.tracker)
+    card, cpu = runs
+    kf = lambda tr: [m.frame_id for m in tr.metrics if m.new_kf]
+    assert kf(card) == kf(cpu)
+    assert [m.state for m in card.metrics] == ["OK"] * 14
+    dp = np.linalg.norm(card.trajectory()[1][:, :3, 3]
+                        - cpu.trajectory()[1][:, :3, 3], axis=-1)
+    assert dp.max() < 0.05, dp.max()

@@ -14,10 +14,18 @@ features; the tracking step at N = 256 keypoints and P = 512 map points).
   the port's step of each sequence alone: poses within 1e-4 m, the integer
   outputs equal on >= 99% of the keypoints (the pose LM sums in another
   order when batched, which can move an accept/reject step).
+- The pipelined chained step of S = 3 sequences, each with a provisional
+  table and its own decision state, against JAX `batched_chained_step`:
+  poses and velocities within 1e-3 m / 1e-4 rad, the integers exact.
 - `MultiSequenceDriver` with S = 3 for 8 frames against three solo
   `System`s with the same pinned view capacity: every frame OK, camera
   centres within 0.05 m (the bound of tests/test_multi_seq.py), frames 1-7
   tracked in the batch.
+- `PipelinedMultiSequenceDriver` with S = 3 for 10 frames against three
+  solo pipelined `System`s, all sequences to the end and with two ending
+  early (a re-stack, then a lone survivor): every frame OK and finalized,
+  camera centres within 0.35 m (tests/test_multi_seq.py's pipelined bound),
+  no synchronous re-track.
 """
 import inspect
 from pathlib import Path
@@ -208,8 +216,9 @@ def _pose_close(Ta, Tb):
     return dt, float(np.arcsin(min(np.linalg.norm(w), 1.0)))
 
 
-def _port_step(seqs):
-    """The port's `_track_core` over the sequences given (a leading S)."""
+def _port_inputs(seqs):
+    """The port's stacked step inputs of the sequences given (a leading
+    S): last_feats, last_ptpos, last_haspt, last_ismap, cur, depth, view."""
     stack = lambda get: np.stack([get(a) for a in seqs])
     feats = lambda key: tm.FrameFeatures(*(
         _t(stack(lambda a: a[key][f].view(np.int32) if f == "desc"
@@ -217,12 +226,30 @@ def _port_step(seqs):
     view = tm.MapPointView(*(
         _t(stack(lambda a: a["view"][f].view(np.int32) if f == "desc"
                  else a["view"][f])) for f in tm.MapPointView._fields))
+    return (feats("last"), _t(stack(lambda a: a["ptpos"])),
+            _t(stack(lambda a: a["haspt"])), _t(stack(lambda a: a["ismap"])),
+            feats("cur"), _t(stack(lambda a: a["depth"])), view)
+
+
+def _jax_inputs(seqs):
+    """The same inputs stacked for the JAX package's vmapped steps."""
+    jstack = lambda get: jax.tree.map(lambda *xs: jnp.stack(xs),
+                                      *[get(a) for a in seqs])
+    jfeats = lambda key: jstack(lambda a: jm.FrameFeatures(
+        **{k: jnp.asarray(v) for k, v in a[key].items()}))
+    arr = lambda key: jstack(lambda a: jnp.asarray(a[key]))
+    view = jstack(lambda a: jm.MapPointView(
+        **{k: jnp.asarray(v) for k, v in a["view"].items()}))
+    return (jfeats("last"), arr("ptpos"), arr("haspt"), arr("ismap"),
+            jfeats("cur"), arr("depth"), view)
+
+
+def _port_step(seqs):
+    """The port's `_track_core` over the sequences given (a leading S)."""
+    last, ptpos, haspt, ismap, cur, depth, view = _port_inputs(seqs)
     return ttracker._track_core(
-        CAM, _t(stack(lambda a: a["T"])), feats("last"),
-        _t(stack(lambda a: a["ptpos"])), _t(stack(lambda a: a["haspt"])),
-        _t(stack(lambda a: a["ismap"])), feats("cur"),
-        _t(stack(lambda a: a["depth"])), view, _t(LUT), 8, 1.2, 7,
-        CLOSE_DEPTH)
+        CAM, _t(np.stack([a["T"] for a in seqs])), last, ptpos, haspt, ismap,
+        cur, depth, view, _t(LUT), 8, 1.2, 7, CLOSE_DEPTH)
 
 
 def test_batched_track_step_matches():
@@ -234,20 +261,11 @@ def test_batched_track_step_matches():
     rng = np.random.default_rng(0)
     seqs = [_sequence_step(rng) for _ in range(3)]
     S = len(seqs)
-    jstack = lambda get: jax.tree.map(lambda *xs: jnp.stack(xs),
-                                      *[get(a) for a in seqs])
-    jfeats = lambda key: jstack(lambda a: jm.FrameFeatures(
-        **{k: jnp.asarray(v) for k, v in a[key].items()}))
+    jl, jX, jh, jim, jc, jd, jv = _jax_inputs(seqs)
     out = jms.batched_track_step(
-        JCAM, jstack(lambda a: jnp.asarray(a["T"])), jfeats("last"),
-        jstack(lambda a: jnp.asarray(a["ptpos"])),
-        jstack(lambda a: jnp.asarray(a["haspt"])),
-        jstack(lambda a: jnp.asarray(a["ismap"])),
-        jnp.full((S, N), -1, jnp.int32), jfeats("cur"),
-        jstack(lambda a: jnp.asarray(a["depth"])),
-        jstack(lambda a: jm.MapPointView(
-            **{k: jnp.asarray(v) for k, v in a["view"].items()})),
-        jnp.asarray(LUT), 8, 1.2, 7, CLOSE_DEPTH)
+        JCAM, jnp.asarray(np.stack([a["T"] for a in seqs])), jl, jX, jh, jim,
+        jnp.full((S, N), -1, jnp.int32), jc, jd, jv, jnp.asarray(LUT), 8,
+        1.2, 7, CLOSE_DEPTH)
     packed, j_final, jT = (np.asarray(out[0]), np.asarray(out[5]),
                            np.asarray(out[6]))
     step = _port_step(seqs)
@@ -265,6 +283,60 @@ def test_batched_track_step_matches():
         assert dt <= 1e-4, (s, dt)
         for key in ("kp2last", "kp2pt_l", "final", "ok"):
             assert (step[key][s] == alone[key][0]).float().mean() >= 0.99, key
+
+
+def test_batched_chained_step_matches_jax():
+    """S = 3 pipelined chained steps (`_track_step_chained` with a leading
+    S) against JAX `batched_chained_step`: T_pred = vel @ T_prev per
+    sequence, a provisional table on 40% of each last frame's points, and
+    each sequence's own decision state (past its gap with a high reference
+    count, inside its gap, past its gap with none). Per sequence the pose
+    and the velocity within 1e-3 m and 1e-4 rad; the stats, decide, since,
+    [ref_m, kappa], kp2last, kp2pt_l and the next provisional table exact;
+    the decision fires in one sequence and not in another."""
+    rng = np.random.default_rng(5)
+    seqs = [_sequence_step(rng) for _ in range(3)]
+    S = len(seqs)
+    T_prev, vel, prov = [], [], []
+    for a in seqs:
+        Tp = _pose(rng, rot=0.01, trans=0.15) @ a["T"]
+        T_prev.append(Tp.astype(np.float32))
+        vel.append((a["T"].astype(np.float64) @ np.linalg.inv(Tp))
+                   .astype(np.float32))
+        prov.append(np.where(a["haspt"] & (rng.uniform(size=N) < 0.4),
+                             rng.integers(0, N, N), -1).astype(np.int32))
+    T_prev, vel, prov = np.stack(T_prev), np.stack(vel), np.stack(prov)
+    since = np.int32([5, 1, 4])
+    scal = np.float32([[5000.0, 0.7], [5000.0, 0.7], [0.0, 0.7]])
+    L = 23 + 3 * N + -(-N // 32) + -(-P // 32)
+    jl, jX, jh, jim, jc, jd, jv = _jax_inputs(seqs)
+    jout = jms.batched_chained_step(
+        JCAM, jnp.asarray(T_prev), jnp.asarray(vel), jl, jX, jh, jc, jd, jv,
+        jnp.asarray(LUT), jim, jnp.asarray(prov), jnp.asarray(since), jnp.asarray(scal),
+        jnp.zeros((S, L), jnp.int32), jnp.int32(0), 8, 1.2, 7, CLOSE_DEPTH,
+        3, 10)
+    packed, jprov, jT, jvel, jsince, jscal = (
+        np.asarray(jout[i]) for i in (0, 4, 5, 6, 8, 9))
+    last, ptpos, haspt, ismap, cur, depth, view = _port_inputs(seqs)
+    out = ttracker._track_step_chained(
+        CAM, _t(T_prev), _t(vel), last, ptpos, haspt, cur, depth, view,
+        _t(LUT), ismap, _t(prov), _t(since), _t(scal), 8, 1.2, 7,
+        CLOSE_DEPTH, 3, 10)
+    for s in range(S):
+        for key, want in (("T", jT[s]), ("vel", jvel[s])):
+            dt, da = _pose_close(out[key][s].numpy(), want)
+            assert dt <= 1e-3 and da <= 1e-4, (s, key, dt, da)
+        assert np.array_equal(out["stats"][s].numpy(), packed[s, 16:22]), s
+        assert int(out["decide"][s]) == int(packed[s, 22]), s
+        assert np.array_equal(out["kp2last"][s].numpy(),
+                              packed[s, 23:23 + N]), s
+        assert np.array_equal(out["kp2pt_l"][s].numpy(),
+                              packed[s, 23 + N:23 + 2 * N]), s
+        assert (out["carried"][s] >= 0).sum() > 10, s
+    assert np.array_equal(out["since"].numpy(), jsince)
+    assert np.array_equal(out["scal"].numpy(), jscal)
+    assert np.array_equal(out["prov"].numpy(), jprov)
+    assert set(out["decide"].tolist()) == {0, 1}
 
 
 def _driver_cfg():
@@ -309,8 +381,66 @@ def test_multi_sequence_driver_matches_solo():
         assert len(tr._view_pid) == 2048
         batched = [m for m in tr.metrics if m.t_dispatch > 0]
         assert [m.frame_id for m in batched] == list(range(1, n_frames))
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        PipelinedMultiSequenceDriver(_driver_cfg(), 2)
-    # an entry point: on the card unless the caller asks for the CPU
-    assert inspect.signature(MultiSequenceDriver).parameters[
-        "device"].default == "cuda"
+    # the pipelined driver is ported: pipelined trackers, one view shape,
+    # the JAX driver's window of 4
+    pdrv = PipelinedMultiSequenceDriver(_driver_cfg(), 2, device="cpu")
+    assert pdrv.W == 4 and all(
+        tr.pipeline and tr.mapper.fixed_tv_cap == 2048
+        for tr in pdrv.trackers)
+    # entry points: on the card unless the caller asks for the CPU
+    for cls in (MultiSequenceDriver, PipelinedMultiSequenceDriver):
+        assert inspect.signature(cls).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("ends", [(10, 10, 10), (10, 5, 7)],
+                         ids=["all", "two_end_early"])
+def test_pipelined_driver_matches_solo_pipelined(ends):
+    """S = 3 corridors through PipelinedMultiSequenceDriver against each
+    sequence's own pipelined System (view capacity 2048 in both), as
+    tests/test_multi_seq.py holds the JAX driver: every frame finalized and
+    OK, camera centres within 0.35 m. With sequences ending early the batch
+    is flushed and re-stacked with the survivors, which continue from the
+    last dispatched chain state, and the last survivor continues alone on
+    its own pipelined tracker, its chain reseeded from its finalized
+    state: no frame of any sequence falls back to a synchronous re-track
+    (a stale chain would make that frame weak)."""
+    n_seq, n_frames = 3, max(ends)
+    short = min(ends) < n_frames
+    seed0 = 30 if short else 10
+    seqs = [make_sequence(CAM, n_frames, n_per_m=25.0, seed=seed0 + s)
+            for s in range(n_seq)]
+    solo = []
+    for s in range(n_seq):
+        sys_ = System(_driver_cfg(), enable_loops=False, pipeline=True,
+                      device="cpu")
+        sys_.tracker.mapper.fixed_tv_cap = 2048
+        for i in range(ends[s]):
+            sys_.track_stereo(*seqs[s][i], timestamp=i * 0.1)
+        sys_.flush()
+        solo.append(sys_.tracker)
+    drv = PipelinedMultiSequenceDriver(_driver_cfg(), n_seq,
+                                       enable_loops=False, device="cpu")
+    retracks = [0] * n_seq
+    for s, tr in enumerate(drv.trackers):
+        def counted(*a, _f=tr._track, _s=s, **k):
+            retracks[_s] += 1
+            return _f(*a, **k)
+        tr._track = counted
+    for i in range(n_frames):
+        drv.process([seqs[s][i] if i < ends[s] else None
+                     for s in range(n_seq)], [i * 0.1] * n_seq)
+    drv.flush()
+    assert drv.n_rebuilds >= (3 if short else 1)
+    assert retracks == [0] * n_seq, retracks
+    for s, (ts, T) in enumerate(drv.trajectories()):
+        tr = drv.trackers[s]
+        assert len(ts) == ends[s]
+        assert [m.frame_id for m in tr.metrics] == list(range(ends[s]))
+        assert [m.state for m in tr.metrics] == ["OK"] * ends[s]
+        _, T_solo = solo[s].trajectory()
+        dp = np.linalg.norm(T[:, :3, 3] - T_solo[:, :3, 3], axis=-1)
+        print(f"sequence {s}: max centre diff {dp.max():.5f} m; keyframes "
+              f"{tr.store.n_kf} batched, {solo[s].store.n_kf} solo")
+        assert dp.max() < 0.35, (s, dp.max())
+        assert not (tr._pending or tr._windows or tr.mapper.busy)
+    assert not (drv._pending or drv._inflight or drv._members)

@@ -1,5 +1,5 @@
 """The synchronous stereo slice of the PyTorch port against the JAX package,
-end to end, plus the port's import guard and its not-yet-ported entries.
+end to end, plus the port's import guard and its other entry points.
 
 The whole-slice tests run 12 frames of the seed-3 synthetic corridor at
 640x240 with 600 ORB features (the tests/test_pipelined.py camera) through
@@ -164,9 +164,8 @@ def _line_obs_error(s) -> float:
 @pytest.mark.parametrize("what", ["loops", "pipeline", "lines", "rgbd",
                                   "mono", "save_map", "load_map"])
 def test_unported_entries_raise(what, tmp_path):
-    """Everything outside the ported slices raises NotImplementedError
-    naming the ROADMAP queue; nothing falls back to another path. `loops`
-    is ported whole: on a map with lines the loop closer's global BA runs
+    """Every entry point of this list is ported now, and none falls back
+    to another path. `loops` is ported whole: on a map with lines the loop closer's global BA runs
     the joint point+line problem instead of raising: it moves the map lines
     and lowers their median endpoint distance to their keyframe
     observations (pixel noise 0.3) by a quarter or more. `lines` (the
@@ -174,7 +173,10 @@ def test_unported_entries_raise(what, tmp_path):
     detections), `rgbd`, `mono`, `save_map` and `load_map` are ported too
     and no longer raise: the native route builds its System on the
     detector, and a blank stereo, RGB-D or monocular frame leaves the
-    tracker NOT_INITIALIZED; an empty map saves and loads."""
+    tracker NOT_INITIALIZED; an empty map saves and loads. `pipeline` (the
+    pipelined tracker) builds, a blank pair staged by stage_stereo and
+    passed as pair_dev leaves it NOT_INITIALIZED (a frame before
+    initialization is synchronous), and its flush finalizes nothing."""
     cfg = _port_cfg()
     if what == "loops":
         lc = System(cfg, device="cpu").tracker.loop_closer
@@ -212,8 +214,12 @@ def test_unported_entries_raise(what, tmp_path):
         assert m.state == "NOT_INITIALIZED" and s.map.n_kf == 0
         return
     assert what == "pipeline"
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        System(cfg, pipeline=True, device="cpu")
+    s = System(cfg, pipeline=True, device="cpu")
+    assert s.tracker.pipeline and s.tracker.mapper.fixed_tv_cap == 4096
+    img = np.zeros((240, 640), np.uint8)
+    T, m = s.track_stereo(None, None, pair_dev=s.stage_stereo(img, img))
+    assert m.state == "NOT_INITIALIZED" and s.map.n_kf == 0
+    assert np.array_equal(T, np.eye(4)) and s.flush() is None
 
 
 def test_system_defaults_to_the_card():
