@@ -108,12 +108,30 @@ Phases, each fatal on failure (nonzero exit, no result line):
    corridors for 20 frames with sequence 1 ending after 12, against each
    sequence's solo pipelined System: every frame OK, centres within 0.35 m,
    K1a and K1b once a batched frame, the last frame's batched K1a, K1b and
-   K2g exact against their plain versions, sequence-frames/s.
+   K2g exact against their plain versions, sequence-frames/s;
+18. dist (after loop_lines): the distributed global BA
+   (lldslam_tpu_torch.parallel.dist_schur) on the one-rank NCCL group of
+   dist_schur.make_mesh: LoopCloser.global_ba through the single and the
+   distributed route, in turns, on copies of the loop phase's ring map
+   (host ms of each route, median of 3; all_reduce calls per solve), then
+   once more each under torch.use_deterministic_algorithms, distributed
+   against single (poses within 2e-3 m, points within 2e-2 m: with
+   index_add_'s atomic adds the card's BA does not repeat run to run);
+   then the loop-lines correction with its global BA on the distributed
+   route against the same correction on the single route (both
+   deterministic) with the loop_lines phase's bounds, and both routes of
+   global_ba timed on the corrected map;
+19. dist_ranks: graft_entry.dryrun_multichip on every card (NCCL, one rank
+   a card) beside two spawned gloo ranks on one card, each running the
+   loop-lines correction (deterministic) with global_ba routed by the
+   world size: poses and points bit-equal across the ranks, rank 0 within
+   the loop_lines bounds of the one-rank result; ms of each.
 The main path's last frame's K1a and K1b inputs are held exactly to the
 plain versions too. Kernel launches are counted per path (counts zeroed just
 before, read just after): main, lines, loop, reloc, mono and rgbd are
 System runs; reloc_site is the two direct calls of the relocalization call
-site; loop_lines the two corrections; multiseq and multiseq_13 the driver
+site; loop_lines the two corrections; dist the loop-lines correction on
+the distributed route; multiseq and multiseq_13 the driver
 runs; mini_kitti the two mini KITTI CLI runs; native_lines the KITTI-size
 CLI run on the native detector; pipelined and pipelined_lines the staged
 frames and the flush; pipelined_multiseq the driver run. The second-to-last
@@ -121,11 +139,14 @@ line is the kernel table as JSON, the last line the device summary as JSON.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from types import SimpleNamespace
 
 import numpy as np
@@ -1370,7 +1391,7 @@ def phase_loop(dev) -> dict:
     if not ate < RING_ATE_BOUND_M:
         raise AssertionError(f"ATE {ate} m above {RING_ATE_BOUND_M} m")
     need_launches(counts, "loop", ("tracking", "fusion", "loop"))
-    return counts
+    return dict(counts=counts, store=tr.store, voc=lc.voc, cfg=cfg)
 
 
 def phase_reloc(dev) -> tuple[dict, dict]:
@@ -1700,48 +1721,306 @@ def phase_loop_lines(dev) -> dict:
     card_ms = 1e3 * (time.perf_counter() - t)
     counts = read_counts()
     a, b = stores
-    K, n = a.n_kf, a.n_ln
-    dt = float(np.abs(b.kf_pose[:K, :3, 3] - a.kf_pose[:K, :3, 3]).max())
-    da = float(_angle_rad(a.kf_pose[:K, :3, :3], b.kf_pose[:K, :3, :3]).max())
-    live = a.pt_valid[:a.n_pt] & b.pt_valid[:b.n_pt]
-    dp = float(np.median(np.linalg.norm(
-        a.pt_pos[:a.n_pt][live] - b.pt_pos[:b.n_pt][live], axis=-1)))
-    same_obs = float((a.kf_pt_ids[:K] == b.kf_pt_ids[:K]).mean())
-    lv = a.ln_valid[:n] & b.ln_valid[:n]
-    ex = np.linalg.norm(b.ln_x0[:n] - a.ln_x0[:n], axis=-1)[lv] \
-        / np.maximum(1.0, np.linalg.norm(a.ln_x0[:n], axis=-1)[lv])
-    ed = np.abs(np.abs(np.sum(b.ln_dir[:n] * a.ln_dir[:n], -1)) - 1.0)[lv]
+    n = a.n_ln
+    d = store_diff(a, b)
     moved = float(np.linalg.norm(b.ln_x0[:n] - lines_before, axis=-1).max())
     finite = bool(np.isfinite(b.ln_x0[:n]).all() and np.isfinite(
         b.ln_dir[:n]).all())
-    out = dict(counts=counts, card_ms=card_ms, cpu_ms=cpu_ms, pose_dt=dt,
-               pose_da=da, point_median=dp, same_obs=same_obs,
-               n_lines=int(lv.sum()), line_x0_rel_max=float(ex.max()),
-               line_x0_rel_median=float(np.median(ex)),
-               line_dir_max=float(ed.max()), line_moved=moved,
+    out = dict(counts=counts, card_ms=card_ms, cpu_ms=cpu_ms, **d,
+               store=b, inputs=(S, T_corr, pids), line_moved=moved,
                stage_ms={k: 1e3 * v for k, v in card.stage_times.items()
                          if not k.startswith("n")})
-    log(f"loop_lines: _correct with {int(lv.sum())} map lines, card "
-        f"{card_ms:.1f} ms, CPU {cpu_ms:.1f} ms; card against CPU: poses "
-        f"{dt:.2e} m / {da:.2e} rad, points median {dp:.2e} m, observations "
-        f"{100 * same_obs:.3f}% equal, lines X0 rel max {ex.max():.2e} "
-        f"median {np.median(ex):.2e}, direction 1-|cos| max {ed.max():.2e}; "
-        f"lines moved up to {moved:.3f} m; launches {counts}; stage ms "
+    log(f"loop_lines: _correct with {d['n_lines']} map lines, card "
+        f"{card_ms:.1f} ms, CPU {cpu_ms:.1f} ms; card against CPU: "
+        f"{_diff_text(d)}; lines moved up to {moved:.3f} m; launches "
+        f"{counts}; stage ms "
         + json.dumps({k: round(v, 2) for k, v in out["stage_ms"].items()}))
-    checks = [
-        (dt <= 2e-3 and da <= 1e-3, f"poses {dt} m {da} rad"),
-        (dp < 5e-3 and same_obs >= 0.999, f"points {dp} m, obs {same_obs}"),
-        (int(lv.sum()) >= 100 and finite, f"{int(lv.sum())} lines, finite "
-                                          f"{finite}"),
+    checks = loop_lines_checks(d) + [
+        (d["n_lines"] >= 100 and finite, f"{d['n_lines']} lines, finite "
+                                         f"{finite}"),
         (moved > 0.05, f"the correction moved the lines {moved} m"),
-        (float(np.median(ex)) < 2e-3 and float(ex.max()) < 2e-2
-         and float(ed.max()) < 1e-3, "lines card against CPU"),
         (counts["k2g_sites"].get("loop", 0) >= 2, f"launches {counts}"),
     ]
     bad = [msg for ok, msg in checks if not ok]
     if bad:
         raise AssertionError("loop_lines: " + "; ".join(bad))
     return out
+
+
+def store_diff(a, b) -> dict:
+    """Map b against map a: keyframe centres (max m) and rotations (max
+    rad), live points (median and max m), observations equal (share), map
+    lines valid in both: X0 relative to max(1, |X0|) (max, median) and
+    1 - |cos| of the directions (max)."""
+    K, n = a.n_kf, a.n_ln
+    live = a.pt_valid[:a.n_pt] & b.pt_valid[:b.n_pt]
+    de = np.linalg.norm(a.pt_pos[:a.n_pt][live] - b.pt_pos[:b.n_pt][live],
+                        axis=-1)
+    lv = a.ln_valid[:n] & b.ln_valid[:n]
+    ex = np.linalg.norm(b.ln_x0[:n] - a.ln_x0[:n], axis=-1)[lv] \
+        / np.maximum(1.0, np.linalg.norm(a.ln_x0[:n], axis=-1)[lv])
+    ed = np.abs(np.abs(np.sum(b.ln_dir[:n] * a.ln_dir[:n], -1)) - 1.0)[lv]
+    return dict(
+        pose_dt=float(np.abs(b.kf_pose[:K, :3, 3]
+                             - a.kf_pose[:K, :3, 3]).max()),
+        pose_da=float(_angle_rad(a.kf_pose[:K, :3, :3],
+                                 b.kf_pose[:K, :3, :3]).max()),
+        point_median=float(np.median(de)), point_max=float(de.max()),
+        same_obs=float((a.kf_pt_ids[:K] == b.kf_pt_ids[:K]).mean()),
+        n_lines=int(lv.sum()), line_x0_rel_max=float(ex.max(initial=0.0)),
+        line_x0_rel_median=float(np.median(ex)) if len(ex) else 0.0,
+        line_dir_max=float(ed.max(initial=0.0)))
+
+
+def _diff_text(d: dict) -> str:
+    return (f"poses {d['pose_dt']:.2e} m / {d['pose_da']:.2e} rad, points "
+            f"median {d['point_median']:.2e} max {d['point_max']:.2e} m, "
+            f"observations {100 * d['same_obs']:.3f}% equal, lines X0 rel max "
+            f"{d['line_x0_rel_max']:.2e} median {d['line_x0_rel_median']:.2e}, "
+            f"direction 1-|cos| max {d['line_dir_max']:.2e}")
+
+
+def loop_lines_checks(d: dict) -> list:
+    """The loop_lines bounds (the card against the CPU): poses 2e-3 m
+    / 1e-3 rad, points median 5e-3 m, lines X0 relative median 2e-3 and
+    max 2e-2, directions 1e-3."""
+    return [
+        (d["pose_dt"] <= 2e-3 and d["pose_da"] <= 1e-3,
+         f"poses {d['pose_dt']} m {d['pose_da']} rad"),
+        (d["point_median"] < 5e-3 and d["same_obs"] >= 0.999,
+         f"points {d['point_median']} m, obs {d['same_obs']}"),
+        (d["line_x0_rel_median"] < 2e-3 and d["line_x0_rel_max"] < 2e-2
+         and d["line_dir_max"] < 1e-3, "lines"),
+    ]
+
+
+DIST_REPS = 3
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch.use_deterministic_algorithms inside the block: on the card,
+    index_add_ then sums in a fixed order instead of with atomic adds, so a
+    solve gives the same bits run to run (ops without a deterministic
+    version only warn; those warnings are not printed)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings(
+                "ignore", message=".*deterministic implementation.*")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def gba_routes(dev, store, voc, cfg, label: str, hold: bool) -> dict:
+    """LoopCloser.global_ba on copies of `store` through the single route
+    and the distributed route (force_dist: the one-rank NCCL group), in
+    turns, DIST_REPS times each: host ms of each (synchronised, median) and
+    the all_reduce calls per distributed solve. With atomic adds a BA on
+    such a map does not repeat to the bit (nor to 2e-3 m: an LM step can
+    flip), so with `hold` the two routes are held to each other once more
+    under `deterministic()`: poses within 2e-3 m, points within 2e-2 m."""
+    import copy
+
+    from lldslam_tpu_torch.loop.closing import LoopCloser
+    from lldslam_tpu_torch.parallel import dist_schur
+
+    def run(route):
+        st = copy.deepcopy(store)
+        lc = LoopCloser(st, voc, cfg, device=dev)
+        before = dist_schur.all_reduce_calls
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lc.global_ba(force_dist=route == "dist")
+        torch.cuda.synchronize()
+        return (st, 1e3 * (time.perf_counter() - t),
+                dist_schur.all_reduce_calls - before)
+
+    ms = dict(single=[], dist=[])
+    calls, atomic = [], {}
+    for _ in range(DIST_REPS):
+        for route in ("single", "dist"):
+            st, t, n = run(route)
+            ms[route].append(t)
+            atomic.setdefault(route, st)
+            if route == "dist":
+                calls.append(n)
+    K = store.n_kf
+    pose = lambda a, b: float(np.abs(a.kf_pose[:K] - b.kf_pose[:K]).max())
+    d_atomic = store_diff(atomic["single"], atomic["dist"])
+    res = dict(single_ms=statistics.median(ms["single"]),
+               dist_ms=statistics.median(ms["dist"]), ms=ms,
+               all_reduce=calls[0],
+               atomic_pose_max=pose(atomic["single"], atomic["dist"]),
+               atomic_point_max=d_atomic["point_max"])
+    log(f"dist: {label} global BA ({K} keyframes, "
+        f"{int(store.pt_valid[:store.n_pt].sum())} points, "
+        f"{d_atomic['n_lines']} map lines): single {res['single_ms']:.1f} "
+        f"ms, distributed ({torch.distributed.get_backend()}, one rank) "
+        f"{res['dist_ms']:.1f} ms (median of {DIST_REPS}; all "
+        f"{json.dumps({k: [round(v, 1) for v in x] for k, x in ms.items()})}"
+        f"); all_reduce calls per solve {calls}; atomic adds, first pair "
+        f"(not held): pose entries {res['atomic_pose_max']:.2e}, "
+        f"{_diff_text(d_atomic)}")
+    bad = [] if len(set(calls)) == 1 and calls[0] > 0 else [
+        f"all_reduce calls {calls}"]
+    if hold:
+        with deterministic():
+            det = {route: run(route) for route in ("single", "dist")}
+        d = store_diff(det["single"][0], det["dist"][0])
+        res.update(det_ms=dict(single=det["single"][1], dist=det["dist"][1]),
+                   pose_max=pose(det["single"][0], det["dist"][0]),
+                   point_max=d["point_max"])
+        log(f"dist: {label}, deterministic: single {det['single'][1]:.1f} "
+            f"ms, distributed {det['dist'][1]:.1f} ms; distributed against "
+            f"single: pose entries {res['pose_max']:.2e}, {_diff_text(d)}")
+        bad += [msg for ok, msg in (
+            (res["pose_max"] <= 2e-3, f"poses {res['pose_max']} m"),
+            (d["point_max"] <= 2e-2, f"points {d['point_max']} m"),
+            (det["dist"][2] == calls[0], f"all_reduce calls {det['dist'][2]}"),
+        ) if not ok]
+    if bad:
+        raise AssertionError(f"dist {label}: " + "; ".join(bad))
+    return res
+
+
+def loop_lines_correct(dev, inputs, route: str):
+    """The loop-lines correction of phase_loop_lines on a fresh map on
+    `dev`: the guided matches (K2g at the loop site), then `_correct(21, 2,
+    S)` with global_ba on `route` ("single", "dist", or "auto": chosen by
+    the world size). Returns (store, ms of `_correct`, ms of its global
+    BA)."""
+    from lldslam_tpu_torch.io.synthetic import add_loop_lines, make_loop_map
+    from lldslam_tpu_torch.loop.closing import LoopCloser
+    from lldslam_tpu_torch.slammap.map_store import MapStore
+    from lldslam_tpu_torch.system import _default_vocabulary
+
+    cfg = patch_world_config()
+    store = MapStore(cfg.camera.stereo_camera(), cfg.orb, max_kf=64,
+                     max_pt=20000)
+    add_loop_lines(store, make_loop_map(store))
+    lc = LoopCloser(store, _default_vocabulary(), cfg, device=dev)
+    force = dict(single=False, dist=True, auto=None)[route]
+    lc.global_ba = lambda: LoopCloser.global_ba(lc, force_dist=force)
+    S, T_corr, pids = inputs
+    lc._loop_guided = (lc._project_match(21, pids, T_corr, th=2.5), pids)
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    lc._correct(21, 2, S)
+    torch.cuda.synchronize(dev)
+    return (store, 1e3 * (time.perf_counter() - t),
+            1e3 * lc.stage_times["global_ba"])
+
+
+def phase_dist(dev, ring: dict, loop_lines: dict) -> dict:
+    """The distributed global BA on one process: the one-rank NCCL group
+    of dist_schur.make_mesh. (1) The loop phase's ring map after its event
+    through both routes of global_ba (gba_routes). (2) The loop-lines
+    correction on the card (K2g at the loop site) with global_ba on the
+    distributed route against the same correction on the single route,
+    both under `deterministic()`, with phase_loop_lines' bounds; (3) both
+    routes of global_ba on the corrected map, timed (the correction has
+    held them to each other on this map)."""
+    from lldslam_tpu_torch.parallel import dist_schur
+    from lldslam_tpu_torch.system import _default_vocabulary
+
+    group = dist_schur.make_mesh(device=dev)
+    log(f"dist: group backend {torch.distributed.get_backend(group)}, "
+        f"world {torch.distributed.get_world_size(group)}")
+    ring_out = gba_routes(dev, ring["store"], ring["voc"], ring["cfg"],
+                          "ring map", hold=True)
+    inputs = loop_lines["inputs"]
+    with deterministic():
+        single, single_ms, single_gba = loop_lines_correct(dev, inputs,
+                                                           "single")
+        calls = dist_schur.all_reduce_calls
+        reset_counts()
+        store, correct_ms, gba_ms = loop_lines_correct(dev, inputs, "dist")
+        counts = read_counts()
+        calls = dist_schur.all_reduce_calls - calls
+    d = store_diff(single, store)
+    d_phase = store_diff(loop_lines["store"], store)
+    log(f"dist: loop-lines _correct (deterministic) with the distributed "
+        f"global BA {correct_ms:.1f} ms (its global BA {gba_ms:.1f} ms, "
+        f"all_reduce calls {calls}), with the single route {single_ms:.1f} "
+        f"ms ({single_gba:.1f} ms); distributed against single: "
+        f"{_diff_text(d)}; against the loop_lines phase's card result "
+        f"(atomic adds): {_diff_text(d_phase)}; launches {counts}")
+    bad = [msg for ok, msg in loop_lines_checks(d) + [
+        (counts["k2g_sites"].get("loop", 0) >= 2, f"launches {counts}"),
+        (calls > 0, "no all_reduce: the single route ran")] if not ok]
+    if bad:
+        raise AssertionError("dist loop-lines: " + "; ".join(bad))
+    lines_out = gba_routes(dev, store, _default_vocabulary(),
+                           patch_world_config(), "loop-lines map", hold=False)
+    return dict(counts=counts, ring=ring_out, loop_lines=lines_out,
+                correct_ms=correct_ms, gba_ms=gba_ms, single_ms=single_ms,
+                single_gba_ms=single_gba, store=store)
+
+
+def loop_lines_rank(rank: int, device, inputs) -> dict:
+    """One spawned rank of phase_dist_ranks: the loop-lines correction on
+    `device` under `deterministic()`, global_ba routed by the world size.
+    Returns the corrected map, the ms of the correction and of its global
+    BA, the world size and the all_reduce calls."""
+    from lldslam_tpu_torch.parallel import dist_schur
+
+    with deterministic():
+        store, ms, gba_ms = loop_lines_correct(device, inputs, "auto")
+    return dict(ms=ms, gba_ms=gba_ms, all_reduce=dist_schur.all_reduce_calls,
+                world=torch.distributed.get_world_size(), store=store)
+
+
+def phase_dist_ranks(dev, loop_lines: dict, dist_out: dict) -> dict:
+    """graft_entry.dryrun_multichip on every card (NCCL, one rank a card)
+    and, at the same time, two spawned gloo ranks on one card, each running
+    the loop-lines correction under `deterministic()` with global_ba routed
+    by the world size (2): poses and points bit-equal across the ranks,
+    rank 0 within the loop_lines bounds of the one-rank result."""
+    from lldslam_tpu_torch import graft_entry
+    from lldslam_tpu_torch.parallel.ranks import run_ranks
+
+    def timed(fn, *args, **kw):
+        t = time.perf_counter()
+        return fn(*args, **kw), time.perf_counter() - t
+
+    # the dry run starts beside the gloo ranks: both spend most of their
+    # time starting processes, and the dry run's solves are tiny
+    n = torch.cuda.device_count()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        dry = pool.submit(timed, graft_entry.dryrun_multichip, n)
+        out, ranks_s = timed(run_ranks, loop_lines_rank, 2,
+                             f"cuda:{dev.index or 0}",
+                             args=(loop_lines["inputs"],), timeout_s=300.0)
+        _, dry_s = dry.result()
+    log(f"dist_ranks: dryrun_multichip({n}) on NCCL: {dry_s:.1f} s with "
+        f"spawning (beside the gloo ranks)")
+    a, b = out[0]["store"], out[1]["store"]
+    live = a.pt_valid[:a.n_pt]
+    same = (np.array_equal(a.kf_pose[:a.n_kf], b.kf_pose[:b.n_kf])
+            and np.array_equal(live, b.pt_valid[:b.n_pt])
+            and np.array_equal(a.pt_pos[:a.n_pt][live],
+                               b.pt_pos[:b.n_pt][live]))
+    lines_same = np.array_equal(a.ln_x0[:a.n_ln], b.ln_x0[:b.n_ln])
+    d = store_diff(dist_out["store"], a)
+    log(f"dist_ranks: two gloo ranks on {dev}: {ranks_s:.1f} s with "
+        f"spawning; _correct {[round(o['ms'], 1) for o in out]} ms, its "
+        f"global BA {[round(o['gba_ms'], 1) for o in out]} ms, deterministic "
+        f"(one rank: {dist_out['correct_ms']:.1f} ms, its global BA "
+        f"{dist_out['gba_ms']:.1f} ms); world {[o['world'] for o in out]}, "
+        f"all_reduce calls {[o['all_reduce'] for o in out]}; poses and points "
+        f"bit-equal across the ranks {same}, every map line {lines_same}; "
+        f"rank 0 against the one-rank result: {_diff_text(d)}")
+    bad = [msg for ok, msg in loop_lines_checks(d) + [
+        (same, "the ranks' poses or points differ"),
+        (all(o["world"] == 2 and o["all_reduce"] > 0 for o in out),
+         "a rank did not take the distributed route")] if not ok]
+    if bad:
+        raise AssertionError("dist_ranks: " + "; ".join(bad))
+    return dict(dryrun_s=dry_s, ranks_s=ranks_s,
+                correct_ms=[o["ms"] for o in out],
+                gba_ms=[o["gba_ms"] for o in out])
 
 
 def sweep_config():
@@ -2449,21 +2728,26 @@ def main() -> int:
                         phase_native_lines(dev, *lines_world[:2]))
     paths["mini_kitti"] = native["mini_counts"]
     paths["native_lines"] = native["counts"]
-    paths["loop"] = phase_done("loop", phase_loop(dev))
+    ring = phase_done("loop", phase_loop(dev))
+    paths["loop"] = ring["counts"]
     paths["reloc"], paths["reloc_site"] = phase_done("reloc",
                                                      phase_reloc(dev))
     mono = phase_done("mono", phase_mono(dev, frames, poses))
     paths["mono"] = mono["counts"]
     paths["rgbd"] = phase_done("rgbd", phase_rgbd(dev))["counts"]
     phase_done("rectify", phase_rectify(dev))
-    paths["loop_lines"] = phase_done("loop_lines",
-                                     phase_loop_lines(dev))["counts"]
+    loop_lines = phase_done("loop_lines", phase_loop_lines(dev))
+    paths["loop_lines"] = loop_lines["counts"]
+    dist_out = phase_done("dist", phase_dist(dev, ring, loop_lines))
+    paths["dist"] = dist_out["counts"]
+    phase_done("dist_ranks", phase_dist_ranks(dev, loop_lines, dist_out))
     multi = phase_done("multiseq", phase_multiseq(dev))
     paths["multiseq"] = multi["counts"]
     paths["multiseq_13"] = multi["sweep"]["counts"]
     paths["pipelined_multiseq"] = phase_done(
         "pipelined_multiseq",
         phase_pipelined_multiseq(dev, multi["seqs"]))["counts"]
+    torch.distributed.destroy_process_group()    # dist's one-rank group
     by_path = lambda k: {p: c[k] for p, c in paths.items()}
     batched = lambda k: dict(
         multi["kernels"][k], launches=paths["multiseq"][k],

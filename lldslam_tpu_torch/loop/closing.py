@@ -27,8 +27,10 @@ correction), which gives what `process_keyframe` gives.
 Scale stays fixed (stereo). Host numpy bookkeeping is ported line for line;
 the solvers run on the loop closer's device (the card by default). The
 RANSAC draw uses a `torch.Generator` seeded 0 on that device. Global BA
-runs on one device: the JAX package's multi-device path
-(parallel/dist_schur.py) has no counterpart here.
+solves on one device, or landmark-sharded over the ranks of the default
+process group when it has more than one (parallel/dist_schur.py; the JAX
+package takes that route when it sees more than one device). Every rank
+then runs the same correction on its own copy of the same map.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import SlamConfig
 from ..frontend import matching
@@ -471,12 +474,19 @@ class LoopCloser:
 
     # ------------------------------------------------------------------
 
-    def global_ba(self):
+    def global_ba(self, force_dist: bool | None = None):
         """Full-map BA on the matrix-free CG path (10 LM iterations of 64 CG
-        steps), single device: every valid point, one observation per
-        (KF, point), subsampled evenly above GBA_OBS_CAP, KF 0 fixed; with
-        every observation of the lines that have >= 4 (stereo-weighted)
-        observations as a second landmark class when there are any."""
+        steps): every valid point, one observation per (KF, point),
+        subsampled evenly above GBA_OBS_CAP, KF 0 fixed; with every
+        observation of the lines that have >= 4 (stereo-weighted)
+        observations as a second landmark class when there are any.
+
+        When the default process group has more than one rank, the same
+        problem is solved landmark-sharded over it (`parallel.dist_schur`;
+        every rank calls this on its copy of the same map and ends with the
+        same poses, points and lines); otherwise on this closer's device.
+        `force_dist` overrides that choice (True on one process makes a
+        one-rank group, `dist_schur.make_mesh`)."""
         s = self.store
         K = s.n_kf
         pids = np.nonzero(s.pt_valid[: s.n_pt])[0]
@@ -514,6 +524,11 @@ class LoopCloser:
                 inv_sigma2=self._t(self._inv_sigma2[s.kf_oct[kf_idx, feat_idx]]),
                 is_stereo=self._t(ur >= 0), valid=ones(len(kf_idx))))
         lp = self._gather_line_problem()
+        if force_dist is None:
+            force_dist = dist.is_initialized() and dist.get_world_size() > 1
+        if force_dist:
+            self._global_ba_dist(problem, pids, lp)
+            return
         if lp is None:
             solved, _ = ba.ba_solve(s.cam, problem, iters=10, cg_iters=64)
         else:
@@ -527,6 +542,34 @@ class LoopCloser:
             self._write_back_lines(lids, joint.q, joint.alpha)
         s.kf_pose[:K] = solved.poses.cpu().numpy()
         s.pt_pos[pids] = solved.points.cpu().numpy()
+
+    def _global_ba_dist(self, problem: ba.BAProblem, pids: np.ndarray, lp):
+        """`global_ba`'s problem laid out over the group's ranks, solved
+        with `dist_schur`, assembled on every rank and written back."""
+        from ..parallel import dist_schur as ds
+        s = self.store
+        K = s.n_kf
+        group = ds.make_mesh(device=self.device)
+        n = dist.get_world_size(group)
+        if lp is None:
+            dp, _ = ds.make_dist_problem(problem, n)
+            poses, points, _ = ds.dist_ba_solve(
+                s.cam, ds.place(dp, group, self.device), group, iters=10,
+                cg_iters=64)
+            (points,) = ds.assemble(group, points)
+        else:
+            lids, q, alpha, lobs = lp
+            djp, _, _ = ds.make_dist_joint_problem(lines_ba.JointProblem(
+                base=problem, q=q, alpha=alpha, line_valid=torch.ones(
+                    len(lids), dtype=torch.bool, device=self.device),
+                lobs=lobs), n)
+            poses, points, q, alpha, _ = ds.dist_joint_ba_solve(
+                s.cam, ds.place_joint(djp, group, self.device), group,
+                iters=10, cg_iters=64, gamma=float(self.cfg.line.gamma))
+            points, q, alpha = ds.assemble(group, points, q, alpha)
+            self._write_back_lines(lids, q[:len(lids)], alpha[:len(lids)])
+        s.kf_pose[:K] = poses.cpu().numpy()
+        s.pt_pos[pids] = points[:len(pids)].cpu().numpy()
 
     def _gather_line_problem(self, min_obs: int = 4):
         """The line half of the global problem: the valid lines with
@@ -568,3 +611,32 @@ class LoopCloser:
         fin = np.isfinite(X0).all(-1) & np.isfinite(d).all(-1)
         s.ln_x0[lids[fin]] = X0[fin]
         s.ln_dir[lids[fin]] = d[fin]
+
+    def _global_line_refine(self):
+        """Fixed-pose refinement of the lines that have >= 4 observations
+        (`lines_ba.refine_lines_fixed_poses`), written back where finite.
+        No default path calls it: global BA solves lines jointly with poses
+        and points. Kept as a standalone utility, as in the JAX package."""
+        lp = self._gather_line_problem()
+        if lp is None:
+            return
+        s = self.store
+        K = s.n_kf
+        lids, q, alpha, lobs = lp
+        none = torch.zeros(0, dtype=torch.bool, device=self.device)
+        base = ba.BAProblem(
+            poses=self._t(s.kf_pose[:K]),
+            points=torch.zeros((0, 3), device=self.device),
+            pose_fixed=torch.ones(K, dtype=torch.bool, device=self.device),
+            point_valid=none,
+            obs=ba.BAObs(k=none.long(), p=none.long(),
+                         uvr=torch.zeros((0, 3), device=self.device),
+                         inv_sigma2=torch.zeros(0, device=self.device),
+                         is_stereo=none, valid=none))
+        q2, a2 = lines_ba.refine_lines_fixed_poses(
+            s.cam, lines_ba.JointProblem(
+                base=base, q=q, alpha=alpha,
+                line_valid=torch.ones(len(lids), dtype=torch.bool,
+                                      device=self.device), lobs=lobs),
+            gamma=float(self.cfg.line.gamma))
+        self._write_back_lines(lids, q2, a2)

@@ -268,12 +268,17 @@ def _build_blocks(problem: BAProblem, r, Jc, Jp, W):
     return Hcc, bc, Hpp, bp, Wcp
 
 
-def _point_blocks_inv(problem: BAProblem, Hpp, Wcp, lam):
+def _same(x):
+    return x
+
+
+def _point_blocks_inv(problem: BAProblem, Hpp, Wcp, lam, reduce_points=None):
     """Damped point blocks, identity where a point has no active
     observation, inverted in closed form."""
     P = problem.points.shape[0]
-    seen = torch.zeros(P, dtype=Hpp.dtype, device=Hpp.device).index_add_(
-        0, problem.obs.p, Wcp.abs().sum(dim=(1, 2))) > 0
+    seen = (reduce_points or _same)(torch.zeros(
+        P, dtype=Hpp.dtype, device=Hpp.device).index_add_(
+        0, problem.obs.p, Wcp.abs().sum(dim=(1, 2)))) > 0
     eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
     return _inv3x3(torch.where(seen[:, None, None], _damp_diag(Hpp, lam),
                                eye3))
@@ -299,24 +304,30 @@ def _reduced_solve(pose_fixed, point_valid, Hcc, bc, Hpp_inv, bp, B, lam):
     return dc, dp * point_valid[:, None]
 
 
-def _schur_cg(problem: BAProblem, Hcc, bc, Hpp, bp, Wcp, lam, cg_iters: int):
+def _schur_cg(problem: BAProblem, Hcc, bc, Hpp, bp, Wcp, lam, cg_iters: int,
+              reduce_poses=None, reduce_points=None):
     """Matrix-free reduced-system CG: S @ v by two observation-level
-    scatter passes, block-Jacobi preconditioner on Jacobi-scaled blocks."""
+    scatter passes, block-Jacobi preconditioner on Jacobi-scaled blocks.
+    Hcc, bc, Hpp and bp arrive summed over every observation; the two
+    hooks sum the pose-space (K, .) and point-space (P, .) scatters of
+    this function across the ranks that share the observations (None: one
+    device holds them all)."""
     o = problem.obs
     K = problem.poses.shape[0]
     P = problem.points.shape[0]
     dt, dev = bc.dtype, bc.device
+    rk, rp = reduce_poses or _same, reduce_points or _same
     free = (~problem.pose_fixed).to(dt)
-    Hpp_inv = _point_blocks_inv(problem, Hpp, Wcp, lam)
+    Hpp_inv = _point_blocks_inv(problem, Hpp, Wcp, lam, reduce_points)
     Hcc_d = _damp_diag(Hcc, lam)
 
     def to_points(v):                     # z_p = sum_o Wcp_o^T v[k(o)]
-        return torch.zeros((P, 3), dtype=dt, device=dev).index_add_(
-            0, o.p, torch.einsum("oij,oi->oj", Wcp, v[o.k]))
+        return rp(torch.zeros((P, 3), dtype=dt, device=dev).index_add_(
+            0, o.p, torch.einsum("oij,oi->oj", Wcp, v[o.k])))
 
     def to_poses(z):                      # y_k = sum_o Wcp_o z[p(o)]
-        return torch.zeros((K, 6), dtype=dt, device=dev).index_add_(
-            0, o.k, torch.einsum("oij,oj->oi", Wcp, z[o.p]))
+        return rk(torch.zeros((K, 6), dtype=dt, device=dev).index_add_(
+            0, o.k, torch.einsum("oij,oj->oi", Wcp, z[o.p])))
 
     def S_matvec(v):
         v = v * free[:, None]
@@ -378,22 +389,31 @@ def _total_cost(cam, problem: BAProblem, delta_scale=1.0):
 
 
 def ba_solve(cam: StereoCamera, problem: BAProblem, iters: int = 5,
-             cg_iters: int = 24):
+             cg_iters: int = 24, reduce_poses=None, reduce_points=None):
     """`iters` LM iterations on the observation table, each step solved by
     `cg_iters` CG steps (GNC: the Huber delta starts 8x inflated and halves
-    per iteration). Returns (problem', final chi2 per observation)."""
+    per iteration). Returns (problem', final chi2 per observation).
+
+    When ranks share the observation table, `reduce_poses` sums a
+    pose-space tensor (and the LM cost) over them and `reduce_points` a
+    point-space one (both in place, returning the tensor): every sum over
+    observations then covers all of them, so every rank takes the same
+    steps (parallel/dist_schur.py, parallel/sharded_ba.py). None: this
+    device holds every observation."""
     o = problem.obs
     problem = problem._replace(obs=o._replace(k=o.k.long(), p=o.p.long()))
+    rk, rp = reduce_poses or _same, reduce_points or _same
     lam = torch.full((), 1e-4, dtype=problem.poses.dtype,
                      device=problem.poses.device)
     for i in range(iters):
         dscale = max(1.0, 64.0 * 0.5 ** i)
         r, Jc, Jp, W, _, _ = _terms(cam, problem, dscale)
-        dc, dp = _schur_cg(problem, *_build_blocks(problem, r, Jc, Jp, W),
-                           lam, cg_iters)
+        Hcc, bc, Hpp, bp, Wcp = _build_blocks(problem, r, Jc, Jp, W)
+        dc, dp = _schur_cg(problem, rk(Hcc), rk(bc), rp(Hpp), rp(bp), Wcp,
+                           lam, cg_iters, reduce_poses, reduce_points)
         cand = _apply_update(problem, dc, dp)
-        accept = _total_cost(cam, cand, dscale) \
-            < _total_cost(cam, problem, dscale)
+        accept = rk(_total_cost(cam, cand, dscale)) \
+            < rk(_total_cost(cam, problem, dscale))
         problem = problem._replace(
             poses=torch.where(accept, cand.poses, problem.poses),
             points=torch.where(accept, cand.points, problem.points))

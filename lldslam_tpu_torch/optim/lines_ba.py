@@ -323,35 +323,40 @@ def _joint_cost(cam: StereoCamera, problem: JointProblem, gamma: float,
 
 
 def _schur_cg_joint(problem: JointProblem, Hcc, bc, Hpp, bp, Wcp, Hll, bl,
-                    Wcl, lam, cg_iters: int):
+                    Wcl, lam, cg_iters: int, reduce_poses=None,
+                    reduce_points=None):
     """Matrix-free reduced camera system with both landmark classes
     marginalized: S @ v by observation-level scatter passes per class,
     block-Jacobi preconditioner on Jacobi-scaled blocks. Returns
-    (dc, dp, dl)."""
+    (dc, dp, dl). The hooks are `ba._schur_cg`'s; `reduce_points` serves
+    both landmark classes, and one `reduce_poses` carries both classes'
+    pose-space backscatter."""
     base = problem.base
     o, ol = base.obs, problem.lobs
     K, P, L = base.poses.shape[0], base.points.shape[0], problem.q.shape[0]
     dt, dev = bc.dtype, bc.device
+    rk, rp = reduce_poses or ba._same, reduce_points or ba._same
     free = (~base.pose_fixed).to(dt)
-    Hpp_inv = ba._point_blocks_inv(base, Hpp, Wcp, lam)
-    seen_l = torch.zeros(L, dtype=dt, device=dev).index_add_(
-        0, ol.l, Wcl.abs().sum(dim=(1, 2))) > 0
+    Hpp_inv = ba._point_blocks_inv(base, Hpp, Wcp, lam, reduce_points)
+    seen_l = rp(torch.zeros(L, dtype=dt, device=dev).index_add_(
+        0, ol.l, Wcl.abs().sum(dim=(1, 2)))) > 0
     Hll_inv = _line_blocks_inv(Hll, seen_l, lam)
     Hcc_d = ba._damp_diag(Hcc, lam)
 
     def to_marks(v):
         """Both classes' z = W^T v per landmark, through H^-1."""
-        zp = torch.zeros((P, 3), dtype=dt, device=dev).index_add_(
-            0, o.p, torch.einsum("oij,oi->oj", Wcp, v[o.k]))
-        zl = torch.zeros((L, 4), dtype=dt, device=dev).index_add_(
-            0, ol.l, torch.einsum("oij,oi->oj", Wcl, v[ol.k]))
+        zp = rp(torch.zeros((P, 3), dtype=dt, device=dev).index_add_(
+            0, o.p, torch.einsum("oij,oi->oj", Wcp, v[o.k])))
+        zl = rp(torch.zeros((L, 4), dtype=dt, device=dev).index_add_(
+            0, ol.l, torch.einsum("oij,oi->oj", Wcl, v[ol.k])))
         return zp, zl
 
     def to_poses(zp, zl):
         """y_k = sum_o W_o z[landmark(o)] over both classes."""
         y = torch.zeros((K, 6), dtype=dt, device=dev).index_add_(
             0, o.k, torch.einsum("oij,oj->oi", Wcp, zp[o.p]))
-        return y.index_add_(0, ol.k, torch.einsum("oij,oj->oi", Wcl, zl[ol.l]))
+        return rk(y.index_add_(0, ol.k,
+                               torch.einsum("oij,oj->oi", Wcl, zl[ol.l])))
 
     def S_matvec(v):
         v = v * free[:, None]
@@ -399,12 +404,15 @@ def _schur_cg_joint(problem: JointProblem, Hcc, bc, Hpp, bp, Wcp, Hll, bl,
 
 
 def joint_ba_solve_cg(cam: StereoCamera, problem: JointProblem, iters: int = 10,
-                      cg_iters: int = 64, gamma: float = 0.5):
+                      cg_iters: int = 64, gamma: float = 0.5,
+                      reduce_poses=None, reduce_points=None):
     """Joint pose + point + line global BA on the sparse tables: `iters` LM
     iterations (GNC as in `joint_ba_solve`), each step from `cg_iters` CG
     steps on the two-class reduced system. Returns (problem', point chi2,
-    line chi2)."""
+    line chi2). The hooks are `ba.ba_solve`'s; `reduce_points` serves both
+    landmark classes."""
     problem = _long_indices(problem)
+    rk, rpt = reduce_poses or ba._same, reduce_points or ba._same
     lam = torch.full((), 1e-4, dtype=problem.q.dtype, device=problem.q.device)
     for i in range(iters):
         dscale = max(1.0, 64.0 * 0.5 ** i)
@@ -413,12 +421,13 @@ def joint_ba_solve_cg(cam: StereoCamera, problem: JointProblem, iters: int = 10,
         Hcc, bc, Hpp, bp, Wcp = ba._build_blocks(base, rp, Jcp, Jp, Wp)
         rl, Jcl, Jl, Wl, _ = _line_terms(cam, problem, gamma, dscale)
         Hcc_l, bc_l, Hll, bl, Wcl = _line_blocks(problem, rl, Jcl, Jl, Wl)
-        dc, dp, dl = _schur_cg_joint(problem, Hcc + Hcc_l, bc + bc_l, Hpp, bp,
-                                     Wcp, Hll, bl, Wcl, lam, cg_iters)
+        dc, dp, dl = _schur_cg_joint(
+            problem, rk(Hcc + Hcc_l), rk(bc + bc_l), rpt(Hpp), rpt(bp), Wcp,
+            rpt(Hll), rpt(bl), Wcl, lam, cg_iters, reduce_poses, reduce_points)
         cand = _apply_line_update(
             problem._replace(base=ba._apply_update(base, dc, dp)), dl)
-        accept = _joint_cost(cam, cand, gamma, dscale) \
-            < _joint_cost(cam, problem, gamma, dscale)
+        accept = rk(_joint_cost(cam, cand, gamma, dscale)) \
+            < rk(_joint_cost(cam, problem, gamma, dscale))
         problem = _select(accept, problem, cand)
         lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 5.0), 1e-9, 1e4)
     return (problem, *_final_chi2(cam, problem, gamma))

@@ -1,3 +1,4 @@
-"""Counterpart of lldslam_tpu.parallel: the synchronous multi-sequence
-driver (`multi_seq.MultiSequenceDriver`). The pipelined driver and the
-multi-device bundle adjustment (dist_schur, sharded_ba) are not ported."""
+"""Counterpart of lldslam_tpu.parallel: the multi-sequence drivers
+(`multi_seq`), the landmark-sharded and the observation-sharded bundle
+adjustment on torch.distributed (`dist_schur`, `sharded_ba`) and the
+spawner of a host's ranks (`ranks`)."""

@@ -28,6 +28,9 @@ map lines on the card is held to the CPU like the points-only one; the
 native line detector is bit-identical across calls on the card and agrees
 with the CPU; the pipelined tracker's chained step runs without a host
 synchronisation, and a pipelined run on the card gives the CPU's keyframes.
+The distributed bundle adjustment on a one-rank NCCL group runs without a
+host synchronisation, and the loop closer's distributed global BA on the
+card agrees with its single route.
 """
 import numpy as np
 import pytest
@@ -442,6 +445,81 @@ def test_loop_solvers_never_wait_for_the_host(dev):
     assert (err_b < 0.2 * np.linalg.norm(T0[1:4, :3, 3] - T[1:4, :3, 3],
                                          axis=-1)).all()
     assert (n_b.cpu().numpy() >= 290).all() and tuple(in_b.shape) == (3, 300)
+
+
+def test_dist_solvers_on_nccl_never_wait_for_the_host(dev):
+    """The landmark-sharded point BA and joint point+line BA
+    (parallel.dist_schur) on the one-rank NCCL group of make_mesh, 10 x 64
+    CG steps, under CUDA's sync debug mode set to "error": an all_reduce on
+    NCCL makes the card's stream wait, never the host. Results finite, the
+    robust cost at least halved, the lines' chi2 small."""
+    from lldslam_tpu_torch import graft_entry
+    from lldslam_tpu_torch.parallel import dist_schur
+
+    cam = graft_entry.DRYRUN_CAM
+    problem, joint = graft_entry.dryrun_problems(4)
+    group = dist_schur.make_mesh(device=dev)
+    dp, _ = dist_schur.make_dist_problem(problem, 1)
+    local = dist_schur.place(dp, group, dev)
+    djp, _, _ = dist_schur.make_dist_joint_problem(joint, 1)
+    local_j = dist_schur.place_joint(djp, group, dev)
+    cost_0 = float(ba._total_cost(cam, local))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        poses, points, chi2 = dist_schur.dist_ba_solve(
+            cam, local, group, iters=10, cg_iters=64)
+        poses_j, points_j, q, alpha, chi2_j = dist_schur.dist_joint_ba_solve(
+            cam, local_j, group, iters=10, cg_iters=64)
+        chi2_l = lines_ba._line_terms(cam, local_j._replace(
+            base=local_j.base._replace(poses=poses_j, points=points_j),
+            q=q, alpha=alpha), 0.5, need_jac=False)[4]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for x in (poses, points, chi2, poses_j, points_j, q, alpha, chi2_j):
+        assert bool(torch.isfinite(x).all())
+    cost = float(ba._total_cost(cam, local._replace(poses=poses,
+                                                    points=points)))
+    assert cost < 0.5 * cost_0, (cost, cost_0)
+    assert float(chi2_l.median()) < 1e-2
+
+
+def test_dist_global_ba_on_card_matches_single(dev):
+    """LoopCloser.global_ba on the card through the landmark-sharded route
+    (force_dist=True: the one-rank NCCL group) against the single route on
+    the card, on the loop map with map lines (the joint point+line
+    problem): poses within 2e-3 m, points within 2e-2 m, lines within 2e-3
+    of their distance (median; 2e-2 at most) and 1e-3 in direction. Both
+    run with deterministic algorithms: with index_add_'s atomic adds two
+    runs of the same route can take different LM steps."""
+    cfg = SlamConfig(camera=CameraConfig(fx=400.0, fy=400.0, cx=256.0,
+                                         cy=192.0, bf=200.0, width=512,
+                                         height=384),
+                     orb=OrbConfig(n_features=600))
+    voc = _default_vocabulary()
+    cam = cfg.camera.stereo_camera()
+    stores = [MapStore(cam, cfg.orb, max_kf=64, max_pt=20000) for _ in "ab"]
+    for st in stores:
+        add_loop_lines(st, make_loop_map(st))
+    before = stores[0].ln_x0[:stores[0].n_ln].copy()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        LoopCloser(stores[0], voc, cfg, device=dev).global_ba(force_dist=True)
+        LoopCloser(stores[1], voc, cfg, device=dev).global_ba(
+            force_dist=False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, b = stores
+    K, n = a.n_kf, a.n_ln
+    assert np.abs(a.kf_pose[:K] - b.kf_pose[:K]).max() < 2e-3
+    assert np.abs(a.pt_pos[:a.n_pt] - b.pt_pos[:a.n_pt]).max() < 2e-2
+    assert np.isfinite(a.ln_x0[:n]).all() and np.isfinite(a.ln_dir[:n]).all()
+    assert np.abs(a.ln_x0[:n] - before).max() > 1e-3
+    ex = np.linalg.norm(a.ln_x0[:n] - b.ln_x0[:n], axis=-1) \
+        / np.maximum(1.0, np.linalg.norm(b.ln_x0[:n], axis=-1))
+    ed = np.abs(np.abs(np.sum(a.ln_dir[:n] * b.ln_dir[:n], -1)) - 1.0)
+    assert np.median(ex) < 2e-3 and ex.max() < 2e-2, (np.median(ex), ex.max())
+    assert ed.max() < 1e-3
 
 
 def test_kernels_and_projection_search_never_wait_for_the_host(dev):

@@ -241,18 +241,25 @@ def test_system_defaults_to_the_card():
             System(cfg)
 
 
-def test_multi_device_global_ba_has_no_counterpart():
-    """The port runs on one device: the JAX package's multi-device global
-    BA (lldslam_tpu/parallel/dist_schur.py, ROADMAP queue 1 item 7) has no
-    module and no switch in the port; its parallel package holds the
-    multi-sequence driver alone."""
-    assert importlib.util.find_spec("lldslam_tpu.parallel.dist_schur")
-    assert importlib.util.find_spec("lldslam_tpu_torch.parallel.multi_seq")
+def test_multi_device_global_ba_has_its_counterpart():
+    """The JAX package's multi-device global BA has its counterpart in the
+    port (ROADMAP queue 1 item 7c): parallel.dist_schur and
+    parallel.sharded_ba define every public function and class of the JAX
+    modules (the JAX mesh-axis names aside), LoopCloser.global_ba takes
+    `force_dist`, and neither module imports JAX."""
     for name in ("dist_schur", "sharded_ba"):
-        assert importlib.util.find_spec(
-            f"lldslam_tpu_torch.parallel.{name}") is None
-    assert list(inspect.signature(LoopCloser.global_ba).parameters) == [
-        "self"]
+        jax_src = (ROOT / "lldslam_tpu" / "parallel" / f"{name}.py"
+                   ).read_text()
+        public = set(re.findall(r"^(?:def|class) ([a-zA-Z]\w*)", jax_src,
+                                re.M))
+        assert public, name
+        mod = importlib.import_module(f"lldslam_tpu_torch.parallel.{name}")
+        missing = [n for n in public if not callable(getattr(mod, n, None))]
+        assert not missing, (name, missing)
+        src = Path(mod.__file__).read_text()
+        assert not re.search(r"^\s*(from|import)\s+(jax|lldslam_tpu)\b",
+                             src, re.M), name
+    assert "force_dist" in inspect.signature(LoopCloser.global_ba).parameters
 
 
 def test_port_imports_without_jax():
