@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
 
 Phases, each fatal on failure (nonzero exit, no result line):
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
-2. build: the three CUDA kernels compiled from lldslam_tpu_torch/csrc with
+2. build: the four CUDA kernels compiled from lldslam_tpu_torch/csrc with
    nvcc;
 3. K1a (fused ORB describe) and K1b (fused stereo SAD) against their plain
    PyTorch versions, every output exact, at the frame build's shapes
@@ -99,7 +99,7 @@ Phases, each fatal on failure (nonzero exit, no result line):
    tracking and at the fusion site exact against their plain versions; ms
    per call against the synchronous frames, the synchronous step's
    read-back wait, the busy share; then the same schedule again: the same
-   keyframes, centres within 1e-3 m;
+   keyframes and poses, bit for bit;
 16. pipelined_lines (after lines): the stored-line world on the same
    schedule with its detections staged by stage_stored_pair: as 15 against
    the synchronous lines run (centres within 0.25 m), line matches against
@@ -109,33 +109,40 @@ Phases, each fatal on failure (nonzero exit, no result line):
    sequence's solo pipelined System: every frame OK, centres within 0.35 m,
    K1a and K1b once a batched frame, the last frame's batched K1a, K1b and
    K2g exact against their plain versions, sequence-frames/s;
-18. dist (after loop_lines): the distributed global BA
-   (lldslam_tpu_torch.parallel.dist_schur) on the one-rank NCCL group of
-   dist_schur.make_mesh: LoopCloser.global_ba through the single and the
-   distributed route, in turns, on copies of the loop phase's ring map
-   (host ms of each route, median of 3; all_reduce calls per solve), then
-   once more each under torch.use_deterministic_algorithms, distributed
-   against single (poses within 2e-3 m, points within 2e-2 m: with
-   index_add_'s atomic adds the card's BA does not repeat run to run);
-   then the loop-lines correction with its global BA on the distributed
-   route against the same correction on the single route (both
-   deterministic) with the loop_lines phase's bounds, and both routes of
-   global_ba timed on the corrected map;
+18. dist (after loop_lines): the loop-event solvers repeat bit for bit and
+   the distributed global BA (lldslam_tpu_torch.parallel.dist_schur) on
+   the one-rank NCCL group of dist_schur.make_mesh equals the single route
+   bit for bit, with no deterministic mode (the solvers' float sums run
+   through the fixed-order segment-sum kernel, csrc/segment_sum.cu):
+   LoopCloser.global_ba through the single and the distributed route, in
+   turns, on copies of the loop phase's ring map (host ms of each route,
+   median of 3; all_reduce calls and segment-sum launches per solve), every
+   run bit-equal to the first; the loop-lines correction twice on the
+   single route and once on the distributed route, all bit-equal and equal
+   to the loop_lines phase's card result; the ring event's pose graph
+   through optimize_pose_graph twice, bit-equal; both routes of global_ba
+   on the corrected map, bit-equal and timed; then the segment-sum kernel
+   on the inputs of every call site of one ring-map global BA and one
+   loop-lines correction, each exact against CPU index_add_ (its plain
+   version) and against a second launch, with its device ms, its bound,
+   the atomic index_add_ on the card (the library yardstick),
+   index_put_(accumulate=True), the CPU index_add_ and the layout build;
 19. dist_ranks: graft_entry.dryrun_multichip on every card (NCCL, one rank
    a card) beside two spawned gloo ranks on one card, each running the
-   loop-lines correction (deterministic) with global_ba routed by the
-   world size: poses and points bit-equal across the ranks, rank 0 within
-   the loop_lines bounds of the one-rank result; ms of each.
+   loop-lines correction with global_ba routed by the world size: the
+   ranks' maps bit-equal, rank 0 within the loop_lines bounds of the
+   one-rank result; ms of each.
 The main path's last frame's K1a and K1b inputs are held exactly to the
 plain versions too. Kernel launches are counted per path (counts zeroed just
 before, read just after): main, lines, loop, reloc, mono and rgbd are
 System runs; reloc_site is the two direct calls of the relocalization call
-site; loop_lines the two corrections; dist the loop-lines correction on
-the distributed route; multiseq and multiseq_13 the driver
-runs; mini_kitti the two mini KITTI CLI runs; native_lines the KITTI-size
-CLI run on the native detector; pipelined and pipelined_lines the staged
-frames and the flush; pipelined_multiseq the driver run. The second-to-last
-line is the kernel table as JSON, the last line the device summary as JSON.
+site; loop_lines the two corrections (the CPU one launches nothing); dist
+the loop-lines correction on the distributed route; multiseq and
+multiseq_13 the driver runs; mini_kitti the two mini KITTI CLI runs;
+native_lines the KITTI-size CLI run on the native detector; pipelined and
+pipelined_lines the staged frames and the flush; pipelined_multiseq the
+driver run. The second-to-last line is the kernel table as JSON, the last
+line the device summary as JSON.
 """
 from __future__ import annotations
 
@@ -146,7 +153,6 @@ import statistics
 import subprocess
 import sys
 import time
-import warnings
 from types import SimpleNamespace
 
 import numpy as np
@@ -502,18 +508,22 @@ def phase_k2g(dev) -> dict:
 
 
 def reset_counts() -> None:
-    from lldslam_tpu_torch.ops import match_best2, orb_describe, stereo_sad
+    from lldslam_tpu_torch.ops import (match_best2, orb_describe,
+                                       segment_sum, stereo_sad)
     orb_describe.launches = 0
     stereo_sad.launches = 0
     match_best2.launches = 0
     match_best2.launches_by_site = {}
+    segment_sum.launches = 0
 
 
 def read_counts() -> dict:
-    from lldslam_tpu_torch.ops import match_best2, orb_describe, stereo_sad
+    from lldslam_tpu_torch.ops import (match_best2, orb_describe,
+                                       segment_sum, stereo_sad)
     return dict(k1a=orb_describe.launches, k1b=stereo_sad.launches,
                 k2g=match_best2.launches,
-                k2g_sites=dict(match_best2.launches_by_site))
+                k2g_sites=dict(match_best2.launches_by_site),
+                segsum=segment_sum.launches)
 
 
 def kitti_config():
@@ -1077,7 +1087,8 @@ def mini_kitti_runs(dev) -> dict:
     with open(native, "w") as f:
         f.writelines(keep)
     gt = _kitti_rows(f"{MINI_KITTI}/gt.txt")
-    out, bad = dict(counts=dict(k1a=0, k1b=0, k2g=0, k2g_sites={})), []
+    out, bad = dict(counts=dict(k1a=0, k1b=0, k2g=0, k2g_sites={},
+                                segsum=0)), []
     reset_counts()
     for label, settings in (("stored", f"{MINI_KITTI}/settings.yaml"),
                             ("native", native)):
@@ -1091,7 +1102,7 @@ def mini_kitti_runs(dev) -> dict:
                       device="cpu")
         reset_counts()
         total = out["counts"]
-        for k in ("k1a", "k1b", "k2g"):
+        for k in ("k1a", "k1b", "k2g", "segsum"):
             total[k] += counts[k]
         for site, c in counts["k2g_sites"].items():
             total["k2g_sites"][site] = total["k2g_sites"].get(site, 0) + c
@@ -1353,8 +1364,11 @@ def phase_native_lines(dev, frames, poses) -> dict:
 
 
 def phase_loop(dev) -> dict:
+    """The ring through System; also keeps a copy of the loop event's pose
+    graph (the input of its first optimize_pose_graph call)."""
     from lldslam_tpu_torch.io.synthetic import make_ring_sequence
     from lldslam_tpu_torch.io.trajectory import ate_rmse
+    from lldslam_tpu_torch.optim import pose_graph
     from lldslam_tpu_torch.system import System
 
     cfg = patch_world_config()
@@ -1365,8 +1379,12 @@ def phase_loop(dev) -> dict:
     sys_ = System(cfg, device=dev)
     sys_.tracker.mapper.p_cap = 4096
     sys_.tracker.mapper.o_cap = 8192
+    graphs, restore = keep_inputs(pose_graph, "optimize_pose_graph")
     reset_counts()
-    ms, metrics = track(sys_, frames, label="loop")
+    try:
+        ms, metrics = track(sys_, frames, label="loop")
+    finally:
+        restore()
     counts = read_counts()
     tr = sys_.tracker
     lc = tr.loop_closer
@@ -1391,7 +1409,12 @@ def phase_loop(dev) -> dict:
     if not ate < RING_ATE_BOUND_M:
         raise AssertionError(f"ATE {ate} m above {RING_ATE_BOUND_M} m")
     need_launches(counts, "loop", ("tracking", "fusion", "loop"))
-    return dict(counts=counts, store=tr.store, voc=lc.voc, cfg=cfg)
+    if counts["segsum"] <= 0:
+        raise AssertionError(f"loop: the loop event launched no segment sum: "
+                             f"{counts}")
+    return dict(counts=counts, store=tr.store, voc=lc.voc, cfg=cfg,
+                graph=pose_graph.PoseGraph(*(t.clone()
+                                             for t in graphs[0][1][0])))
 
 
 def phase_reloc(dev) -> tuple[dict, dict]:
@@ -1739,7 +1762,8 @@ def phase_loop_lines(dev) -> dict:
         (d["n_lines"] >= 100 and finite, f"{d['n_lines']} lines, finite "
                                          f"{finite}"),
         (moved > 0.05, f"the correction moved the lines {moved} m"),
-        (counts["k2g_sites"].get("loop", 0) >= 2, f"launches {counts}"),
+        (counts["k2g_sites"].get("loop", 0) >= 2 and counts["segsum"] > 0,
+         f"launches {counts}"),
     ]
     bad = [msg for ok, msg in checks if not ok]
     if bad:
@@ -1795,91 +1819,84 @@ def loop_lines_checks(d: dict) -> list:
 
 
 DIST_REPS = 3
+# the JAX package's float scatter-sums that segment_sum_ replaces on the card
+# (XLA `.at[].add`; no Pallas kernel)
+SEGMENT_SUM_REPLACES = (
+    "lldslam_tpu/optim/ba.py:104-108, 208, 217-222; "
+    "lldslam_tpu/optim/lines_ba.py:115-119, 398-428, 542-547; "
+    "lldslam_tpu/optim/pose_graph.py:80-84, 104-105 (.at[].add)")
 
 
-@contextlib.contextmanager
-def deterministic():
-    """torch.use_deterministic_algorithms inside the block: on the card,
-    index_add_ then sums in a fixed order instead of with atomic adds, so a
-    solve gives the same bits run to run (ops without a deterministic
-    version only warn; those warnings are not printed)."""
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings():
-            warnings.filterwarnings(
-                "ignore", message=".*deterministic implementation.*")
-            yield
-    finally:
-        torch.use_deterministic_algorithms(False)
+def same_bits(a, b) -> bool:
+    """Map b equals map a bit for bit: keyframe poses, observations, points
+    (live flags and positions) and map lines (X0 and direction)."""
+    K, P, n = a.n_kf, a.n_pt, a.n_ln
+    return ((a.n_kf, a.n_pt, a.n_ln) == (b.n_kf, b.n_pt, b.n_ln)
+            and all(np.array_equal(x, y, equal_nan=True) for x, y in (
+                (a.kf_pose[:K], b.kf_pose[:K]),
+                (a.kf_pt_ids[:K], b.kf_pt_ids[:K]),
+                (a.pt_valid[:P], b.pt_valid[:P]), (a.pt_pos[:P], b.pt_pos[:P]),
+                (a.ln_x0[:n], b.ln_x0[:n]), (a.ln_dir[:n], b.ln_dir[:n]))))
 
 
-def gba_routes(dev, store, voc, cfg, label: str, hold: bool) -> dict:
+def gba_routes(dev, store, voc, cfg, label: str) -> dict:
     """LoopCloser.global_ba on copies of `store` through the single route
     and the distributed route (force_dist: the one-rank NCCL group), in
-    turns, DIST_REPS times each: host ms of each (synchronised, median) and
-    the all_reduce calls per distributed solve. With atomic adds a BA on
-    such a map does not repeat to the bit (nor to 2e-3 m: an LM step can
-    flip), so with `hold` the two routes are held to each other once more
-    under `deterministic()`: poses within 2e-3 m, points within 2e-2 m."""
+    turns, DIST_REPS times each: host ms of each (synchronised, median),
+    the all_reduce calls and the segment-sum launches per solve. Every run
+    is held bit-equal to the first single run: the solvers sum in a fixed
+    order (ops/segment_sum), so a solve repeats to the bit, and on one rank
+    the distributed route is the single route's arithmetic."""
     import copy
 
     from lldslam_tpu_torch.loop.closing import LoopCloser
+    from lldslam_tpu_torch.ops import segment_sum
     from lldslam_tpu_torch.parallel import dist_schur
 
     def run(route):
         st = copy.deepcopy(store)
         lc = LoopCloser(st, voc, cfg, device=dev)
-        before = dist_schur.all_reduce_calls
+        calls, launches = dist_schur.all_reduce_calls, segment_sum.launches
         torch.cuda.synchronize()
         t = time.perf_counter()
         lc.global_ba(force_dist=route == "dist")
         torch.cuda.synchronize()
         return (st, 1e3 * (time.perf_counter() - t),
-                dist_schur.all_reduce_calls - before)
+                dist_schur.all_reduce_calls - calls,
+                segment_sum.launches - launches)
 
     ms = dict(single=[], dist=[])
-    calls, atomic = [], {}
-    for _ in range(DIST_REPS):
+    runs, calls, launches = [], [], []
+    for i in range(DIST_REPS):
         for route in ("single", "dist"):
-            st, t, n = run(route)
+            st, t, n, m = run(route)
             ms[route].append(t)
-            atomic.setdefault(route, st)
+            runs.append((f"{route} run {i}", st))
+            launches.append(m)
             if route == "dist":
                 calls.append(n)
-    K = store.n_kf
-    pose = lambda a, b: float(np.abs(a.kf_pose[:K] - b.kf_pose[:K]).max())
-    d_atomic = store_diff(atomic["single"], atomic["dist"])
+    ref = runs[0][1]
+    differ = [(name, st) for name, st in runs[1:] if not same_bits(ref, st)]
     res = dict(single_ms=statistics.median(ms["single"]),
                dist_ms=statistics.median(ms["dist"]), ms=ms,
-               all_reduce=calls[0],
-               atomic_pose_max=pose(atomic["single"], atomic["dist"]),
-               atomic_point_max=d_atomic["point_max"])
-    log(f"dist: {label} global BA ({K} keyframes, "
-        f"{int(store.pt_valid[:store.n_pt].sum())} points, "
-        f"{d_atomic['n_lines']} map lines): single {res['single_ms']:.1f} "
-        f"ms, distributed ({torch.distributed.get_backend()}, one rank) "
-        f"{res['dist_ms']:.1f} ms (median of {DIST_REPS}; all "
+               all_reduce=calls[0], segsum_per_solve=launches[0],
+               bit_equal=not differ)
+    log(f"dist: {label} global BA ({store.n_kf} keyframes, "
+        f"{int(store.pt_valid[:store.n_pt].sum())} points, {store.n_ln} map "
+        f"lines): single {res['single_ms']:.1f} ms, distributed "
+        f"({torch.distributed.get_backend()}, one rank) {res['dist_ms']:.1f} "
+        f"ms (median of {DIST_REPS}; all "
         f"{json.dumps({k: [round(v, 1) for v in x] for k, x in ms.items()})}"
-        f"); all_reduce calls per solve {calls}; atomic adds, first pair "
-        f"(not held): pose entries {res['atomic_pose_max']:.2e}, "
-        f"{_diff_text(d_atomic)}")
-    bad = [] if len(set(calls)) == 1 and calls[0] > 0 else [
-        f"all_reduce calls {calls}"]
-    if hold:
-        with deterministic():
-            det = {route: run(route) for route in ("single", "dist")}
-        d = store_diff(det["single"][0], det["dist"][0])
-        res.update(det_ms=dict(single=det["single"][1], dist=det["dist"][1]),
-                   pose_max=pose(det["single"][0], det["dist"][0]),
-                   point_max=d["point_max"])
-        log(f"dist: {label}, deterministic: single {det['single'][1]:.1f} "
-            f"ms, distributed {det['dist'][1]:.1f} ms; distributed against "
-            f"single: pose entries {res['pose_max']:.2e}, {_diff_text(d)}")
-        bad += [msg for ok, msg in (
-            (res["pose_max"] <= 2e-3, f"poses {res['pose_max']} m"),
-            (d["point_max"] <= 2e-2, f"points {d['point_max']} m"),
-            (det["dist"][2] == calls[0], f"all_reduce calls {det['dist'][2]}"),
-        ) if not ok]
+        f"); all_reduce calls per solve {calls}; segment-sum launches per "
+        f"solve {launches}; every run bit-equal to single run 0: "
+        f"{not differ}")
+    bad = [msg for ok, msg in (
+        (len(set(calls)) == 1 and calls[0] > 0, f"all_reduce calls {calls}"),
+        (len(set(launches)) == 1 and launches[0] > 0,
+         f"segment-sum launches {launches}"),
+        (not differ, "not bit-equal to single run 0: " + "; ".join(
+            f"{name}: {_diff_text(store_diff(ref, st))}"
+            for name, st in differ))) if not ok]
     if bad:
         raise AssertionError(f"dist {label}: " + "; ".join(bad))
     return res
@@ -1913,15 +1930,110 @@ def loop_lines_correct(dev, inputs, route: str):
             1e3 * lc.stage_times["global_ba"])
 
 
+@contextlib.contextmanager
+def keep_segment_calls(kept: dict):
+    """Wraps segment_sum_ where the solvers call it (optim/ba.py,
+    optim/lines_ba.py, optim/pose_graph.py): under the key (module, out
+    shape, src shape) `kept` holds the first such call's inputs, as copies
+    of (out before the call, layout, src), and the number of calls."""
+    from lldslam_tpu_torch.ops import segment_sum
+    from lldslam_tpu_torch.optim import ba, lines_ba, pose_graph
+
+    def recorder(mod):
+        def keep(out, layout, src):
+            key = (mod, tuple(out.shape), tuple(src.shape))
+            if key not in kept:
+                kept[key] = dict(args=(out.clone(), layout, src.clone()),
+                                 calls=0)
+            kept[key]["calls"] += 1
+            return segment_sum.segment_sum_(out, layout, src)
+        return keep
+
+    mods = dict(ba=ba, lines_ba=lines_ba, pose_graph=pose_graph)
+    for name, mod in mods.items():
+        mod.segment_sum_ = recorder(name)
+    try:
+        yield kept
+    finally:
+        for mod in mods.values():
+            mod.segment_sum_ = segment_sum.segment_sum_
+
+
+def segment_sum_rows(dev, kept: dict, label: str) -> dict:
+    """The segment-sum kernel on each kept call of a real solve (`kept`
+    from keep_segment_calls): bit-equal to CPU index_add_ (its plain
+    version) on copies of the same inputs, and to a second launch; its
+    device time (device_ms) against its bound; the atomic index_add_ on
+    the card (device_ms: the library yardstick), index_put_(accumulate=
+    True) on the card (a call on CUDA events: its range check makes the
+    host wait), the CPU index_add_ (host clock) and the layout's build on
+    the card (a call on CUDA events). Returns a row per site."""
+    from lldslam_tpu_torch.ops.segment_sum import segment_layout, segment_sum_
+
+    rows = {}
+    for (mod, out_shape, src_shape), k in kept.items():
+        out0, lay, src = k["args"]
+        got = segment_sum_(out0.clone(), lay, src)
+        again = segment_sum_(out0.clone(), lay, src)
+        want = out0.cpu().index_add_(0, lay.index.cpu(), src.cpu())
+        torch.cuda.synchronize()
+        n, O = out_shape[0], src_shape[0]
+        C = int(np.prod(src_shape[1:]))
+        name = f"{label}: {mod} {tuple(out_shape)} <- {tuple(src_shape)}"
+        if not (torch.equal(got.cpu(), want) and torch.equal(got, again)):
+            raise AssertionError(
+                f"segment_sum {name}: differs from CPU index_add_ "
+                f"(max {float((got.cpu() - want).abs().max())}) or from a "
+                f"second launch")
+        buf = out0.clone()
+        cpu = [t.cpu() for t in (out0, lay.index, src)]
+        plain = []
+        for _ in range(20):
+            t = time.perf_counter()
+            cpu[0].clone().index_add_(0, cpu[1], cpu[2])
+            plain.append(1e3 * (time.perf_counter() - t))
+        row = dict(
+            calls=k["calls"], rows=O, columns=C, segments=n, exact=True,
+            max_abs_err=0.0, ms=device_ms(lambda: segment_sum_(buf, lay, src)),
+            call_ms=cuda_ms(lambda: segment_sum_(buf, lay, src)),
+            library_ms=device_ms(lambda: buf.index_add_(0, lay.index, src)),
+            library_ms_index_put=cuda_ms(lambda: buf.index_put_(
+                (lay.index,), src, accumulate=True)),
+            plain_ms=statistics.median(plain),
+            layout_ms=cuda_ms(lambda: segment_layout(lay.index, n)))
+        row["bound_ms"], row["bound_by"] = bound(
+            O * C * 4 + O * 8 + 2 * n * C * 4, O * C)
+        rows[name] = row
+        log(f"segment_sum {name}: {k['calls']} calls; exact "
+            f"against CPU index_add_, repeats; kernel {row['ms']:.4f} ms on "
+            f"the device ({row['call_ms']:.4f} ms a call), bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']}, "
+            f"{100 * row['bound_ms'] / row['ms']:.2f}%); atomic index_add_ "
+            f"{row['library_ms']:.4f} ms on the device, "
+            f"index_put_(accumulate) {row['library_ms_index_put']:.4f} ms a "
+            f"call, CPU index_add_ {row['plain_ms']:.4f} ms; layout build "
+            f"{row['layout_ms']:.4f} ms a call")
+    return rows
+
+
 def phase_dist(dev, ring: dict, loop_lines: dict) -> dict:
-    """The distributed global BA on one process: the one-rank NCCL group
-    of dist_schur.make_mesh. (1) The loop phase's ring map after its event
-    through both routes of global_ba (gba_routes). (2) The loop-lines
-    correction on the card (K2g at the loop site) with global_ba on the
-    distributed route against the same correction on the single route,
-    both under `deterministic()`, with phase_loop_lines' bounds; (3) both
-    routes of global_ba on the corrected map, timed (the correction has
-    held them to each other on this map)."""
+    """The loop-event solvers repeat, and the distributed global BA on one
+    process (the one-rank NCCL group of dist_schur.make_mesh) equals the
+    single route, all bit for bit, with no deterministic mode. (1) The
+    loop phase's ring map after its event through both routes of
+    global_ba (gba_routes). (2) The loop-lines correction on the card (K2g
+    at the loop site, the pose graph, the remap, fusion, the joint global
+    BA) twice on the single route and once on the distributed route, each
+    equal to the loop_lines phase's card result. (3) The ring event's pose
+    graph through optimize_pose_graph twice. (4) Both routes of global_ba
+    on the corrected loop-lines map. (5) The segment-sum kernel on the
+    calls of one ring-map global BA and of one loop-lines correction
+    (segment_sum_rows)."""
+    import copy
+
+    from lldslam_tpu_torch.loop.closing import LoopCloser
+    from lldslam_tpu_torch.ops import segment_sum
+    from lldslam_tpu_torch.optim import pose_graph
     from lldslam_tpu_torch.parallel import dist_schur
     from lldslam_tpu_torch.system import _default_vocabulary
 
@@ -1929,45 +2041,79 @@ def phase_dist(dev, ring: dict, loop_lines: dict) -> dict:
     log(f"dist: group backend {torch.distributed.get_backend(group)}, "
         f"world {torch.distributed.get_world_size(group)}")
     ring_out = gba_routes(dev, ring["store"], ring["voc"], ring["cfg"],
-                          "ring map", hold=True)
+                          "ring map")
+    kept_ring, kept_ll = {}, {}
+    with keep_segment_calls(kept_ring):
+        LoopCloser(copy.deepcopy(ring["store"]), ring["voc"], ring["cfg"],
+                   device=dev).global_ba(force_dist=False)
     inputs = loop_lines["inputs"]
-    with deterministic():
-        single, single_ms, single_gba = loop_lines_correct(dev, inputs,
-                                                           "single")
-        calls = dist_schur.all_reduce_calls
-        reset_counts()
-        store, correct_ms, gba_ms = loop_lines_correct(dev, inputs, "dist")
-        counts = read_counts()
-        calls = dist_schur.all_reduce_calls - calls
-    d = store_diff(single, store)
-    d_phase = store_diff(loop_lines["store"], store)
-    log(f"dist: loop-lines _correct (deterministic) with the distributed "
-        f"global BA {correct_ms:.1f} ms (its global BA {gba_ms:.1f} ms, "
-        f"all_reduce calls {calls}), with the single route {single_ms:.1f} "
-        f"ms ({single_gba:.1f} ms); distributed against single: "
-        f"{_diff_text(d)}; against the loop_lines phase's card result "
-        f"(atomic adds): {_diff_text(d_phase)}; launches {counts}")
-    bad = [msg for ok, msg in loop_lines_checks(d) + [
+    with keep_segment_calls(kept_ll):
+        single = [loop_lines_correct(dev, inputs, "single")]
+    single.append(loop_lines_correct(dev, inputs, "single"))
+    calls = dist_schur.all_reduce_calls
+    reset_counts()
+    store, correct_ms, gba_ms = loop_lines_correct(dev, inputs, "dist")
+    counts = read_counts()
+    calls = dist_schur.all_reduce_calls - calls
+    same = dict(second_single=same_bits(single[0][0], single[1][0]),
+                dist=same_bits(single[0][0], store),
+                loop_lines_phase=same_bits(loop_lines["store"], store))
+    log(f"dist: loop-lines _correct with the distributed global BA "
+        f"{correct_ms:.1f} ms (its global BA {gba_ms:.1f} ms, all_reduce "
+        f"calls {calls}), with the single route {single[0][1]:.1f} / "
+        f"{single[1][1]:.1f} ms ({single[0][2]:.1f} / {single[1][2]:.1f} "
+        f"ms); bit-equal to the first single run: {same}; distributed "
+        f"against single: {_diff_text(store_diff(single[0][0], store))}; "
+        f"launches {counts}")
+    g = ring["graph"]
+    launches = segment_sum.launches
+    a = pose_graph.optimize_pose_graph(g, iters=15, cg_iters=48)
+    pg_launches = segment_sum.launches - launches
+    b = pose_graph.optimize_pose_graph(g, iters=15, cg_iters=48)
+    pg_same = all(torch.equal(x, y) for x, y in zip(a, b))
+    pg_moved = float((a.t - g.t).abs().max())
+    log(f"dist: the ring event's pose graph ({g.R.shape[0]} keyframes, "
+        f"{g.e_i.shape[0]} edges) twice: bit-equal {pg_same}, centres moved "
+        f"up to {pg_moved:.3f}; segment-sum launches per call {pg_launches}")
+    bad = [msg for ok, msg in [
+        (all(same.values()), f"loop-lines corrections not bit-equal: {same}"),
+        (pg_same and pg_moved > 0, "the pose graph did not repeat or move"),
+        (pg_launches > 0, "the pose graph launched no segment sum"),
         (counts["k2g_sites"].get("loop", 0) >= 2, f"launches {counts}"),
+        (counts["segsum"] > 0, f"no segment-sum launch: {counts}"),
         (calls > 0, "no all_reduce: the single route ran")] if not ok]
     if bad:
         raise AssertionError("dist loop-lines: " + "; ".join(bad))
     lines_out = gba_routes(dev, store, _default_vocabulary(),
-                           patch_world_config(), "loop-lines map", hold=False)
+                           patch_world_config(), "loop-lines map")
+    rows_ring = segment_sum_rows(dev, kept_ring, "ring global BA")
+    rows = dict(rows_ring, **segment_sum_rows(dev, kept_ll,
+                                              "loop-lines correction"))
+    top = max(rows_ring, key=lambda r: rows_ring[r]["calls"])
+    per_gba = {k: sum(r["calls"] * r[k] for r in rows_ring.values())
+               for k in ("ms", "library_ms")}
+    log(f"segment_sum: per ring-map global BA "
+        f"{sum(r['calls'] for r in rows_ring.values())} launches, "
+        f"{per_gba['ms']:.3f} ms of kernel time against "
+        f"{per_gba['library_ms']:.3f} ms of atomic index_add_")
+    segsum = dict(rows[top], site=top, by_site=rows,
+                  launches_per_global_ba=ring_out["segsum_per_solve"],
+                  launches_per_pose_graph=pg_launches,
+                  per_global_ba_ms=per_gba)
     return dict(counts=counts, ring=ring_out, loop_lines=lines_out,
-                correct_ms=correct_ms, gba_ms=gba_ms, single_ms=single_ms,
-                single_gba_ms=single_gba, store=store)
+                correct_ms=correct_ms, gba_ms=gba_ms, single_ms=single[0][1],
+                single_gba_ms=single[0][2], store=store, segsum=segsum,
+                pose_graph_repeats=pg_same)
 
 
 def loop_lines_rank(rank: int, device, inputs) -> dict:
     """One spawned rank of phase_dist_ranks: the loop-lines correction on
-    `device` under `deterministic()`, global_ba routed by the world size.
-    Returns the corrected map, the ms of the correction and of its global
-    BA, the world size and the all_reduce calls."""
+    `device`, global_ba routed by the world size. Returns the corrected
+    map, the ms of the correction and of its global BA, the world size and
+    the all_reduce calls."""
     from lldslam_tpu_torch.parallel import dist_schur
 
-    with deterministic():
-        store, ms, gba_ms = loop_lines_correct(device, inputs, "auto")
+    store, ms, gba_ms = loop_lines_correct(device, inputs, "auto")
     return dict(ms=ms, gba_ms=gba_ms, all_reduce=dist_schur.all_reduce_calls,
                 world=torch.distributed.get_world_size(), store=store)
 
@@ -1975,9 +2121,9 @@ def loop_lines_rank(rank: int, device, inputs) -> dict:
 def phase_dist_ranks(dev, loop_lines: dict, dist_out: dict) -> dict:
     """graft_entry.dryrun_multichip on every card (NCCL, one rank a card)
     and, at the same time, two spawned gloo ranks on one card, each running
-    the loop-lines correction under `deterministic()` with global_ba routed
-    by the world size (2): poses and points bit-equal across the ranks,
-    rank 0 within the loop_lines bounds of the one-rank result."""
+    the loop-lines correction with global_ba routed by the world size (2):
+    the two ranks' maps bit-equal (same_bits), rank 0 within the loop_lines
+    bounds of the one-rank result (two ranks sum in another order)."""
     from lldslam_tpu_torch import graft_entry
     from lldslam_tpu_torch.parallel.ranks import run_ranks
 
@@ -1997,23 +2143,18 @@ def phase_dist_ranks(dev, loop_lines: dict, dist_out: dict) -> dict:
     log(f"dist_ranks: dryrun_multichip({n}) on NCCL: {dry_s:.1f} s with "
         f"spawning (beside the gloo ranks)")
     a, b = out[0]["store"], out[1]["store"]
-    live = a.pt_valid[:a.n_pt]
-    same = (np.array_equal(a.kf_pose[:a.n_kf], b.kf_pose[:b.n_kf])
-            and np.array_equal(live, b.pt_valid[:b.n_pt])
-            and np.array_equal(a.pt_pos[:a.n_pt][live],
-                               b.pt_pos[:b.n_pt][live]))
-    lines_same = np.array_equal(a.ln_x0[:a.n_ln], b.ln_x0[:b.n_ln])
+    same = same_bits(a, b)
     d = store_diff(dist_out["store"], a)
     log(f"dist_ranks: two gloo ranks on {dev}: {ranks_s:.1f} s with "
         f"spawning; _correct {[round(o['ms'], 1) for o in out]} ms, its "
-        f"global BA {[round(o['gba_ms'], 1) for o in out]} ms, deterministic "
-        f"(one rank: {dist_out['correct_ms']:.1f} ms, its global BA "
+        f"global BA {[round(o['gba_ms'], 1) for o in out]} ms (one rank: "
+        f"{dist_out['correct_ms']:.1f} ms, its global BA "
         f"{dist_out['gba_ms']:.1f} ms); world {[o['world'] for o in out]}, "
-        f"all_reduce calls {[o['all_reduce'] for o in out]}; poses and points "
-        f"bit-equal across the ranks {same}, every map line {lines_same}; "
-        f"rank 0 against the one-rank result: {_diff_text(d)}")
+        f"all_reduce calls {[o['all_reduce'] for o in out]}; the ranks' maps "
+        f"bit-equal {same}; rank 0 against the one-rank result: "
+        f"{_diff_text(d)}")
     bad = [msg for ok, msg in loop_lines_checks(d) + [
-        (same, "the ranks' poses or points differ"),
+        (same, "the ranks' maps differ"),
         (all(o["world"] == 2 and o["all_reduce"] > 0 for o in out),
          "a rank did not take the distributed route")] if not ok]
     if bad:
@@ -2510,11 +2651,12 @@ def phase_pipelined(dev, frames, poses, main) -> dict:
                           measure=False)
     d2 = float(np.linalg.norm(again["T_wc"][:, :3, 3]
                               - out["T_wc"][:, :3, 3], axis=-1).max())
+    same = np.array_equal(again["T_wc"], out["T_wc"])
     out.update(again_kf_frames=again["kf_frames"], again_centre_diff=d2,
-               again_ms=again["ms"])
+               again_bit_equal=same, again_ms=again["ms"])
     log(f"pipelined: a second run: keyframes {again['kf_frames']}, camera "
-        f"centres within {d2:.2e} m of the first (local BA sums with atomic "
-        f"adds on the card)")
+        f"centres within {d2:.2e} m of the first, every pose bit-equal "
+        f"{same}")
     gt = np.stack([np.linalg.inv(p) for p in poses])
     out["ate"] = ate_rmse(out["T_wc"], gt)
     sync_ms = main["ms"][PIPE_WARM:]
@@ -2534,8 +2676,9 @@ def phase_pipelined(dev, frames, poses, main) -> dict:
     s = out["tracker"].store
     checks += [
         (out["ate"] <= PIPE_ATE_BOUND_M, f"ATE {out['ate']} m"),
-        (again["kf_frames"] == out["kf_frames"] and d2 < 1e-3,
-         f"second run: keyframes {again['kf_frames']}, centres {d2} m"),
+        (again["kf_frames"] == out["kf_frames"] and same,
+         f"second run: keyframes {again['kf_frames']}, centres {d2} m, "
+         f"bit-equal {same}"),
         (lc.stage_times.get("n", 0) == s.n_kf,
          f"{lc.stage_times.get('n', 0)} keyframes through the loop closer, "
          f"{s.n_kf} exist"),
@@ -2773,6 +2916,10 @@ def main() -> int:
              launches_by_site=by_path("k2g_sites"),
              main_path_gated_pairs=paths["main"]["k2g_gated_pairs"],
              multiseq_S4=batched("k2g"), library_ms=None, **k2g),
+        dict(name="segment_sum", route="cuda",
+             source="lldslam_tpu_torch/csrc/segment_sum.cu",
+             replaces=SEGMENT_SUM_REPLACES, launches=paths["loop"]["segsum"],
+             launches_by_path=by_path("segsum"), **dist_out["segsum"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

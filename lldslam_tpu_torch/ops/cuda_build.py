@@ -122,8 +122,10 @@ def library() -> ctypes.CDLL:
                                        vp, vp, vp, i32, vp, vp, vp, vp]
         lib.lld_gated_best2.argtypes = [vp] * 7 + [i32, i32] + [vp] * 5 + [
             i32, vp, vp]
+        lib.lld_segment_sum.argtypes = [vp] * 4 + [ctypes.c_longlong, i32,
+                                                   i32, vp]
         for fn in (lib.lld_orb_describe, lib.lld_stereo_sad,
-                   lib.lld_gated_best2):
+                   lib.lld_gated_best2, lib.lld_segment_sum):
             fn.restype = i32
         _lib = lib
     return _lib
@@ -137,11 +139,21 @@ def check(err: int, what: str) -> None:
 
 def launch(fn: str, what: str, device: torch.device, *args) -> None:
     """Call the library's `fn` with `args` and the current stream of
-    `device`, with `device` made current for the call (the `.cu` launches
-    use the current device); raises on a nonzero CUDA error code."""
-    with torch.cuda.device(device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-        err = getattr(library(), fn)(*args, stream)
+    `device`, with `device` current for the call (the `.cu` launches use
+    the current device: it is switched for the call when another one is
+    current); raises on a nonzero CUDA error code. The stream's handle
+    comes from `torch._C._cuda_getCurrentRawStream`, far cheaper on the
+    host than a `torch.cuda.Stream` object, and the device is switched
+    only when it has to be: the sparse solvers launch a kernel thousands
+    of times a loop event."""
+    kernel = getattr(library(), fn)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = kernel(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = kernel(*args, torch._C._cuda_getCurrentRawStream(index))
     check(err, what)
 
 

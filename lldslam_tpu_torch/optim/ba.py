@@ -8,11 +8,13 @@ Counterpart of lldslam_tpu/optim/ba.py, two paths over the same residuals:
   directly, on the reference LocalBundleAdjustment schedule (5 iterations,
   drop outliers, 10 more, classify);
 - the sparse observation-table path (`_terms` through `ba_solve`): the
-  normal blocks are scattered per observation (`index_add_`) and the
-  reduced system is solved matrix-free by block-Jacobi preconditioned CG,
-  which is what global BA after a loop closure runs. The JAX package's
-  dense reduced system on this path (`dense=True`) has no caller there and
-  is not carried over.
+  normal blocks are summed per observation in a fixed order
+  (`ops/segment_sum.segment_sum_` over layouts of the keyframe and point
+  indices built once per solve, so the card gives the same bits every run)
+  and the reduced system is solved matrix-free by block-Jacobi
+  preconditioned CG, which is what global BA after a loop closure runs. The
+  JAX package's dense reduced system on this path (`dense=True`) has no
+  caller there and is not carried over.
 
 The accept/reject test and the damping stay on the device, and the solves
 use the `_ex` variants, which report failures in a tensor instead of
@@ -27,6 +29,7 @@ import torch
 
 from ..geometry import se3
 from ..geometry.camera import StereoCamera
+from ..ops.segment_sum import SegmentLayout, segment_layout, segment_sum_
 from . import residuals as res
 from .pose_opt import _row_weights
 
@@ -248,22 +251,39 @@ def _terms(cam: StereoCamera, problem: BAProblem, delta_scale=1.0):
     return r, Jc, Jp, W, chi2, active
 
 
-def _build_blocks(problem: BAProblem, r, Jc, Jp, W):
-    """Scatter observation terms into per-pose / per-point normal blocks."""
+class ObsLayouts(NamedTuple):
+    """Segment layouts of an observation table's two indices."""
+
+    k: SegmentLayout       # rows by keyframe
+    p: SegmentLayout       # rows by landmark
+
+
+def obs_layouts(k: torch.Tensor, n_k: int, p: torch.Tensor,
+                n_p: int) -> ObsLayouts:
+    """The layouts of an observation table's keyframe index `k` over `n_k`
+    keyframes and landmark index `p` over `n_p` landmarks, built once per
+    solve."""
+    return ObsLayouts(segment_layout(k, n_k), segment_layout(p, n_p))
+
+
+def _zeros(shape, like: torch.Tensor) -> torch.Tensor:
+    return torch.zeros(shape, dtype=like.dtype, device=like.device)
+
+
+def _build_blocks(problem: BAProblem, r, Jc, Jp, W, lay: ObsLayouts):
+    """Sum observation terms into per-pose / per-point normal blocks."""
     K = problem.poses.shape[0]
     P = problem.points.shape[0]
-    o = problem.obs
-    dt, dev = r.dtype, r.device
     JcW = Jc * W[:, :, None]                                 # (O, 3, 6)
-    Hcc = torch.zeros((K, 6, 6), dtype=dt, device=dev).index_add_(
-        0, o.k, torch.einsum("ori,orj->oij", JcW, Jc))
-    bc = torch.zeros((K, 6), dtype=dt, device=dev).index_add_(
-        0, o.k, -torch.einsum("ori,or->oi", JcW, r))
+    Hcc = segment_sum_(_zeros((K, 6, 6), r), lay.k,
+                       torch.einsum("ori,orj->oij", JcW, Jc))
+    bc = segment_sum_(_zeros((K, 6), r), lay.k,
+                      -torch.einsum("ori,or->oi", JcW, r))
     JpW = Jp * W[:, :, None]
-    Hpp = torch.zeros((P, 3, 3), dtype=dt, device=dev).index_add_(
-        0, o.p, torch.einsum("ori,orj->oij", JpW, Jp))
-    bp = torch.zeros((P, 3), dtype=dt, device=dev).index_add_(
-        0, o.p, -torch.einsum("ori,or->oi", JpW, r))
+    Hpp = segment_sum_(_zeros((P, 3, 3), r), lay.p,
+                       torch.einsum("ori,orj->oij", JpW, Jp))
+    bp = segment_sum_(_zeros((P, 3), r), lay.p,
+                      -torch.einsum("ori,or->oi", JpW, r))
     Wcp = torch.einsum("ori,orj->oij", JcW, Jp)              # (O, 6, 3)
     return Hcc, bc, Hpp, bp, Wcp
 
@@ -272,13 +292,13 @@ def _same(x):
     return x
 
 
-def _point_blocks_inv(problem: BAProblem, Hpp, Wcp, lam, reduce_points=None):
+def _point_blocks_inv(problem: BAProblem, Hpp, Wcp, lam, lay_p: SegmentLayout,
+                      reduce_points=None):
     """Damped point blocks, identity where a point has no active
     observation, inverted in closed form."""
     P = problem.points.shape[0]
-    seen = (reduce_points or _same)(torch.zeros(
-        P, dtype=Hpp.dtype, device=Hpp.device).index_add_(
-        0, problem.obs.p, Wcp.abs().sum(dim=(1, 2)))) > 0
+    seen = (reduce_points or _same)(segment_sum_(
+        _zeros(P, Hpp), lay_p, Wcp.abs().sum(dim=(1, 2)))) > 0
     eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
     return _inv3x3(torch.where(seen[:, None, None], _damp_diag(Hpp, lam),
                                eye3))
@@ -305,9 +325,9 @@ def _reduced_solve(pose_fixed, point_valid, Hcc, bc, Hpp_inv, bp, B, lam):
 
 
 def _schur_cg(problem: BAProblem, Hcc, bc, Hpp, bp, Wcp, lam, cg_iters: int,
-              reduce_poses=None, reduce_points=None):
+              lay: ObsLayouts, reduce_poses=None, reduce_points=None):
     """Matrix-free reduced-system CG: S @ v by two observation-level
-    scatter passes, block-Jacobi preconditioner on Jacobi-scaled blocks.
+    segment sums, block-Jacobi preconditioner on Jacobi-scaled blocks.
     Hcc, bc, Hpp and bp arrive summed over every observation; the two
     hooks sum the pose-space (K, .) and point-space (P, .) scatters of
     this function across the ranks that share the observations (None: one
@@ -318,16 +338,16 @@ def _schur_cg(problem: BAProblem, Hcc, bc, Hpp, bp, Wcp, lam, cg_iters: int,
     dt, dev = bc.dtype, bc.device
     rk, rp = reduce_poses or _same, reduce_points or _same
     free = (~problem.pose_fixed).to(dt)
-    Hpp_inv = _point_blocks_inv(problem, Hpp, Wcp, lam, reduce_points)
+    Hpp_inv = _point_blocks_inv(problem, Hpp, Wcp, lam, lay.p, reduce_points)
     Hcc_d = _damp_diag(Hcc, lam)
 
     def to_points(v):                     # z_p = sum_o Wcp_o^T v[k(o)]
-        return rp(torch.zeros((P, 3), dtype=dt, device=dev).index_add_(
-            0, o.p, torch.einsum("oij,oi->oj", Wcp, v[o.k])))
+        return rp(segment_sum_(_zeros((P, 3), bc), lay.p,
+                               torch.einsum("oij,oi->oj", Wcp, v[o.k])))
 
     def to_poses(z):                      # y_k = sum_o Wcp_o z[p(o)]
-        return rk(torch.zeros((K, 6), dtype=dt, device=dev).index_add_(
-            0, o.k, torch.einsum("oij,oj->oi", Wcp, z[o.p])))
+        return rk(segment_sum_(_zeros((K, 6), bc), lay.k,
+                               torch.einsum("oij,oj->oi", Wcp, z[o.p])))
 
     def S_matvec(v):
         v = v * free[:, None]
@@ -402,15 +422,18 @@ def ba_solve(cam: StereoCamera, problem: BAProblem, iters: int = 5,
     device holds every observation."""
     o = problem.obs
     problem = problem._replace(obs=o._replace(k=o.k.long(), p=o.p.long()))
+    o = problem.obs
+    lay = obs_layouts(o.k, problem.poses.shape[0], o.p,
+                      problem.points.shape[0])
     rk, rp = reduce_poses or _same, reduce_points or _same
     lam = torch.full((), 1e-4, dtype=problem.poses.dtype,
                      device=problem.poses.device)
     for i in range(iters):
         dscale = max(1.0, 64.0 * 0.5 ** i)
         r, Jc, Jp, W, _, _ = _terms(cam, problem, dscale)
-        Hcc, bc, Hpp, bp, Wcp = _build_blocks(problem, r, Jc, Jp, W)
+        Hcc, bc, Hpp, bp, Wcp = _build_blocks(problem, r, Jc, Jp, W, lay)
         dc, dp = _schur_cg(problem, rk(Hcc), rk(bc), rp(Hpp), rp(bp), Wcp,
-                           lam, cg_iters, reduce_poses, reduce_points)
+                           lam, cg_iters, lay, reduce_poses, reduce_points)
         cand = _apply_update(problem, dc, dp)
         accept = rk(_total_cost(cam, cand, dscale)) \
             < rk(_total_cost(cam, problem, dscale))

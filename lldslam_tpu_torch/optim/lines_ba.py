@@ -29,6 +29,7 @@ import torch
 
 from ..geometry import lines as glines
 from ..geometry.camera import StereoCamera
+from ..ops.segment_sum import segment_layout, segment_sum_
 from . import ba, residuals as res
 from .pose_opt import LINE_PYR_FACTOR
 
@@ -110,22 +111,21 @@ def _line_terms(cam: StereoCamera, problem: JointProblem, gamma: float,
                          Xc0[..., 2], gamma, delta_scale, need_jac)
 
 
-def _line_blocks(problem: JointProblem, r, Jc, Jl, W):
-    """Scatter line-observation terms into per-pose / per-line blocks."""
+def _line_blocks(problem: JointProblem, r, Jc, Jl, W, lay: ba.ObsLayouts):
+    """Sum line-observation terms into per-pose / per-line blocks (`lay`:
+    the line table's layouts, by keyframe and by line)."""
     K = problem.base.poses.shape[0]
     L = problem.q.shape[0]
-    o = problem.lobs
-    dt, dev = r.dtype, r.device
     JcW = Jc * W[:, :, None]
-    Hcc = torch.zeros((K, 6, 6), dtype=dt, device=dev).index_add_(
-        0, o.k, torch.einsum("ori,orj->oij", JcW, Jc))
-    bc = torch.zeros((K, 6), dtype=dt, device=dev).index_add_(
-        0, o.k, -torch.einsum("ori,or->oi", JcW, r))
+    Hcc = segment_sum_(ba._zeros((K, 6, 6), r), lay.k,
+                       torch.einsum("ori,orj->oij", JcW, Jc))
+    bc = segment_sum_(ba._zeros((K, 6), r), lay.k,
+                      -torch.einsum("ori,or->oi", JcW, r))
     JlW = Jl * W[:, :, None]
-    Hll = torch.zeros((L, 4, 4), dtype=dt, device=dev).index_add_(
-        0, o.l, torch.einsum("ori,orj->oij", JlW, Jl))
-    bl = torch.zeros((L, 4), dtype=dt, device=dev).index_add_(
-        0, o.l, -torch.einsum("ori,or->oi", JlW, r))
+    Hll = segment_sum_(ba._zeros((L, 4, 4), r), lay.p,
+                       torch.einsum("ori,orj->oij", JlW, Jl))
+    bl = segment_sum_(ba._zeros((L, 4), r), lay.p,
+                      -torch.einsum("ori,or->oi", JlW, r))
     return Hcc, bc, Hll, bl, torch.einsum("ori,orj->oij", JcW, Jl)
 
 
@@ -323,39 +323,41 @@ def _joint_cost(cam: StereoCamera, problem: JointProblem, gamma: float,
 
 
 def _schur_cg_joint(problem: JointProblem, Hcc, bc, Hpp, bp, Wcp, Hll, bl,
-                    Wcl, lam, cg_iters: int, reduce_poses=None,
+                    Wcl, lam, cg_iters: int, lay: ba.ObsLayouts,
+                    lay_l: ba.ObsLayouts, reduce_poses=None,
                     reduce_points=None):
     """Matrix-free reduced camera system with both landmark classes
-    marginalized: S @ v by observation-level scatter passes per class,
-    block-Jacobi preconditioner on Jacobi-scaled blocks. Returns
-    (dc, dp, dl). The hooks are `ba._schur_cg`'s; `reduce_points` serves
-    both landmark classes, and one `reduce_poses` carries both classes'
-    pose-space backscatter."""
+    marginalized: S @ v by observation-level segment sums per class (`lay`
+    and `lay_l`: the point and line tables' layouts), block-Jacobi
+    preconditioner on Jacobi-scaled blocks. Returns (dc, dp, dl). The
+    hooks are `ba._schur_cg`'s; `reduce_points` serves both landmark
+    classes, and one `reduce_poses` carries both classes' pose-space
+    backscatter."""
     base = problem.base
     o, ol = base.obs, problem.lobs
     K, P, L = base.poses.shape[0], base.points.shape[0], problem.q.shape[0]
     dt, dev = bc.dtype, bc.device
     rk, rp = reduce_poses or ba._same, reduce_points or ba._same
     free = (~base.pose_fixed).to(dt)
-    Hpp_inv = ba._point_blocks_inv(base, Hpp, Wcp, lam, reduce_points)
-    seen_l = rp(torch.zeros(L, dtype=dt, device=dev).index_add_(
-        0, ol.l, Wcl.abs().sum(dim=(1, 2)))) > 0
+    Hpp_inv = ba._point_blocks_inv(base, Hpp, Wcp, lam, lay.p, reduce_points)
+    seen_l = rp(segment_sum_(ba._zeros(L, bc), lay_l.p,
+                             Wcl.abs().sum(dim=(1, 2)))) > 0
     Hll_inv = _line_blocks_inv(Hll, seen_l, lam)
     Hcc_d = ba._damp_diag(Hcc, lam)
 
     def to_marks(v):
         """Both classes' z = W^T v per landmark, through H^-1."""
-        zp = rp(torch.zeros((P, 3), dtype=dt, device=dev).index_add_(
-            0, o.p, torch.einsum("oij,oi->oj", Wcp, v[o.k])))
-        zl = rp(torch.zeros((L, 4), dtype=dt, device=dev).index_add_(
-            0, ol.l, torch.einsum("oij,oi->oj", Wcl, v[ol.k])))
+        zp = rp(segment_sum_(ba._zeros((P, 3), bc), lay.p,
+                             torch.einsum("oij,oi->oj", Wcp, v[o.k])))
+        zl = rp(segment_sum_(ba._zeros((L, 4), bc), lay_l.p,
+                             torch.einsum("oij,oi->oj", Wcl, v[ol.k])))
         return zp, zl
 
     def to_poses(zp, zl):
         """y_k = sum_o W_o z[landmark(o)] over both classes."""
-        y = torch.zeros((K, 6), dtype=dt, device=dev).index_add_(
-            0, o.k, torch.einsum("oij,oj->oi", Wcp, zp[o.p]))
-        return rk(y.index_add_(0, ol.k,
+        y = segment_sum_(ba._zeros((K, 6), bc), lay.k,
+                         torch.einsum("oij,oj->oi", Wcp, zp[o.p]))
+        return rk(segment_sum_(y, lay_l.k,
                                torch.einsum("oij,oj->oi", Wcl, zl[ol.l])))
 
     def S_matvec(v):
@@ -412,18 +414,25 @@ def joint_ba_solve_cg(cam: StereoCamera, problem: JointProblem, iters: int = 10,
     line chi2). The hooks are `ba.ba_solve`'s; `reduce_points` serves both
     landmark classes."""
     problem = _long_indices(problem)
+    o, ol = problem.base.obs, problem.lobs
+    K, P, L = (problem.base.poses.shape[0], problem.base.points.shape[0],
+               problem.q.shape[0])
+    lay = ba.obs_layouts(o.k, K, o.p, P)
+    lay_l = ba.obs_layouts(ol.k, K, ol.l, L)
     rk, rpt = reduce_poses or ba._same, reduce_points or ba._same
     lam = torch.full((), 1e-4, dtype=problem.q.dtype, device=problem.q.device)
     for i in range(iters):
         dscale = max(1.0, 64.0 * 0.5 ** i)
         base = problem.base
         rp, Jcp, Jp, Wp, _, _ = ba._terms(cam, base, dscale)
-        Hcc, bc, Hpp, bp, Wcp = ba._build_blocks(base, rp, Jcp, Jp, Wp)
+        Hcc, bc, Hpp, bp, Wcp = ba._build_blocks(base, rp, Jcp, Jp, Wp, lay)
         rl, Jcl, Jl, Wl, _ = _line_terms(cam, problem, gamma, dscale)
-        Hcc_l, bc_l, Hll, bl, Wcl = _line_blocks(problem, rl, Jcl, Jl, Wl)
+        Hcc_l, bc_l, Hll, bl, Wcl = _line_blocks(problem, rl, Jcl, Jl, Wl,
+                                                 lay_l)
         dc, dp, dl = _schur_cg_joint(
             problem, rk(Hcc + Hcc_l), rk(bc + bc_l), rpt(Hpp), rpt(bp), Wcp,
-            rpt(Hll), rpt(bl), Wcl, lam, cg_iters, reduce_poses, reduce_points)
+            rpt(Hll), rpt(bl), Wcl, lam, cg_iters, lay, lay_l, reduce_poses,
+            reduce_points)
         cand = _apply_line_update(
             problem._replace(base=ba._apply_update(base, dc, dp)), dl)
         accept = rk(_joint_cost(cam, cand, gamma, dscale)) \
@@ -440,7 +449,7 @@ def refine_lines_fixed_poses(cam: StereoCamera, problem: JointProblem,
     `iters` times; a step that leaves a line non-finite is dropped.
     Returns (q, alpha)."""
     L = problem.q.shape[0]
-    o = problem.lobs
+    lay_l = segment_layout(problem.lobs.l.long(), L)
     q, a = problem.q, problem.alpha
     dt, dev = q.dtype, q.device
     damp = 1e-3 * torch.eye(4, dtype=dt, device=dev)
@@ -448,13 +457,12 @@ def refine_lines_fixed_poses(cam: StereoCamera, problem: JointProblem,
         pb = problem._replace(q=q, alpha=a)
         r, _, Jl, W, _ = _line_terms(cam, pb, gamma)
         JlW = Jl * W[:, :, None]
-        Hll = torch.zeros((L, 4, 4), dtype=dt, device=dev).index_add_(
-            0, o.l, torch.einsum("ori,orj->oij", JlW, Jl)) + damp
-        bl = torch.zeros((L, 4), dtype=dt, device=dev).index_add_(
-            0, o.l, -torch.einsum("ori,or->oi", JlW, r))
+        Hll = segment_sum_(ba._zeros((L, 4, 4), q), lay_l,
+                           torch.einsum("ori,orj->oij", JlW, Jl)) + damp
+        bl = segment_sum_(ba._zeros((L, 4), q), lay_l,
+                          -torch.einsum("ori,or->oi", JlW, r))
         dl = torch.einsum("lij,lj->li", _inv4x4(Hll), bl)
-        has = torch.zeros(L, dtype=dt, device=dev).index_add_(
-            0, o.l, W.sum(-1)) > 0
+        has = segment_sum_(ba._zeros(L, q), lay_l, W.sum(-1)) > 0
         dl = torch.where((has & problem.line_valid)[:, None], dl, 0.0)
         pb2 = _apply_line_update(pb, dl)
         fin = torch.isfinite(pb2.q).all(-1) & torch.isfinite(pb2.alpha)

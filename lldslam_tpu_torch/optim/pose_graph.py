@@ -4,9 +4,10 @@ Counterpart of lldslam_tpu/optim/pose_graph.py: vertices are keyframe Sim3
 poses S_iw, edges relative measurements M_ij with residual
 r = log(M_ij^-1 S_i S_j^-1). Per-edge 7x7 Jacobians come from one
 forward-mode pass over the whole edge batch (`torch.func.jvp`, the 14
-tangent directions as a leading batch dimension), are scattered into
-(K, 7, 7) blocks, and each Levenberg-Marquardt step is solved by
-block-Jacobi preconditioned CG. The accept/reject test and the
+tangent directions as a leading batch dimension), are summed into
+(K, 7, 7) blocks in a fixed order (`ops/segment_sum.segment_sum_`: the
+card gives the same bits every run), and each Levenberg-Marquardt step is
+solved by block-Jacobi preconditioned CG. The accept/reject test and the
 damping update stay on the device (`torch.where` over the state) and the
 small inverses and solves use the `_ex` variants, which leave their error
 flags on the device, so the 15 iterations never wait for the host.
@@ -18,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from ..geometry import sim3
+from ..ops.segment_sum import segment_layout, segment_sum_
 
 
 class PoseGraph(NamedTuple):
@@ -70,18 +72,24 @@ def optimize_pose_graph(g: PoseGraph, iters: int = 15,
     K = g.R.shape[0]
     dt, dev = g.t.dtype, g.t.device
     ei, ej = g.e_i.long(), g.e_j.long()
+    # both endpoints' terms in one segment sum: the rows of e_i, then those
+    # of e_j, which is the add order of one scatter over e_i and then one
+    # over e_j
+    lay = segment_layout(torch.cat([ei, ej]), K)
     free = (~g.fixed).to(dt)
     eye7 = torch.eye(7, dtype=dt, device=dev)
     lam = torch.full((), 1e-6, dtype=dt, device=dev)
     r, Ji, Jj = _edge_terms(g)
     for _ in range(iters):
         err_old = torch.sum(r * r)
-        H = torch.zeros((K, 7, 7), dtype=dt, device=dev)
-        H.index_add_(0, ei, torch.einsum("eri,erj->eij", Ji, Ji))
-        H.index_add_(0, ej, torch.einsum("eri,erj->eij", Jj, Jj))
-        b = torch.zeros((K, 7), dtype=dt, device=dev)
-        b.index_add_(0, ei, -torch.einsum("eri,er->ei", Ji, r))
-        b.index_add_(0, ej, -torch.einsum("eri,er->ei", Jj, r))
+        H = segment_sum_(
+            torch.zeros((K, 7, 7), dtype=dt, device=dev), lay,
+            torch.cat([torch.einsum("eri,erj->eij", Ji, Ji),
+                       torch.einsum("eri,erj->eij", Jj, Jj)]))
+        b = segment_sum_(
+            torch.zeros((K, 7), dtype=dt, device=dev), lay,
+            torch.cat([-torch.einsum("eri,er->ei", Ji, r),
+                       -torch.einsum("eri,er->ei", Jj, r)]))
         # adaptive LM damping (a fixed tiny damping lets CG amplify the
         # chain's low-stiffness bending modes in float32)
         H = H + lam * eye7[None]
@@ -96,8 +104,9 @@ def optimize_pose_graph(g: PoseGraph, iters: int = 15,
         def matvec(v):
             v = v * free[:, None]
             y = torch.einsum("kij,kj->ki", H, v)
-            y = y.index_add(0, ei, torch.einsum("eij,ej->ei", Hij, v[ej]))
-            y = y.index_add(0, ej, torch.einsum("eji,ej->ei", Hij, v[ei]))
+            y = segment_sum_(y, lay, torch.cat([
+                torch.einsum("eij,ej->ei", Hij, v[ej]),
+                torch.einsum("eji,ej->ei", Hij, v[ei])]))
             return y * free[:, None]
 
         def precond(x):

@@ -30,12 +30,14 @@ a solve on NCCL makes no host synchronisation. gloo accepts CUDA tensors in
 stages them through the host, so each call synchronises the host; that is
 the route of two ranks on one card, which NCCL refuses.
 
-Multi-rank runs must start from identical maps: ranks that each track
-their own frames on the card diverge in the last bits (the local BA's
-`index_add_` adds with atomics). `place` takes the replicated poses from
-the group's first rank, and `assemble` gives every rank every block, so a
-solve leaves the ranks' solved state equal; a map built differently on
-each rank still feeds each rank's own observations in.
+Each rank's sums over its own observations run in a fixed order
+(`ops/segment_sum`, through the solvers' layouts of its shard), so a solve
+repeats bit for bit, and on one rank it equals the single route bit for
+bit. Multi-rank runs still start from one map: `place` takes the
+replicated poses from the group's first rank, and `assemble` gives every
+rank every block, so a solve leaves the ranks' solved state equal; a map
+built differently on each rank still feeds each rank's own observations
+in.
 
 A mismatch raises and never hangs: groups are made with a timeout, and
 `place` / `place_joint` all-reduce the MIN and MAX of the layout sizes
