@@ -139,9 +139,9 @@ System runs; reloc_site is the two direct calls of the relocalization call
 site; loop_lines the two corrections (the CPU one launches nothing); dist
 the loop-lines correction on the distributed route; multiseq and
 multiseq_13 the driver runs; mini_kitti the two mini KITTI CLI runs;
-native_lines the KITTI-size CLI run on the native detector; pipelined and
-pipelined_lines the staged frames and the flush; pipelined_multiseq the
-driver run. The second-to-last line is the kernel table as JSON, the last
+native_lines the KITTI-size CLI run on the native detector; pipelined,
+pipelined_lines and pipelined_native_lines the staged frames and the flush;
+pipelined_multiseq the driver run. The second-to-last line is the kernel table as JSON, the last
 line the device summary as JSON.
 """
 from __future__ import annotations
@@ -197,12 +197,15 @@ MINI_CENTRE_BOUND_M = 0.05                # the card against the CPU
 DETECT_PX, DETECT_DESC, DETECT_DESC_PER_PX = 1e-3, 1e-5, 0.5
 DETECT_FED_PX, DETECT_FED_DESC = 0.5, 0.02
 MULTISEQ_SEEDS = (3, 10, 11, 12)
-MULTISEQ_FRAMES = 20
+# the multi-sequence depths, cut (from 20, 5 and 10 frames) to keep the
+# whole script near its time budget: 13 frames still hold four keyframes a
+# sequence and outlast PIPE_MULTISEQ_END; 6 frames of S = 13 hold two
+MULTISEQ_FRAMES = 13
 MULTISEQ_VIEW_CAP = 4096    # a KITTI-size local view can exceed 2048 points
 MULTISEQ_BOUND_M = 0.05     # tests/test_multi_seq.py:117
-PROFILE_FRAMES = 5
+PROFILE_FRAMES = 3
 SWEEP_SEEDS = tuple(range(10, 23))   # bench.py:376-381, 13 sequences
-SWEEP_FRAMES = 10
+SWEEP_FRAMES = 6
 # the pipelined phases (the JAX bench's headline schedule, bench.py:267-305:
 # warm frames through track_stereo, then frames staged by stage_stereo and
 # passed as pair_dev, then flush). The JAX package's CPU runs of the same
@@ -229,6 +232,34 @@ PIPE_LINES_ATE_BOUND_M = 0.008241 + 0.02
 PIPE_KF_CPU = (0, 3, 7, 10, 16, 19, 22, 25, 28)
 PIPE_LINES_KF_CPU = (0, 3, 7, 10, 16, 19, 22, 25, 28)
 PIPE_LINE_MATCH_RANGE = (175, 237)      # 206 +- 15%
+# pipelined_native_lines: the JAX package's pipelined CPU run of the
+# native-line world on the same schedule (tools/jax_cpu_pipelined_reference
+# .py native_lines): every frame OK, keyframes at 0, 3, 7, 10, 13, 16, 19,
+# 22, 25, 28, ATE 0.010142 m, 13 valid map lines, and the line matches per
+# frame below (median 0, total 7, none after frame 13); its synchronous run
+# on the same frames: median 1, total 20. The card's line matches are held
+# to the JAX pipelined run's, median and total within +-15%; the
+# synchronous run's median is logged beside them (the pipelined route
+# starves the association in both packages, ROADMAP section 3)
+PIPE_NATIVE_LINE_MATCH_SHARE = (0.85, 1.15)
+PIPE_NATIVE_LINE_MATCHES_JAX = (0, 1, 1, 0, 0, 1, 1, 0, 1, 0, 0, 1, 0, 1, 0,
+                                0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+# the port's own pipelined CPU run of the world (tools/
+# torch_pipelined_keyframes.py cpu native_lines): its keyframes (the
+# schedule reads no clock, so the card must give them)
+PIPE_NATIVE_KF_CPU = (0, 3, 7, 10, 16, 19, 22, 25, 28)
+# a shorter profiler window (a native lines frame launches the detector's
+# operations twice on top)
+PIPE_NATIVE_PROFILE = 2
+# cold_start: rounds after the first call in each of its two processes,
+# and each process's time limit
+COLD_REPS = 3
+COLD_TIMEOUT_S = 300
+# a first call after System.warmup over the warm median, at most; the
+# relocalization frame is not held (PERF.md section 6: its rounds differ
+# in work, the map growing between them)
+COLD_AFTER_WARMUP_RATIO = 1.5
+COLD_NOT_HELD = ("reloc_frame",)
 
 
 def log(msg: str) -> None:
@@ -263,6 +294,110 @@ def _profile(fn):
 
 
 _spin_cycles_per_ms = None
+_queue_depth = None
+WAIT_TEST_LAUNCHES = 1000   # launches that queue behind a spin unblocked
+QUEUE_TEST_COUNTS = (250, 500, 750, 1000, 1250, 1500, 2000, 3000)
+
+
+def spin_cycles_per_ms() -> float:
+    """The spin kernel's (torch.cuda._sleep) cycles per ms, measured once."""
+    global _spin_cycles_per_ms
+    if _spin_cycles_per_ms is None:
+        cycles = 20_000_000
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        a.record()
+        torch.cuda._sleep(cycles)
+        b.record()
+        b.synchronize()
+        _spin_cycles_per_ms = cycles / a.elapsed_time(b)
+    return _spin_cycles_per_ms
+
+
+def launch_queue_depth() -> dict:
+    """How many kernel launches the host queues behind a spin kernel
+    before a launch blocks, measured once: for each count of
+    QUEUE_TEST_COUNTS, a 200-ms spin, then that many launches of one
+    small elementwise kernel, timed on the host; the count blocked if the
+    host took at least 0.9 of the spin. Two kernels: a contiguous add
+    (few argument bytes) and an add on transposed views (an offset
+    calculator in its arguments, as the strided operations of the path
+    have). Returns per kernel the readings and the largest count that did
+    not block, and `depth`, the smaller of the two."""
+    global _queue_depth
+    if _queue_depth is not None:
+        return _queue_depth
+    x = torch.zeros(64, 64, device="cuda")
+    y = torch.ones(64, 64, device="cuda")
+    kinds = dict(contiguous=lambda: x.add_(y),
+                 strided=lambda: x.t().add_(y.t()))
+    out = {}
+    for kind, fn in kinds.items():
+        fn()
+        rows, free = [], 0
+        for n in QUEUE_TEST_COUNTS:
+            torch.cuda.synchronize()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            e0.record()
+            torch.cuda._sleep(int(200 * spin_cycles_per_ms()))
+            e1.record()
+            t = time.perf_counter()
+            for _ in range(n):
+                fn()
+            host_ms = 1e3 * (time.perf_counter() - t)
+            e1.synchronize()
+            spin_ms = e0.elapsed_time(e1)
+            torch.cuda.synchronize()
+            blocked = host_ms >= 0.9 * spin_ms
+            rows.append([n, round(host_ms, 2), round(spin_ms, 2), blocked])
+            if blocked:
+                break
+            free = n
+        out[kind] = dict(readings=rows, depth=free)
+    out["depth"] = min(v["depth"] for v in out.values())
+    log(f"launch queue: launches that queue behind a 200-ms spin without "
+        f"the host blocking: contiguous add {out['contiguous']['depth']}, "
+        f"strided add {out['strided']['depth']} (launches, host ms, spin ms,"
+        f" blocked: {out['contiguous']['readings']} / "
+        f"{out['strided']['readings']})")
+    _queue_depth = out
+    return out
+
+
+def host_waits(fn) -> dict:
+    """Whether one call of fn() makes the host wait for the device,
+    independent of CUDA's sync debug mode (which does not see every
+    synchronising operation): a spin kernel holds the stream for three
+    times fn's own host time (at least 50 ms) while the host calls fn();
+    had the host waited for the stream anywhere in the call, the call
+    returns only after the spin. A host that fills the card's launch queue
+    blocks in a launch too, so the verdict is conclusive only for calls of
+    at most WAIT_TEST_LAUNCHES kernel launches (counted in a profiler
+    session) and no more than this run's launch_queue_depth(). Returns the
+    verdict, the launches, the call's host ms and the spin's device ms."""
+    from torch.autograd import DeviceType
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    alone_ms = 1e3 * (time.perf_counter() - t)
+    torch.cuda.synchronize()
+    launches = sum(e.device_type == DeviceType.CPU and e.name in LAUNCH_CALLS
+                   for e in _profile(fn))
+    spin = max(50.0, 3 * alone_ms)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+    e0.record()
+    torch.cuda._sleep(int(spin * spin_cycles_per_ms()))
+    e1.record()
+    t = time.perf_counter()
+    fn()
+    host_ms = 1e3 * (time.perf_counter() - t)
+    e1.synchronize()
+    spin_ms = e0.elapsed_time(e1)
+    torch.cuda.synchronize()
+    return dict(waits=host_ms >= 0.9 * spin_ms, launches=launches,
+                conclusive=launches <= min(WAIT_TEST_LAUNCHES,
+                                           launch_queue_depth()["depth"]),
+                host_ms=host_ms,
+                spin_ms=spin_ms)
 
 
 def device_ms(fn, reps: int = 20, tries: int = 4) -> float:
@@ -277,7 +412,6 @@ def device_ms(fn, reps: int = 20, tries: int = 4) -> float:
     twice as long; fn that waits on the device never gets ahead and fails.
     (torch.profiler is not used here: on the H100 its sessions have dropped
     device records, a different number in different runs.)"""
-    global _spin_cycles_per_ms
     fn()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -285,14 +419,7 @@ def device_ms(fn, reps: int = 20, tries: int = 4) -> float:
         fn()
     host_ms = 1e3 * (time.perf_counter() - t)
     torch.cuda.synchronize()
-    if _spin_cycles_per_ms is None:
-        cycles = 20_000_000
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in "ab")
-        a.record()
-        torch.cuda._sleep(cycles)
-        b.record()
-        b.synchronize()
-        _spin_cycles_per_ms = cycles / a.elapsed_time(b)
+    spin_cycles_per_ms()
     spin_target_ms = 2 * host_ms + 2.0
     missed = []
     for _ in range(tries):
@@ -1318,6 +1445,7 @@ def phase_native_lines(dev, frames, poses) -> dict:
     steady = frame_ms[1:]
     out.update(
         counts=counts, states=run["states"], kfs=run["kfs"], ate=ate,
+        T_wc=run["T"],
         line_matches=run["line_matches"], line_matches_median=lm,
         pairs_equal=pairs_equal, ms=frame_ms,
         ms_median=statistics.median(steady),
@@ -1360,7 +1488,92 @@ def phase_native_lines(dev, frames, poses) -> dict:
     need_launches(counts, "native_lines", ("tracking", "fusion"))
     need_launches(out["mini_counts"], "mini_kitti", ("tracking", "fusion"))
     out["detector"] = detector_alone(dev, img, seq)
+    out["vote"] = vote_site(dev, img)
     return out
+
+
+def vote_site(dev, img: np.ndarray) -> dict:
+    """The segment sum at the native detector's vote
+    (line_extract._accumulate) on one KITTI view: the card's accumulator
+    bit-equal to the CPU's index_add_ over every pixel on the same bins and
+    votes, and to a second call; the kernel's device time (device_ms) on
+    the layout keyed past the last bin for the pixels that do not vote, a
+    whole call (layout and kernel, CUDA events), the layout alone, the
+    atomic index_add_ (device_ms: the library yardstick),
+    index_put_(accumulate=True) a call (CUDA events) and the CPU
+    index_add_ (host clock); whether the vote, index_put_ and the whole
+    detector make the host wait (host_waits). The kernel's bound is what
+    its launch moves on this view: the voting rows' perm and votes, the
+    offsets, and each bin that has a vote read and written once; the
+    all-rows bound (every pixel's bin and vote in, the accumulator out)
+    is that of a whole call and stands beside call_ms."""
+    from lldslam_tpu_torch.frontend import line_extract as le
+    from lldslam_tpu_torch.ops import segment_sum
+    from lldslam_tpu_torch.ops.segment_sum import segment_layout
+
+    cfg = le.LineDetConfig(max_lines=256)
+    x = torch.from_numpy(img).to(dev)
+    _, _, mag, edge, _, bins, n_rho = le._votes(x.float(), cfg)
+    w = torch.where(edge, mag, 0.0).reshape(-1)
+    b = bins.reshape(-1)
+    n, O = n_rho * cfg.n_phi, w.shape[0]
+    launches = segment_sum.launches
+    got, again = le._accumulate(b, w, n), le._accumulate(b, w, n)
+    launched = segment_sum.launches - launches
+    want = le._accumulate(b.cpu(), w.cpu(), n)
+    torch.cuda.synchronize()
+    exact = torch.equal(got.cpu(), want) and torch.equal(got, again)
+    key = torch.where(w != 0, b.long(), n)
+    lay = segment_layout(key, n)
+    voting = int((w != 0).sum())
+    acc = torch.zeros(n, device=dev)
+    bc, wc = b.cpu(), w.cpu()
+    plain = []
+    for _ in range(10):
+        t = time.perf_counter()
+        torch.zeros(n).index_add_(0, bc, wc)
+        plain.append(1e3 * (time.perf_counter() - t))
+    row = dict(
+        rows=O, voting_rows=voting, columns=1, segments=n, exact=exact,
+        max_abs_err=float((got.cpu() - want).abs().max()),
+        calls_per_frame=2, launches_per_call=launched // 2,
+        ms=device_ms(lambda: segment_sum.segment_sum_(acc, lay, w)),
+        call_ms=cuda_ms(lambda: le._accumulate(b, w, n)),
+        layout_ms=cuda_ms(lambda: segment_layout(key, n)),
+        library_ms=device_ms(lambda: acc.index_add_(0, b, w)),
+        library_ms_index_put=cuda_ms(lambda: acc.index_put_(
+            (b.long(),), w, accumulate=True)),
+        plain_ms=statistics.median(plain))
+    row["host_waits"] = {
+        "accumulate": host_waits(lambda: le._accumulate(b, w, n)),
+        "index_put_": host_waits(lambda: acc.index_put_(
+            (b.long(),), w, accumulate=True)),
+        "detect_lines": host_waits(lambda: le.detect_lines(x, cfg))}
+    filled = int((lay.offsets[1:] > lay.offsets[:-1]).sum())
+    row["filled_segments"] = filled
+    row["bound_ms"], row["bound_by"] = bound(
+        voting * (8 + 4) + (n + 1) * 8 + filled * 4 * 2, voting)
+    row["bound_ms_call"], _ = bound(O * 4 + O * 8 + n * 4, O)
+    log(f"vote site: {O} rows ({voting} voting, {filled} bins filled) -> "
+        f"{n} bins; card against "
+        f"CPU index_add_ bit-equal {exact}, {launched} launches in 2 calls; "
+        f"kernel {row['ms']:.4f} ms on the device, bound "
+        f"{row['bound_ms']:.5f} ms ({row['bound_by']}; voting rows, offsets,"
+        f" filled bins), {100 * row['bound_ms'] / row['ms']:.2f}%; a call "
+        f"(layout + kernel) {row['call_ms']:.4f} ms, bound "
+        f"{row['bound_ms_call']:.5f} ms (every row), "
+        f"{100 * row['bound_ms_call'] / row['call_ms']:.2f}%; layout "
+        f"{row['layout_ms']:.4f} ms; atomic index_add_ "
+        f"{row['library_ms']:.4f} ms, index_put_(accumulate) "
+        f"{row['library_ms_index_put']:.4f} ms a call, CPU index_add_ "
+        f"{row['plain_ms']:.3f} ms; the host waits for the device in: "
+        + json.dumps({k: v["waits"] for k, v in row["host_waits"].items()}))
+    if not exact or launched != 2 or not all(
+            v["conclusive"] and not v["waits"]
+            for k, v in row["host_waits"].items() if k != "index_put_"):
+        raise AssertionError(f"vote site: bit-equal {exact}, launches "
+                             f"{launched}, host waits {row['host_waits']}")
+    return row
 
 
 def phase_loop(dev) -> dict:
@@ -2507,17 +2720,24 @@ def _hold_kernels(label, kept_a, kept_b, kept_g) -> dict:
 
 
 def run_pipelined(dev, cfg, frames, label: str, lines: bool = False,
-                  measure: bool = True, profile: bool = True) -> dict:
+                  measure: bool = True, profile: bool = True,
+                  native: bool = False, n_profile: int = PIPE_PROFILE
+                  ) -> dict:
     """The JAX bench's headline schedule through System(cfg,
     pipeline=True): warmup, PIPE_WARM frames through track_stereo, the
-    rest staged by stage_stereo (with lines, their stored detections by
-    stage_stored_pair) and passed as pair_dev, then flush. Kernel launches
-    counted over the staged frames and the flush, per-call host ms (no
-    per-frame synchronisation: a call dispatches its frame and finalizes
-    older ones); with `measure` and `profile` the last PIPE_PROFILE staged
-    frames inside one profiler window; with `measure` the host syncs of one
-    steady-state dispatch, and K1a, K1b and K2g (at both its sites) held
-    to their plain versions on their last calls' inputs."""
+    rest staged by stage_stereo (with `lines`, their stored detections by
+    stage_stored_pair; with `native`, cfg has lines and no detections, so
+    the tracker runs the line detector on both views) and passed as
+    pair_dev, then flush. Kernel launches counted over the staged frames
+    and the flush, per-call host ms (no per-frame synchronisation: a call
+    dispatches its frame and finalizes older ones); with `measure` and
+    `profile` the last `n_profile` staged frames inside one profiler
+    window; with `measure` the host syncs of one steady-state dispatch
+    (the chained step on its last inputs; with `native` the whole dispatch
+    of the last staged pair: frame build, the detector on both views, the
+    stereo line match and the chained line step), and K1a, K1b and K2g
+    (at both its sites) held to their plain versions on their last calls'
+    inputs."""
     from lldslam_tpu_torch.io.stored_lines import stage_stored_pair
     from lldslam_tpu_torch.ops import match_best2, orb_describe, stereo_sad
     from lldslam_tpu_torch.pipeline import tracker as tmod
@@ -2544,8 +2764,8 @@ def run_pipelined(dev, cfg, frames, label: str, lines: bool = False,
               for i in range(PIPE_WARM, len(frames))]
     torch.cuda.synchronize()
     profile = measure and profile
-    n_meas = len(staged) - (PIPE_PROFILE if profile else 0)
-    step_name = "_track_step_chained_lines" if lines \
+    n_meas = len(staged) - (n_profile if profile else 0)
+    step_name = "_track_step_chained_lines" if lines or native \
         else "_track_step_chained"
     restore = []
     if measure:
@@ -2574,7 +2794,7 @@ def run_pipelined(dev, cfg, frames, label: str, lines: bool = False,
             one()
             ms.append(1e3 * (time.perf_counter() - t))
         if profile:
-            prof = profile_window(one, PIPE_PROFILE)
+            prof = profile_window(one, n_profile)
         t = time.perf_counter()
         sys_.flush()
         torch.cuda.synchronize()
@@ -2603,14 +2823,77 @@ def run_pipelined(dev, cfg, frames, label: str, lines: bool = False,
         f"keyframes at {out['kf_frames']}; launches {counts}")
     if measure:
         args = kept_step[-1][1]
-        out["dispatch_syncs"] = host_syncs(
-            lambda: getattr(tmod, step_name)(*args))
+        step = getattr(tmod, step_name)
+        if native:
+            pair = staged[-1][1]
+            step = native_dispatch(tr, pair, step)
+        out["dispatch_syncs"] = host_syncs(lambda: step(*args))
+        if native:
+            out["dispatch_waits"] = {
+                k: host_waits(fn) for k, fn in native_pieces(tr, pair).items()}
         out["kernels_exact"] = _hold_kernels(label, kept_a, kept_b, kept_g)
         log(f"{label}: host syncs in one steady-state dispatch: "
             f"{out['dispatch_syncs']}" + (
-                f"; profiler window of {PIPE_PROFILE} staged frames: "
+                f"; profiler window of {n_profile} staged frames: "
                 f"{_window(prof)}" if profile else ""))
     return out
+
+
+def native_dispatch(tr, pair, step):
+    """The device work of one pipelined frame on the native-line route,
+    as a function of the chained step's arguments: the frame build of
+    `pair`, the line detector on both views, the stereo line match and
+    `step` (its `cur_fl` replaced by this match)."""
+    from lldslam_tpu_torch.frontend import frame, line_extract, line_match
+
+    def run(*args):
+        frame.build_frame_pair(pair, tr.cam, tr.orb)
+        kl = line_extract.detect_lines(pair[0], tr.line_cfg)
+        kr = line_extract.detect_lines(pair[1], tr.line_cfg)
+        fl = line_match.match_stereo_lines(
+            tr.cam, kl, kr, md_thr=tr._md_gate,
+            min_len=tr.cfg.line.min_line_len)
+        return step(*args[:-3], fl, *args[-2:])
+    return run
+
+
+def native_pieces(tr, pair) -> dict:
+    """The parts of a native-line dispatch before the chained step, as
+    functions, each under WAIT_TEST_LAUNCHES kernel launches so that
+    host_waits can tell: the frame build of `pair` (frame.build_frame_batch)
+    as its pyramid, each level's detection, the descriptors and the stereo
+    match, each on the outputs of the pieces before it (computed here
+    once); the detector on each view; the stereo line match (of the pair's
+    detections). The chained step itself launches more than the queue
+    holds, so sync debug mode alone covers it."""
+    from lldslam_tpu_torch.frontend import line_extract, line_match
+    from lldslam_tpu_torch.ops import image, orb, stereo
+    cfg = tr.orb
+    stack = pair[None].to(torch.float32)
+    pyramid = lambda: image.build_pyramid(stack, cfg.n_levels, cfg.scale,
+                                          quantize=True)
+    pyr = pyramid()
+    pyr_stack = orb.stack_levels(pyr)
+    budgets = cfg.per_level_budget()
+    levels = [orb.detect_level(im, n, cfg) for im, n in zip(pyr, budgets)]
+    kp = orb.describe_levels(pyr, levels, cfg, pyr_stack)
+    level_hw = [tuple(p.shape[-2:]) for p in pyr]
+    detect = lambda v: line_extract.detect_lines(pair[v], tr.line_cfg)
+    kl, kr = detect(0), detect(1)
+    pieces = dict(build_pyramid=lambda: orb.stack_levels(pyramid()))
+    for l, (im, n) in enumerate(zip(pyr, budgets)):
+        pieces[f"build_level_{l}"] = \
+            lambda im=im, n=n: orb.detect_level(im, n, cfg)
+    pieces.update(
+        build_describe=lambda: orb.describe_levels(pyr, levels, cfg,
+                                                   pyr_stack),
+        build_stereo=lambda: stereo.match_stereo(
+            kp.view_of(0), kp.view_of(1), pyr_stack, level_hw, tr.cam, cfg),
+        detect_left=lambda: detect(0), detect_right=lambda: detect(1),
+        match=lambda: line_match.match_stereo_lines(
+            tr.cam, kl, kr, md_thr=tr._md_gate,
+            min_len=tr.cfg.line.min_line_len))
+    return pieces
 
 
 def _parity(label, out, ref_kf, ref_T, bound_m, cpu_kf) -> list:
@@ -2729,6 +3012,128 @@ def phase_pipelined_lines(dev, frames, poses, sync_lines) -> dict:
         raise AssertionError("pipelined_lines: " + "; ".join(bad))
     need_launches(out["counts"], "pipelined_lines", ("tracking", "fusion"))
     return out
+
+
+def phase_pipelined_native_lines(dev, frames, poses, native) -> dict:
+    """The lines world through the pipelined System on the native detector
+    (ldType LBDFloat, mdThr 0.6, no detections path: the tracker detects
+    lines on both views of every frame), loops on, on the JAX bench's
+    headline schedule with a profiler window of PIPE_NATIVE_PROFILE
+    frames, against the synchronous native run of the native_lines phase
+    (`native`, the CLI on the same frames as PNGs), the JAX package's
+    pipelined CPU run of this world (PIPE_NATIVE_LINE_MATCHES_JAX) and the
+    keyframes of the port's own (PIPE_NATIVE_KF_CPU)."""
+    import dataclasses
+    from lldslam_tpu_torch.config import LineConfig
+    from lldslam_tpu_torch.io.trajectory import ate_rmse
+    cfg = dataclasses.replace(kitti_config(), line=LineConfig(
+        ld_type="LBDFloat", md_thr=0.6))
+    out = run_pipelined(dev, cfg, frames, "pipelined_native_lines",
+                        native=True, n_profile=PIPE_NATIVE_PROFILE)
+    gt = np.stack([np.linalg.inv(p) for p in poses])
+    out["ate"] = ate_rmse(out["T_wc"], gt)
+    lm = [m.n_line_matches for m in out["metrics"]]
+    s = out["tracker"].store
+    sync_lm = statistics.median(native["line_matches"][1:])
+    sync_ms = native["ms"][PIPE_WARM:]
+    out.update(line_matches=lm, n_lines=int(s.ln_valid.sum()),
+               sync_ms=sync_ms, sync_line_matches_median=sync_lm)
+    log(f"pipelined_native_lines: ATE {out['ate']:.5f} m (synchronous "
+        f"{native['ate']:.5f}); line matches per frame {lm}, median "
+        f"{statistics.median(lm[1:])} (synchronous {sync_lm}); valid map "
+        f"lines {out['n_lines']}; per call ms median "
+        f"{statistics.median(out['ms']):.1f} against the synchronous native "
+        f"run's {statistics.median(sync_ms):.1f} ms a frame over the same "
+        f"frames; staged line solves left {len(s._pending_retri)}; the "
+        f"dispatch's parts behind a spin kernel: " + json.dumps(
+            {k: [v["waits"], v["launches"], round(v["host_ms"], 2),
+                 round(v["spin_ms"], 2)]
+             for k, v in out["dispatch_waits"].items()}) + " (waits, kernel "
+        f"launches, host ms behind the spin, spin ms; a verdict counts for "
+        f"at most {min(WAIT_TEST_LAUNCHES, launch_queue_depth()['depth'])} "
+        f"launches)")
+    checks = _parity("pipelined_native_lines", out, native["kfs"],
+                     native["T_wc"], PIPE_LINES_CENTRE_BOUND_M,
+                     PIPE_NATIVE_KF_CPU)
+    # the line matches against the JAX package's pipelined run of the
+    # world; the synchronous run's median (1) is logged, not bound: both
+    # packages' pipelined routes starve the association (ROADMAP section 3)
+    ref = PIPE_NATIVE_LINE_MATCHES_JAX
+    lo, hi = PIPE_NATIVE_LINE_MATCH_SHARE
+    med, ref_med = statistics.median(lm[1:]), statistics.median(ref[1:])
+    out.update(line_matches_jax=list(ref), line_matches_median=med,
+               line_matches_equal_jax=lm == list(ref))
+    log(f"pipelined_native_lines: line matches median {med} (the JAX "
+        f"package's pipelined run {ref_med}, the synchronous native run "
+        f"{sync_lm}: not held), total {sum(lm)} (JAX pipelined {sum(ref)}); "
+        f"frame for frame the JAX pipelined run's: "
+        f"{out['line_matches_equal_jax']}")
+    checks += [
+        (out["ate"] <= ATE_BOUND_M, f"ATE {out['ate']} m"),
+        (lo * ref_med <= med <= hi * ref_med
+         and lo * sum(ref) <= sum(lm) <= hi * sum(ref),
+         f"line matches {lm}, the JAX pipelined run's {list(ref)}"),
+        (out["n_lines"] > 0 and not s._pending_retri,
+         f"map lines {out['n_lines']}, unwritten solves "
+         f"{len(s._pending_retri)}"),
+        # every part before the chained step within the queue, no wait
+        (all(w["conclusive"] and not w["waits"]
+             for w in out["dispatch_waits"].values()),
+         f"a part of the dispatch waited or outran the launch queue: "
+         f"{out['dispatch_waits']}"),
+        # the vote: two detector calls a staged frame
+        (out["counts"]["segsum"] >= 2 * (len(frames) - PIPE_WARM),
+         f"segment-sum launches {out['counts']['segsum']}")]
+    bad = [msg for ok, msg in checks if not ok]
+    if bad:
+        raise AssertionError("pipelined_native_lines: " + "; ".join(bad))
+    need_launches(out["counts"], "pipelined_native_lines",
+                  ("tracking", "fusion"))
+    return out
+
+
+def phase_cold_start() -> dict:
+    """tools/torch_cold_start.py in two fresh processes (no JAX): one that
+    runs each rare path cold, one that calls System.warmup first and then
+    runs each path; each then runs COLD_REPS more rounds of every path,
+    whose readings, pooled, give the warm median."""
+    runs = {}
+    for key, extra in (("cold", []), ("warmed", ["--warmup"])):
+        t = time.perf_counter()
+        p = subprocess.run([sys.executable, "tools/torch_cold_start.py",
+                            "--reps", str(COLD_REPS), *extra],
+                           capture_output=True, text=True,
+                           timeout=COLD_TIMEOUT_S)
+        lines = p.stdout.strip().splitlines()
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"cold_start {key}: exit {p.returncode}: "
+                                 f"{p.stdout[-2000:]} {p.stderr[-3000:]}")
+        runs[key] = json.loads(lines[-1])
+        runs[key]["process_s"] = time.perf_counter() - t
+    cold, warmed = runs["cold"]["paths"], runs["warmed"]["paths"]
+    table = {}
+    for name in cold:
+        a, b = cold[name]["ms"], warmed[name]["ms"]
+        w = statistics.median(a[1:] + b[1:])
+        table[name] = dict(cold_ms=a[0], after_warmup_ms=b[0],
+                           warm_median_ms=w, cold_ratio=a[0] / w,
+                           after_warmup_ratio=b[0] / w, readings_cold=a,
+                           readings_warmed=b)
+        log(f"cold_start {name}: first call {a[0]:.1f} ms cold, {b[0]:.1f} "
+            f"ms after System.warmup, warm median {w:.1f} ms of "
+            f"{len(a) + len(b) - 2} (ratios {a[0] / w:.2f} / {b[0] / w:.2f})")
+    log(f"cold_start: System.warmup {runs['warmed']['warmup_s']:.2f} s; "
+        f"processes {runs['cold']['process_s']:.1f} / "
+        f"{runs['warmed']['process_s']:.1f} s; {runs['cold']['card']}")
+    slow = {k: round(v["after_warmup_ratio"], 3) for k, v in table.items()
+            if k not in COLD_NOT_HELD
+            and v["after_warmup_ratio"] > COLD_AFTER_WARMUP_RATIO}
+    if slow:
+        raise AssertionError(f"cold_start: first calls after System.warmup "
+                             f"over {COLD_AFTER_WARMUP_RATIO}x their warm "
+                             f"median: {slow}")
+    return dict(paths=table, warmup_s=runs["warmed"]["warmup_s"],
+                process_s={k: v["process_s"] for k, v in runs.items()})
 
 
 def phase_pipelined_multiseq(dev, seqs) -> dict:
@@ -2871,6 +3276,9 @@ def main() -> int:
                         phase_native_lines(dev, *lines_world[:2]))
     paths["mini_kitti"] = native["mini_counts"]
     paths["native_lines"] = native["counts"]
+    paths["pipelined_native_lines"] = phase_done(
+        "pipelined_native_lines", phase_pipelined_native_lines(
+            dev, *lines_world[:2], native))["counts"]
     ring = phase_done("loop", phase_loop(dev))
     paths["loop"] = ring["counts"]
     paths["reloc"], paths["reloc_site"] = phase_done("reloc",
@@ -2891,6 +3299,7 @@ def main() -> int:
         "pipelined_multiseq",
         phase_pipelined_multiseq(dev, multi["seqs"]))["counts"]
     torch.distributed.destroy_process_group()    # dist's one-rank group
+    phase_done("cold_start", phase_cold_start())
     by_path = lambda k: {p: c[k] for p, c in paths.items()}
     batched = lambda k: dict(
         multi["kernels"][k], launches=paths["multiseq"][k],
@@ -2919,7 +3328,8 @@ def main() -> int:
         dict(name="segment_sum", route="cuda",
              source="lldslam_tpu_torch/csrc/segment_sum.cu",
              replaces=SEGMENT_SUM_REPLACES, launches=paths["loop"]["segsum"],
-             launches_by_path=by_path("segsum"), **dist_out["segsum"]),
+             launches_by_path=by_path("segsum"), vote_site=native["vote"],
+             **dist_out["segsum"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Frame construction for a stereo pair, one monocular image or an RGB-D
 image.
 
-Counterpart of lldslam_tpu/frontend/frame.py (`FrameData`,
+Counterpart of lldslam_tpu/frontend/frame.py (`FrameData`, `build_frame`,
 `build_frame_pair`, `build_frame_mono`, `build_frame_rgbd`): the stereo
 build extracts from the integer-quantized pyramid of both views and matches
 them; the monocular and RGB-D builds extract from one view's float pyramid
@@ -60,6 +60,15 @@ def build_frame_pair(pair: torch.Tensor, cam: StereoCamera,
     """pair (2, H, W) uint8/float stacked left, right on the working
     device: `build_frame_batch` of one frame."""
     return build_frame_batch(pair[None], cam, cfg).seq(0)
+
+
+def build_frame(img_l, img_r, cam: StereoCamera,
+                cfg: orb.OrbConfig = orb.OrbConfig()) -> FrameData:
+    """`build_frame_pair` of separate left and right (H, W) images (tensors
+    on the working device, or arrays for the CPU); prefer one stacked pair
+    per frame."""
+    return build_frame_pair(torch.stack([torch.as_tensor(img_l),
+                                         torch.as_tensor(img_r)]), cam, cfg)
 
 
 def build_frame_mono(img: torch.Tensor,

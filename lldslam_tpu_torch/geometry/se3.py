@@ -26,6 +26,11 @@ def hat(w: torch.Tensor) -> torch.Tensor:
     ], dim=-2)
 
 
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of hat: (..., 3, 3) -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
 def _sinc_coeffs(theta_sq: torch.Tensor):
     """(sin t/t, (1-cos t)/t^2, (t - sin t)/t^3), Taylor-safe."""
     small = theta_sq < _EPS_ANGLE
@@ -40,6 +45,14 @@ def _sinc_coeffs(theta_sq: torch.Tensor):
 
 def _eye(n: int, like: torch.Tensor, shape) -> torch.Tensor:
     return torch.eye(n, dtype=like.dtype, device=like.device).expand(shape)
+
+
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues: (..., 3) axis-angle -> (..., 3, 3) rotation matrix."""
+    A, B, _ = _sinc_coeffs(torch.sum(w * w, dim=-1))
+    W = hat(w)
+    return _eye(3, w, W.shape) + A[..., None, None] * W \
+        + B[..., None, None] * (W @ W)
 
 
 def quat_from_mat(R: torch.Tensor) -> torch.Tensor:
@@ -148,3 +161,17 @@ def apply(T: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     return (R @ X[..., None])[..., 0] + t
+
+
+def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    return A @ B
+
+
+def retract(T: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+    """Left-multiplicative retraction exp(xi) * T."""
+    return exp(xi) @ T
+
+
+def identity(batch_shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.eye(4, dtype=dtype, device=device).expand(
+        *tuple(batch_shape), 4, 4)

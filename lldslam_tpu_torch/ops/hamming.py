@@ -65,6 +65,12 @@ def masked_argmin(dist: torch.Tensor, mask: torch.Tensor):
     return best_idx[..., 0], best, second
 
 
+def mutual_filter(best_ab: torch.Tensor, best_ba: torch.Tensor) -> torch.Tensor:
+    """Cross-check: keep the a->b matches whose b's best is a. (N,) bool."""
+    n = best_ab.shape[0]
+    return best_ba[best_ab] == torch.arange(n, device=best_ab.device)
+
+
 def _topk_stable(x: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k largest entries, ties broken by lower index first
     (lax.top_k semantics)."""

@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import consts
+
 
 def pyramid_shapes(h: int, w: int, n_levels: int, scale: float):
     """Static per-level (H, W) list, round(H / scale^l)."""
@@ -35,8 +37,10 @@ def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
     antialias=False)."""
     inv = 1.0 / (n_out / n_in)
     i = torch.arange(n_out, dtype=torch.float32, device=device) + 0.5
-    inv32 = torch.tensor(inv, dtype=torch.float32, device=device)
-    sf = _fma(i, inv32, torch.tensor(-0.5, dtype=torch.float32, device=device))
+    # fills, not torch.tensor: a copy from host memory makes the host wait
+    inv32 = torch.full((), inv, dtype=torch.float32, device=device)
+    sf = _fma(i, inv32, torch.full((), -0.5, dtype=torch.float32,
+                                   device=device))
     x = (sf[None, :] - torch.arange(n_in, dtype=torch.float32,
                                     device=device)[:, None]).abs()
     w = torch.clamp(1.0 - x, min=0.0)
@@ -105,7 +109,9 @@ def _taps_sum(k: torch.Tensor, slices) -> torch.Tensor:
 
 def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torch.Tensor:
     """Separable Gaussian blur of (..., H, W) with BORDER_REFLECT_101."""
-    k = torch.from_numpy(_gauss_kernel(ksize, sigma)).to(img.device)
+    # a cached table of fills: an upload from host memory makes the host wait
+    k = consts.table(tuple(_gauss_kernel(ksize, sigma).tolist()),
+                     torch.float32, img.device)
     r = ksize // 2
     H, W = img.shape[-2:]
     x = img.reshape(-1, 1, H, W).to(torch.float32)
@@ -114,3 +120,11 @@ def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torc
     p = F.pad(v, (r, r, 0, 0), mode="reflect")
     o = _taps_sum(k, [p[..., i:i + W] for i in range(ksize)])
     return o.reshape(img.shape)
+
+
+def to_gray_f32(img: np.ndarray) -> np.ndarray:
+    """Host side: uint8 gray or BGR -> float32 gray in [0, 255], with
+    OpenCV's BGR weights."""
+    if img.ndim == 3:
+        img = 0.114 * img[..., 0] + 0.587 * img[..., 1] + 0.299 * img[..., 2]
+    return np.asarray(img, dtype=np.float32)

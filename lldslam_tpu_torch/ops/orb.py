@@ -77,6 +77,10 @@ class Keypoints(NamedTuple):
     desc: torch.Tensor      # (V, N, 8) int32 packed 256-bit BRIEF
     valid: torch.Tensor     # (V, N) bool
 
+    @property
+    def capacity(self) -> int:
+        return self.xy.shape[-2]
+
     def view_of(self, v: int) -> "Keypoints":
         """View v (the axis before the keypoints), batch dims kept."""
         axis = self.valid.dim() - 2
@@ -145,49 +149,51 @@ def _ic_angle(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     return orb_describe.ic_angle_plain(img[None].contiguous(), xy, idx)
 
 
-def extract_stack_pyr(pyr, cfg: OrbConfig = OrbConfig(),
-                      pyr_stack: torch.Tensor | None = None) -> Keypoints:
-    """ORB extraction for a stack of same-shape views per level (pyr: list of
-    (..., V, h_l, w_l) float32 levels; V=2 for a stereo pair, leading dims
-    a batch of frames). FAST, NMS and selection run on `pyr`, BRIEF on
-    round(blur(level)); the orientation reads `pyr_stack`, the
-    integer-valued levels stacked, by default `stack_levels(pyr)` (a
-    quantized pyramid). Returns Keypoints with dims (..., V)."""
+def detect_level(im_l: torch.Tensor, n_l: int, cfg: OrbConfig):
+    """One level's share of `extract_stack_pyr`: FAST, NMS and the
+    selection of n_l keypoints on (..., V, h, w), and round(blur(level)),
+    which BRIEF reads. Returns (xy (..., V, n_l, 2), response (..., V,
+    n_l), the rounded blur)."""
+    lead = im_l.shape[:-2]
+    dev = im_l.device
+    h, w = im_l.shape[-2:]
+    score = fast.nms3x3(fast.fast_score_map(im_l, cfg.min_th))
+    ys = torch.arange(h, device=dev)[:, None]
+    xs = torch.arange(w, device=dev)[None, :]
+    inside = ((ys >= EDGE_MARGIN) & (ys < h - EDGE_MARGIN)
+              & (xs >= EDGE_MARGIN) & (xs < w - EDGE_MARGIN))
+    score = torch.where(inside, score, torch.zeros_like(score))
+    xy, r = _select_level_keypoints(score.reshape(-1, h, w), n_l, cfg)
+    # the oracle blurs uint8 -> uint8: integer rounding gives bit-exact
+    # BRIEF comparisons
+    return (xy.reshape(*lead, n_l, 2), r.reshape(*lead, n_l),
+            torch.round(image.gaussian_blur(im_l)))
+
+
+def describe_levels(pyr, levels, cfg: OrbConfig,
+                    pyr_stack: torch.Tensor) -> Keypoints:
+    """The rest of `extract_stack_pyr` once every level is detected
+    (`levels`: detect_level's output per level): orientation and BRIEF
+    (K1a) of every keypoint, level coordinates scaled to level 0, the
+    keypoint axis padded to cfg.max_kp."""
     lead = tuple(pyr[0].shape[:-3])
     V = pyr[0].shape[-3]
     dev = pyr[0].device
-    budgets = cfg.per_level_budget()
-    scales = cfg.scale_factors()
-    xy_l, resp, octv, blurs = [], [], [], []
-    for l, (im_l, n_l) in enumerate(zip(pyr, budgets)):
-        h, w = im_l.shape[-2:]
-        score = fast.nms3x3(fast.fast_score_map(im_l, cfg.min_th))
-        ys = torch.arange(h, device=dev)[:, None]
-        xs = torch.arange(w, device=dev)[None, :]
-        inside = ((ys >= EDGE_MARGIN) & (ys < h - EDGE_MARGIN)
-                  & (xs >= EDGE_MARGIN) & (xs < w - EDGE_MARGIN))
-        score = torch.where(inside, score, torch.zeros_like(score))
-        xy, r = _select_level_keypoints(score.reshape(-1, h, w), n_l, cfg)
-        xy_l.append(xy.reshape(*lead, V, n_l, 2))
-        resp.append(r.reshape(*lead, V, n_l))
-        octv.append(torch.full(lead + (V, n_l), l, dtype=torch.int32,
-                               device=dev))
-        # the oracle blurs uint8 -> uint8: integer rounding gives bit-exact
-        # BRIEF comparisons
-        blurs.append(torch.round(image.gaussian_blur(im_l)))
+    xy_l, resp, blurs = zip(*levels)
     # per-keypoint image index into the (L*V, H0, W0) stacks: l*V + v
-    octave = torch.cat(octv, dim=-1)
+    octave = torch.cat([torch.full(lead + (V, r.shape[-1]), l,
+                                   dtype=torch.int32, device=dev)
+                        for l, r in enumerate(resp)], dim=-1)
     img_idx = (octave * V + torch.arange(V, device=dev, dtype=torch.int32)[:, None])
     xy_lvl = torch.cat(xy_l, dim=-2)
-    if pyr_stack is None:
-        pyr_stack = stack_levels(pyr)
     image_hw = [tuple(p.shape[-2:]) for p in pyr for _ in range(V)]
     angle, desc = orb_describe.describe(
-        pyr_stack, stack_levels(blurs),
+        pyr_stack, stack_levels(list(blurs)),
         xy_lvl.reshape(*lead, -1, 2).to(torch.int32),
         img_idx.reshape(*lead, -1), image_hw)
     resp = torch.cat(resp, dim=-1)
-    scale_kp = consts.table(tuple(scales), torch.float32, dev)[octave.long()]
+    scale_kp = consts.table(tuple(cfg.scale_factors()), torch.float32,
+                            dev)[octave.long()]
     xy0 = xy_lvl.to(torch.float32) * scale_kp[..., None]
     n = xy0.shape[-2]
     kp = Keypoints(xy0, resp, octave, angle.reshape(*lead, V, n),
@@ -198,6 +204,21 @@ def extract_stack_pyr(pyr, cfg: OrbConfig = OrbConfig(),
         kp = Keypoints(*(F.pad(a, (0, 0) * (a.dim() - resp.dim())
                                + (0, cap - n)) for a in kp))
     return kp
+
+
+def extract_stack_pyr(pyr, cfg: OrbConfig = OrbConfig(),
+                      pyr_stack: torch.Tensor | None = None) -> Keypoints:
+    """ORB extraction for a stack of same-shape views per level (pyr: list of
+    (..., V, h_l, w_l) float32 levels; V=2 for a stereo pair, leading dims
+    a batch of frames). FAST, NMS and selection run on `pyr`, BRIEF on
+    round(blur(level)); the orientation reads `pyr_stack`, the
+    integer-valued levels stacked, by default `stack_levels(pyr)` (a
+    quantized pyramid). Returns Keypoints with dims (..., V)."""
+    levels = [detect_level(im_l, n_l, cfg)
+              for im_l, n_l in zip(pyr, cfg.per_level_budget())]
+    if pyr_stack is None:
+        pyr_stack = stack_levels(pyr)
+    return describe_levels(pyr, levels, cfg, pyr_stack)
 
 
 def extract_pyr(pyr, cfg: OrbConfig = OrbConfig()) -> Keypoints:

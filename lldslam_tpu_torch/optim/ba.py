@@ -12,9 +12,11 @@ Counterpart of lldslam_tpu/optim/ba.py, two paths over the same residuals:
   (`ops/segment_sum.segment_sum_` over layouts of the keyframe and point
   indices built once per solve, so the card gives the same bits every run)
   and the reduced system is solved matrix-free by block-Jacobi
-  preconditioned CG, which is what global BA after a loop closure runs. The
-  JAX package's dense reduced system on this path (`dense=True`) has no
-  caller there and is not carried over.
+  preconditioned CG (`dense=False`, what global BA after a loop closure
+  runs) or, with `dense=True` (the JAX package's default; here the default
+  stays False, which every caller runs), directly from the (K, P, 6, 3)
+  coupling tensor, itself a fixed-order segment sum over the cells
+  k * P + p (`_schur_dense`).
 
 The accept/reject test and the damping stay on the device, and the solves
 use the `_ex` variants, which report failures in a tensor instead of
@@ -324,6 +326,20 @@ def _reduced_solve(pose_fixed, point_valid, Hcc, bc, Hpp_inv, bp, B, lam):
     return dc, dp * point_valid[:, None]
 
 
+def _schur_dense(problem: BAProblem, Hcc, bc, Hpp, bp, Wcp, lam,
+                 lay: ObsLayouts, lay_kp: SegmentLayout):
+    """The explicit reduced camera system of the (K, P, 6, 3) coupling
+    tensor, summed per (keyframe, point) cell over the layout `lay_kp` of
+    k * P + p; the solve and back-substitution of the dense grid path."""
+    K = problem.poses.shape[0]
+    P = problem.points.shape[0]
+    Hpp_inv = _point_blocks_inv(problem, Hpp, Wcp, lam, lay.p)
+    B = segment_sum_(_zeros((K * P, 6, 3), Wcp), lay_kp,
+                     Wcp.contiguous()).reshape(K, P, 6, 3)
+    return _reduced_solve(problem.pose_fixed, problem.point_valid, Hcc, bc,
+                          Hpp_inv, bp, B, lam)
+
+
 def _schur_cg(problem: BAProblem, Hcc, bc, Hpp, bp, Wcp, lam, cg_iters: int,
               lay: ObsLayouts, reduce_poses=None, reduce_points=None):
     """Matrix-free reduced-system CG: S @ v by two observation-level
@@ -409,22 +425,28 @@ def _total_cost(cam, problem: BAProblem, delta_scale=1.0):
 
 
 def ba_solve(cam: StereoCamera, problem: BAProblem, iters: int = 5,
-             cg_iters: int = 24, reduce_poses=None, reduce_points=None):
+             dense: bool = False, cg_iters: int = 24, reduce_poses=None,
+             reduce_points=None):
     """`iters` LM iterations on the observation table, each step solved by
-    `cg_iters` CG steps (GNC: the Huber delta starts 8x inflated and halves
-    per iteration). Returns (problem', final chi2 per observation).
+    `cg_iters` CG steps, or with `dense` directly from the dense coupling
+    tensor (GNC: the Huber delta starts 8x inflated and halves per
+    iteration). Returns (problem', final chi2 per observation).
 
     When ranks share the observation table, `reduce_poses` sums a
     pose-space tensor (and the LM cost) over them and `reduce_points` a
     point-space one (both in place, returning the tensor): every sum over
     observations then covers all of them, so every rank takes the same
     steps (parallel/dist_schur.py, parallel/sharded_ba.py). None: this
-    device holds every observation."""
+    device holds every observation; the dense solve takes no hooks."""
+    if dense and (reduce_poses is not None or reduce_points is not None):
+        raise ValueError("ba_solve: dense=True solves on one device and "
+                         "takes no reduce hooks")
     o = problem.obs
     problem = problem._replace(obs=o._replace(k=o.k.long(), p=o.p.long()))
     o = problem.obs
-    lay = obs_layouts(o.k, problem.poses.shape[0], o.p,
-                      problem.points.shape[0])
+    K, P = problem.poses.shape[0], problem.points.shape[0]
+    lay = obs_layouts(o.k, K, o.p, P)
+    lay_kp = segment_layout(o.k * P + o.p, K * P) if dense else None
     rk, rp = reduce_poses or _same, reduce_points or _same
     lam = torch.full((), 1e-4, dtype=problem.poses.dtype,
                      device=problem.poses.device)
@@ -432,8 +454,13 @@ def ba_solve(cam: StereoCamera, problem: BAProblem, iters: int = 5,
         dscale = max(1.0, 64.0 * 0.5 ** i)
         r, Jc, Jp, W, _, _ = _terms(cam, problem, dscale)
         Hcc, bc, Hpp, bp, Wcp = _build_blocks(problem, r, Jc, Jp, W, lay)
-        dc, dp = _schur_cg(problem, rk(Hcc), rk(bc), rp(Hpp), rp(bp), Wcp,
-                           lam, cg_iters, lay, reduce_poses, reduce_points)
+        if dense:
+            dc, dp = _schur_dense(problem, Hcc, bc, Hpp, bp, Wcp, lam, lay,
+                                  lay_kp)
+        else:
+            dc, dp = _schur_cg(problem, rk(Hcc), rk(bc), rp(Hpp), rp(bp),
+                               Wcp, lam, cg_iters, lay, reduce_poses,
+                               reduce_points)
         cand = _apply_update(problem, dc, dp)
         accept = rk(_total_cost(cam, cand, dscale)) \
             < rk(_total_cost(cam, problem, dscale))

@@ -141,6 +141,59 @@ class LocalMapper:
                 slots[i] = self.cache.put(kf, feats)
         return slots
 
+    def warmup(self, voc=None):
+        """Run the keyframe-rate device work once on dummy inputs, at the
+        mapper's shapes: the keyframe stage (triangulation against one
+        neighbour, fusion into one), the windowed BA (k_cap keyframes, the
+        first point bucket and its observation bucket, the tracking view's
+        capacity) or, with lines on, the joint point+line BA with l_cap
+        lines and lo_cap line observations instead (the JAX package's
+        `_warmup_lines`), and with `voc` one BoW descent. It keeps a
+        process's first-call costs (CUDA modules, solver handles, the
+        allocator's first blocks) out of the first keyframe. The dummy
+        inputs read cache slot 0; the store, the cache, the mapper's state
+        and every generator stay as they were. Waits for the card at the
+        end."""
+        s, dev, c = self.store, self.device, self.cache.arrays
+        N = s.n_kp
+        t = lambda a: upload(a, dev)
+        eye = lambda n: t(np.tile(np.eye(4, dtype=np.float32), (n, 1, 1)))
+        ones = lambda *shape: t(np.ones(shape, bool))
+        no_pids = np.zeros(0, np.int64)
+        mapper_fast.kf_stage_cached(
+            self.cam, c, [0, 0], eye(2), ones(2, N), [0], eye(1), ones(1, N),
+            mapper_fast.view_from_store(s, no_pids, FUSE_VIEW_CAP, dev),
+            self._lut_dev, s.cfg.n_levels, s.cfg.scale)
+        if voc is not None:
+            voc.device_words(c.desc[0], c.valid[0])
+        K, P = self.k_cap, self.p_buckets[0]
+        O = self._o_bkt(P)
+        tv_cap = self.fixed_tv_cap or view_capacity(0)
+        fixed = np.zeros(K, bool)
+        fixed[self.k_local:] = True
+        obs = np.stack([np.arange(O) % K, np.arange(O) % N, np.arange(O) % P])
+        points = np.zeros((P, 3), np.float32)
+        points[:, 2] = 10.0
+        args = (self.cam, c, t(np.zeros(K, np.int64)), eye(K), t(fixed),
+                t(points), ones(P), *t(obs), O // 2, self._lut_dev,
+                t(np.full(tv_cap, -1, np.int64)),
+                mapper_fast.view_from_store(s, no_pids, tv_cap, dev))
+        if self.enable_lines:
+            LC, LO = self.l_cap, self.lo_cap
+            xy = t(np.zeros((LO, 2), np.float32))
+            lobs = lines_ba.LineBAObs(
+                k=t(np.arange(LO) % K), l=t(np.arange(LO) % LC), x1l=xy,
+                x2l=xy, x1r=xy, x2r=xy, octave=t(np.zeros(LO, np.int32)),
+                has_r=ones(LO), valid=t(np.arange(LO) < LO // 2))
+            mapper_fast.joint_ba_view_cached(
+                *args, t(np.zeros((LC, 3), np.float32)),
+                t(np.tile(np.float32([1, 0, 0]), (LC, 1))), ones(LC), lobs,
+                gamma=float(self.cfg.line.gamma))
+        else:
+            mapper_fast.ba_view_cached(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
     def note_created(self, kf_id: int, pt_ids: np.ndarray):
         self._recent.append((kf_id, np.asarray(pt_ids)))
 

@@ -79,24 +79,36 @@ class System:
                                      pipeline=pipeline, device=device)
 
     def warmup(self) -> None:
-        """Do the one-off set-up of the rare paths now rather than inside
-        the first loop event: build the CUDA kernels, load the solver
-        libraries the loop and relocalization paths call (batched eigh,
-        SVD, solve, inverse) and initialise `torch.func`, whose first forward-mode
-        pass takes about 2 s. Nothing is compiled ahead: the port runs
-        eagerly."""
-        dev = self.tracker.device
+        """Pay a process's one-off first-call costs of the rare paths now
+        rather than inside the first keyframe or loop event, in the JAX
+        package's order: the loop event's Sim3 RANSAC and refinement
+        (`LoopCloser.warmup`, or with loops off
+        `loop.closing.warmup_loop_programs`), then the mapper's keyframe
+        stage, local BA (joint with lines) and, with loops on, a BoW
+        descent (`LocalMapper.warmup`); also
+        `torch.func`'s first forward-mode pass (about 2 s), and on the card
+        the CUDA kernels' build and the solver libraries the relocalization
+        and monocular paths call (batched eigh, SVD, solve, inverse).
+        Nothing is compiled ahead: the port runs eagerly. The map, the
+        tracker's state and every generator stay as they were."""
+        from .loop.closing import warmup_loop_programs
+        tr = self.tracker
+        dev = tr.device
         eye = torch.eye(4, device=dev).expand(2, 4, 4)
         torch.func.jvp(lambda x: x * 2, (eye,), (eye,))
-        if dev.type != "cuda":
-            return
-        from .ops import cuda_build
-        cuda_build.library()
-        torch.linalg.eigh(eye)
-        torch.linalg.svd(eye)
-        torch.linalg.solve_ex(eye, eye)
-        torch.linalg.inv_ex(eye)
-        torch.cuda.synchronize(dev)
+        if dev.type == "cuda":
+            from .ops import cuda_build
+            cuda_build.library()
+            torch.linalg.eigh(eye)
+            torch.linalg.svd(eye)
+            torch.linalg.solve_ex(eye, eye)
+            torch.linalg.inv_ex(eye)
+        lc = tr.loop_closer
+        if lc is not None:
+            lc.warmup()
+        else:
+            warmup_loop_programs(tr.cam, dev)
+        tr.mapper.warmup(voc=None if lc is None else lc.voc)
 
     # -- frame input ------------------------------------------------------
     def track_stereo(self, img_l: np.ndarray | None,

@@ -27,7 +27,11 @@ first is current (skipped on a one-card machine); a loop correction with
 map lines on the card is held to the CPU like the points-only one; the
 native line detector is bit-identical across calls on the card and agrees
 with the CPU; the pipelined tracker's chained step runs without a host
-synchronisation, and a pipelined run on the card gives the CPU's keyframes.
+synchronisation (with native lines, the whole dispatch of a frame: build,
+line detector on both views, stereo line match, chained line step), the
+detector alone makes none and its vote equals the CPU's bit for bit, and a
+pipelined run on the card gives the CPU's keyframes. Bundle adjustment on
+the dense reduced system agrees with the CPU and repeats bit for bit.
 The distributed bundle adjustment on a one-rank NCCL group runs without a
 host synchronisation, and the loop closer's distributed global BA on the
 card equals its single route bit for bit. The fixed-order segment-sum
@@ -753,18 +757,28 @@ def test_initializer_on_card_matches_cpu(dev):
 
 def test_detect_lines_on_card(dev):
     """The native line detector (frontend/line_extract.py, plain PyTorch
-    ops) on the card: two calls on one view of the line corridor are
-    bit-identical (the vote accumulates without atomics), and the card
-    agrees with the CPU: the same valid lines, endpoints within 1e-3 px and
-    descriptors within 1e-5 + 0.5 x the endpoint difference (px), the
-    bounds of tests/test_torch_line_detect.py; at most one line, fed by a
-    pixel an atan2 ulp moved, may differ, to 0.5 px and 0.02."""
+    ops and the segment-sum kernel for the vote) on the card: the vote
+    accumulator on the card equals the CPU's `index_add_` bit for bit on
+    the CPU's bins and votes; two calls on one view of the line corridor
+    are bit-identical, and the card agrees with the CPU: the same valid
+    lines, endpoints within 1e-3 px and descriptors within 1e-5 + 0.5 x
+    the endpoint difference (px), the bounds of
+    tests/test_torch_line_detect.py; at most one line, fed by a pixel an
+    atan2 ulp moved, may differ, to 0.5 px and 0.02."""
     from lldslam_tpu_torch.frontend import line_extract as le
     cam = CameraConfig(fx=450.0, fy=450.0, cx=320.0, cy=120.0, bf=200.0,
                        width=640, height=240).stereo_camera()
     img = make_sequence(cam, 1, seed=3, with_lines=True)[0][0]
     cfg = le.LineDetConfig(max_lines=256)
     x = torch.from_numpy(img).to(dev)
+    _, _, mag, edge, _, bins, n_rho = le._votes(x.cpu().float(), cfg)
+    w = torch.where(edge, mag, 0.0).reshape(-1)
+    n = n_rho * cfg.n_phi
+    want = le._accumulate(bins.reshape(-1), w, n)
+    before = segment_sum.launches
+    got = le._accumulate(bins.reshape(-1).to(dev), w.to(dev), n)
+    assert segment_sum.launches == before + 1
+    assert torch.equal(got.cpu(), want) and int(edge.sum()) > 100
     a, b = le.detect_lines(x, cfg), le.detect_lines(x, cfg)
     for u, v in zip(a, b):
         assert torch.equal(u, v)
@@ -781,45 +795,128 @@ def test_detect_lines_on_card(dev):
     assert (torch.linalg.norm(g[4] - c.desc, dim=-1)[loose] <= 0.02).all()
 
 
-def _corridor_system(device, **kw):
-    from lldslam_tpu_torch.config import TrackingConfig
+def test_detect_lines_never_waits_for_the_host(dev):
+    """The native line detector on a KITTI-size view of the line corridor
+    under CUDA's sync debug mode set to "error": no host sync (the vote
+    goes through the segment sum, whose layout is a sort and a search)."""
+    from lldslam_tpu_torch.frontend import line_extract as le
+    cam = CameraConfig(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157,
+                       bf=386.1448, width=1241, height=376).stereo_camera()
+    img = make_sequence(cam, 1, seed=2, with_lines=True)[0][0]
+    x = torch.from_numpy(img).to(dev)
+    cfg = le.LineDetConfig(max_lines=256)
+    le.detect_lines(x, cfg)                   # builds cached constants
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kl = le.detect_lines(x, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(kl.valid.sum()) >= 4
+
+
+def _corridor_system(device, lines: bool = False, **kw):
+    from lldslam_tpu_torch.config import LineConfig, TrackingConfig
     from lldslam_tpu_torch.system import System
     cfg = SlamConfig(camera=CameraConfig(fx=450.0, fy=450.0, cx=320.0,
                                          cy=120.0, bf=200.0, width=640,
                                          height=240),
                      orb=OrbConfig(n_features=600),
-                     tracking=TrackingConfig(min_init_points=80))
+                     tracking=TrackingConfig(min_init_points=80),
+                     **(dict(line=LineConfig(ld_type="LBDFloat", md_thr=0.6))
+                        if lines else {}))
     frames = make_sequence(cfg.camera.stereo_camera(), 14, n_per_m=25.0,
-                           seed=3)
+                           seed=3, with_lines=lines)
     return System(cfg, enable_loops=False, device=device, **kw), frames
 
 
-def test_chained_step_never_waits_for_the_host(dev):
+@pytest.mark.parametrize("case", ["points", "native_lines"])
+def test_chained_step_never_waits_for_the_host(dev, case):
     """The pipelined tracker's dispatch on the card: after the first
     frames of the corridor, one chained step (`_track_step_chained`) on
     the tracker's own device chain state and the next frame runs under
-    CUDA's sync debug mode set to "error"."""
+    CUDA's sync debug mode set to "error". With native lines (the line
+    corridor, no detections path) the whole dispatch of the next frame:
+    its frame build, the line detector on both views, the stereo line
+    match and `_track_step_chained_lines`."""
+    from lldslam_tpu_torch.frontend import line_extract as le
+    from lldslam_tpu_torch.frontend import line_match
     from lldslam_tpu_torch.pipeline import tracker as trk
-    s, frames = _corridor_system(dev, pipeline=True)
+    lines = case == "native_lines"
+    s, frames = _corridor_system(dev, lines=lines, pipeline=True)
     for i in range(4):
         s.track_stereo(*frames[i], timestamp=0.1 * i)
     tr = s.tracker
-    fd = frame.build_frame_pair(tr.stage_pair(*frames[4]), tr.cam, tr.orb)
-    c = tr._chain
-    args = (tr.cam, c["T"], c["vel"], tr._last_feats, tr._last_ptpos,
-            tr._last_haspt, fd.feats, fd.depth, tr._view,
-            tr._inv_sigma2_lut, tr._last_ismap, tr._last_prov, c["since"],
-            c["scal"], tr.orb.n_levels, tr.orb.scale,
-            tr.cfg.tracking.min_motion_matches, float(tr.cfg.close_depth),
-            3, 10)
-    trk._track_step_chained(*args)            # builds cached constants
+    assert tr._line_source is None and tr.enable_lines == lines
+    pair = tr.stage_pair(*frames[4])
+
+    def dispatch():
+        fd = frame.build_frame_pair(pair, tr.cam, tr.orb)
+        c = tr._chain
+        args = (tr.cam, c["T"], c["vel"], tr._last_feats, tr._last_ptpos,
+                tr._last_haspt, fd.feats, fd.depth, tr._view,
+                tr._inv_sigma2_lut, tr._last_ismap, tr._last_prov,
+                c["since"], c["scal"], tr.orb.n_levels, tr.orb.scale,
+                tr.cfg.tracking.min_motion_matches,
+                float(tr.cfg.close_depth), 3, 10)
+        if not lines:
+            return trk._track_step_chained(*args)
+        kl = le.detect_lines(pair[0], tr.line_cfg)
+        kr = le.detect_lines(pair[1], tr.line_cfg)
+        fl = line_match.match_stereo_lines(
+            tr.cam, kl, kr, md_thr=tr._md_gate,
+            min_len=tr.cfg.line.min_line_len)
+        return trk._track_step_chained_lines(
+            *args, tr._line_view, fl, float(tr.cfg.line.gamma), tr._md_gate)
+
+    dispatch()                                # builds cached constants
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        out = trk._track_step_chained(*args)
+        out = dispatch()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert int(out["stats"][1]) > 100
+
+
+def test_ba_solve_dense_on_card_matches_cpu(dev):
+    """ba_solve with the dense reduced system (its (K, P, 6, 3) coupling a
+    segment sum over the cells k * P + p) on the card against the CPU on a
+    seeded 8-keyframe, 300-point problem: poses within 1e-4, points within
+    1e-3; two card runs bit-equal."""
+    rng = np.random.default_rng(11)
+    cam = CameraConfig(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157,
+                       bf=386.1448, width=1241, height=376).stereo_camera()
+    K, P, O = 8, 300, 1500
+    pts = np.stack([rng.uniform(-5, 5, P), rng.uniform(-3, 3, P),
+                    rng.uniform(8, 20, P)], -1).astype(np.float32)
+    k, p = rng.integers(0, K, O), rng.integers(0, P, O)
+    z = pts[p, 2]
+    u = cam.fx * pts[p, 0] / z + cam.cx
+    uvr = (np.stack([u, cam.fy * pts[p, 1] / z + cam.cy, u - cam.bf / z], -1)
+           + rng.normal(0, 0.5, (O, 3))).astype(np.float32)
+    fixed = np.zeros(K, bool)
+    fixed[0] = True
+
+    def solve(d):
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(d)
+        prob = ba.BAProblem(
+            poses=t(np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))),
+            points=t(pts + 0.1), pose_fixed=t(fixed),
+            point_valid=t(np.ones(P, bool)),
+            obs=ba.BAObs(k=t(k), p=t(p), uvr=t(uvr),
+                         inv_sigma2=t(np.ones(O, np.float32)),
+                         is_stereo=t(np.ones(O, bool)),
+                         valid=t(np.ones(O, bool))))
+        out, _ = ba.ba_solve(cam, prob, iters=6, dense=True)
+        return out.poses.cpu(), out.points.cpu()
+
+    before = segment_sum.launches
+    g1, g2, c = solve(dev), solve(dev), solve(torch.device("cpu"))
+    assert segment_sum.launches > before
+    assert torch.equal(g1[0], g2[0]) and torch.equal(g1[1], g2[1])
+    assert (g1[0] - c[0]).abs().max() <= 1e-4
+    assert (g1[1] - c[1]).abs().max() <= 1e-3
 
 
 def test_pipelined_run_on_card_matches_cpu(dev):

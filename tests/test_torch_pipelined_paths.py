@@ -2,7 +2,8 @@
 bit-equal, recovery from a blackout and from a reset right after
 initialization, the pipelined
 line path (chained line step, staged line retriangulation) against the
-synchronous one, and the staged loop step (BoW words from the device,
+synchronous one and, on the native detector, against the JAX package's
+pipelined run, and the staged loop step (BoW words from the device,
 `finish_keyframe`) against the loop closer's `process_keyframe`.
 
 Frames come from io.synthetic (the port's copy of bench.py's generator) at
@@ -130,6 +131,87 @@ def test_pipelined_lines_match_sync(tmp_path):
     assert [m.state for m in ms] == ["OK"] * 12
     assert pipe.map.n_ln > 0 and sum(n_line) >= 5
     assert pipe.map.staged_retriangulation and not pipe.map._pending_retri
+
+
+def test_pipelined_native_lines_match_sync():
+    """The line corridor (12 seed-3 frames) on the native detector
+    (ldType LBDFloat, mdThr 0.6, no detections path: the tracker detects
+    lines on both views of every frame) synchronous and pipelined, the
+    pipelined frames staged with stage_stereo and passed as pair_dev:
+    every frame OK, camera centres within 0.25 m, map lines made, and the
+    staged line solves all written back by the flush."""
+    cam = _cfg().camera.stereo_camera()
+    frames = synthetic.make_sequence(cam, 12, seed=3, with_lines=True)
+    cfg = _cfg(LineConfig(ld_type="LBDFloat", md_thr=0.6))
+    sync = System(cfg, enable_loops=False, device="cpu")
+    for i, (l, r) in enumerate(frames):
+        sync.track_stereo(l, r, timestamp=i * 0.1)
+    pipe = System(cfg, enable_loops=False, pipeline=True, device="cpu")
+    assert pipe.tracker._line_source is None
+    staged = [pipe.stage_stereo(l, r) for l, r in frames]
+    for i, h in enumerate(staged):
+        pipe.track_stereo(None, None, timestamp=i * 0.1, pair_dev=h)
+    pipe.flush()
+    _, T_s = sync.tracker.trajectory()
+    _, T_p = pipe.tracker.trajectory()
+    dp = np.linalg.norm(T_p[:, :3, 3] - T_s[:, :3, 3], axis=-1)
+    ms = pipe.tracker.metrics
+    kf = lambda s: [m.frame_id for m in s.tracker.metrics if m.new_kf]
+    print(f"max centre diff {dp.max():.4f} m; line matches "
+          f"{[m.n_line_matches for m in ms]} (synchronous "
+          f"{[m.n_line_matches for m in sync.tracker.metrics]}); keyframes "
+          f"{kf(pipe)} (synchronous {kf(sync)}); map lines {pipe.map.n_ln} "
+          f"(synchronous {sync.map.n_ln})")
+    assert len(T_p) == 12 and dp.max() < 0.25, dp.max()
+    assert [m.state for m in ms] == ["OK"] * 12
+    assert pipe.map.n_ln > 0
+    assert pipe.map.staged_retriangulation and not pipe.map._pending_retri
+
+
+def test_pipelined_native_lines_match_jax():
+    """The same native-line corridor (12 seed-3 frames, staged, no
+    detections path) through the JAX package's pipelined System and the
+    port's, on the CPU: per frame the same states and the same line
+    matches, the same keyframes and valid map lines, and camera centres
+    within 0.25 m of the JAX run's (tests/test_lines_e2e.py's bound)."""
+    pytest.importorskip("jax")
+    from lldslam_tpu import config as jconfig
+    from lldslam_tpu.ops.orb import OrbConfig as JOrbConfig
+    from lldslam_tpu.system import System as JSystem
+
+    cam = _cfg().camera.stereo_camera()
+    frames = synthetic.make_sequence(cam, 12, seed=3, with_lines=True)
+    jcfg = jconfig.SlamConfig(
+        camera=jconfig.CameraConfig(**CAM_CFG),
+        orb=JOrbConfig(n_features=600),
+        tracking=jconfig.TrackingConfig(min_init_points=80),
+        line=jconfig.LineConfig(ld_type="LBDFloat", md_thr=0.6))
+    runs = (JSystem(jcfg, enable_loops=False, pipeline=True),
+            System(_cfg(LineConfig(ld_type="LBDFloat", md_thr=0.6)),
+                   enable_loops=False, pipeline=True, device="cpu"))
+    got = []
+    for s in runs:
+        staged = [s.stage_stereo(l, r) for l, r in frames]
+        for i, h in enumerate(staged):
+            s.track_stereo(None, None, timestamp=i * 0.1, pair_dev=h)
+        s.flush()
+        ms = s.tracker.metrics
+        got.append(dict(
+            states=[m.state for m in ms],
+            line_matches=[m.n_line_matches for m in ms],
+            kf=[m.frame_id for m in ms if m.new_kf],
+            n_lines=int(s.map.ln_valid.sum()),
+            inliers=[m.n_inliers for m in ms],
+            T=np.asarray(s.tracker.trajectory()[1])))
+    j, t = got
+    dc = np.linalg.norm(t["T"][:, :3, 3] - j["T"][:, :3, 3], axis=-1)
+    print(f"JAX: {({k: v for k, v in j.items() if k != 'T'})}; port: "
+          f"{({k: v for k, v in t.items() if k != 'T'})}; centres within "
+          f"{dc.max():.4f} m")
+    assert t["states"] == j["states"] == ["OK"] * 12
+    assert t["line_matches"] == j["line_matches"]
+    assert t["kf"] == j["kf"] and t["n_lines"] == j["n_lines"]
+    assert len(t["T"]) == len(j["T"]) == 12 and dc.max() < 0.25, dc.max()
 
 
 def test_staged_retriangulation_lags_then_matches():

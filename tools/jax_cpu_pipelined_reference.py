@@ -9,10 +9,13 @@ config of the bench headline:
     python tools/jax_cpu_pipelined_reference.py main    # 30 seed-3 frames
     python tools/jax_cpu_pipelined_reference.py lines   # 30 seed-2 frames,
                                                         # stored lines
+    python tools/jax_cpu_pipelined_reference.py native_lines  # the same
+                                        # frames, the native line detector
 
-`main` also runs the synchronous System on the same frames. Prints one JSON
-line: keyframes, ATE against the generator's poses, states, and for `lines`
-the line matches per frame and the valid map lines. The JAX package
+`main` and `native_lines` also run the synchronous System on the same
+frames. Prints one JSON line: keyframes, ATE against the generator's poses,
+states, point inliers per frame, and for the line worlds the line matches
+per frame and the valid map lines. The JAX package
 absorbs its staged work when a fetch has landed, so its pipelined numbers
 may move with the host's speed. Takes several minutes and a few GB.
 """
@@ -62,7 +65,7 @@ def main(which: str) -> dict:
     cam = cam_cfg.stereo_camera()
     seed = 3 if which == "main" else 2
     frames, poses, world = _make_sequence(cam, N_FRAMES, seed=seed,
-                                          with_lines=which == "lines",
+                                          with_lines=which != "main",
                                           return_poses=True)
     gt = np.stack([np.linalg.inv(p) for p in poses])
     line = LineConfig()
@@ -73,6 +76,8 @@ def main(which: str) -> dict:
         line = LineConfig(ld_type="LBDFloat", md_thr=0.6,
                           detections_path=f"{tmp}/left",
                           descriptors_path=f"{tmp}/right")
+    elif which == "native_lines":
+        line = LineConfig(ld_type="LBDFloat", md_thr=0.6)
     cfg = SlamConfig(camera=cam_cfg, orb=OrbConfig(n_features=2000),
                      line=line, tracking=TrackingConfig(min_init_points=100))
     out = {}
@@ -80,17 +85,21 @@ def main(which: str) -> dict:
     _, T_p = s.tracker.trajectory()
     ms = s.tracker.metrics
     out.update(kfs=[m.frame_id for m in ms if m.new_kf],
-               ate=float(ate_rmse(T_p, gt)), states=[m.state for m in ms])
-    if which == "lines":
+               ate=float(ate_rmse(T_p, gt)), states=[m.state for m in ms],
+               inliers=[m.n_inliers for m in ms])
+    if which != "main":
         out.update(line_matches=[m.n_line_matches for m in ms],
                    n_lines=int(s.map.ln_valid.sum()))
-    else:
+    if which != "lines":
         sync = System(cfg)
         for i, f in enumerate(frames):
             sync.track_stereo(*f, timestamp=i * 0.1)
         _, T_s = sync.tracker.trajectory()
-        out.update(sync_kfs=[m.frame_id for m in sync.tracker.metrics
-                             if m.new_kf],
+        sm = sync.tracker.metrics
+        if which == "native_lines":
+            out.update(sync_line_matches=[m.n_line_matches for m in sm],
+                       sync_n_lines=int(sync.map.ln_valid.sum()))
+        out.update(sync_kfs=[m.frame_id for m in sm if m.new_kf],
                    sync_ate=float(ate_rmse(T_s, gt)),
                    max_centre_diff=float(np.linalg.norm(
                        T_p[:, :3, 3] - T_s[:, :3, 3], axis=-1).max()))
