@@ -1488,28 +1488,44 @@ def phase_native_lines(dev, frames, poses) -> dict:
     need_launches(counts, "native_lines", ("tracking", "fusion"))
     need_launches(out["mini_counts"], "mini_kitti", ("tracking", "fusion"))
     out["detector"] = detector_alone(dev, img, seq)
-    out["vote"] = vote_site(dev, img)
+    out["vote"] = vote_site(dev, img, native.read_png(seq.right[0]))
     return out
 
 
-def vote_site(dev, img: np.ndarray) -> dict:
-    """The segment sum at the native detector's vote
-    (line_extract._accumulate) on one KITTI view: the card's accumulator
-    bit-equal to the CPU's index_add_ over every pixel on the same bins and
-    votes, and to a second call; the kernel's device time (device_ms) on
-    the layout keyed past the last bin for the pixels that do not vote, a
-    whole call (layout and kernel, CUDA events), the layout alone, the
-    atomic index_add_ (device_ms: the library yardstick),
-    index_put_(accumulate=True) a call (CUDA events) and the CPU
+def vote_work(O: int, n: int, voting: int, n_long: int) -> dict:
+    """Bytes each pass of the vote on the card moves (each read or write
+    once), over O pixels, n bins, `voting` voting pixels and n_long long
+    bins: the memset of the counts, the count pass (every pixel's bin and
+    vote in, an atomic on each voting pixel's count), the one-block scan
+    (counts in, offsets and the long bins' list out), the scatter (every
+    pixel's bin and vote in; each voting pixel's offset and cursor in, its
+    slot out) and the ordering sum (offsets, the long bins' list, each
+    voting pixel's slot and vote in, every bin out)."""
+    n4 = (n + 4) // 4
+    layout = (16 * n4 + O * 8 + voting * 4 + n * 4 + (n + 1) * 4
+              + n_long * 4 + O * 8 + voting * 12)
+    reduce_ = (n + 1) * 4 + n_long * 4 + voting * 8 + n * 4
+    return dict(layout_bytes=layout, reduce_bytes=reduce_,
+                call_bytes=layout + reduce_)
+
+
+def vote_site(dev, img: np.ndarray, right: np.ndarray) -> dict:
+    """The native detector's vote (line_extract._accumulate: segment_sum.
+    bin_sum, its layout built with no sort) on one KITTI view: the card's
+    accumulator bit-equal to the CPU's index_add_ over every pixel on the
+    same bins and votes, and to a second call (raises otherwise); four
+    launches a call, so 8 in the two calls (raises otherwise). Device times
+    behind a spin kernel (device_ms, median of 20): the ordering sum alone
+    (bin_reduce on a built layout: "the kernel"), the layout alone
+    (bin_layout: count, scan, scatter), a whole call, and the atomic
+    index_add_ (the library yardstick); a whole call on CUDA events (as the
+    parent measured it), index_put_(accumulate=True) a call and the CPU
     index_add_ (host clock); whether the vote, index_put_ and the whole
-    detector make the host wait (host_waits). The kernel's bound is what
-    its launch moves on this view: the voting rows' perm and votes, the
-    offsets, and each bin that has a vote read and written once; the
-    all-rows bound (every pixel's bin and vote in, the accumulator out)
-    is that of a whole call and stands beside call_ms."""
+    detector make the host wait (host_waits). Bounds: the bytes each
+    launch moves (vote_work). The longest bin and the bins of more than
+    SMALL_BIN voting pixels on this view and on `right`."""
     from lldslam_tpu_torch.frontend import line_extract as le
     from lldslam_tpu_torch.ops import segment_sum
-    from lldslam_tpu_torch.ops.segment_sum import segment_layout
 
     cfg = le.LineDetConfig(max_lines=256)
     x = torch.from_numpy(img).to(dev)
@@ -1523,9 +1539,22 @@ def vote_site(dev, img: np.ndarray) -> dict:
     want = le._accumulate(b.cpu(), w.cpu(), n)
     torch.cuda.synchronize()
     exact = torch.equal(got.cpu(), want) and torch.equal(got, again)
-    key = torch.where(w != 0, b.long(), n)
-    lay = segment_layout(key, n)
-    voting = int((w != 0).sum())
+
+    def bin_stats(bv, wv) -> dict:
+        lay = segment_sum.bin_layout(bv, wv, n)
+        off = lay.offsets[:n + 1].long()
+        length = off[1:] - off[:-1]
+        return dict(voting=int(length.sum()), filled=int((length > 0).sum()),
+                    longest=int(length.max()), n_long=int(lay.n_long),
+                    lay=lay)
+
+    st = bin_stats(b, w)
+    _, _, mag_r, edge_r, _, bins_r, _ = le._votes(
+        torch.from_numpy(right).to(dev).float(), cfg)
+    st_r = bin_stats(bins_r.reshape(-1),
+                     torch.where(edge_r, mag_r, 0.0).reshape(-1))
+    lay, voting = st.pop("lay"), st["voting"]
+    st_r.pop("lay")
     acc = torch.zeros(n, device=dev)
     bc, wc = b.cpu(), w.cpu()
     plain = []
@@ -1537,9 +1566,12 @@ def vote_site(dev, img: np.ndarray) -> dict:
         rows=O, voting_rows=voting, columns=1, segments=n, exact=exact,
         max_abs_err=float((got.cpu() - want).abs().max()),
         calls_per_frame=2, launches_per_call=launched // 2,
-        ms=device_ms(lambda: segment_sum.segment_sum_(acc, lay, w)),
+        filled_segments=st["filled"], longest_bin=st["longest"],
+        long_bins=st["n_long"], right_view=st_r,
+        ms=device_ms(lambda: segment_sum.bin_reduce(lay, w, n)),
+        layout_ms=device_ms(lambda: segment_sum.bin_layout(b, w, n)),
+        call_device_ms=device_ms(lambda: le._accumulate(b, w, n)),
         call_ms=cuda_ms(lambda: le._accumulate(b, w, n)),
-        layout_ms=cuda_ms(lambda: segment_layout(key, n)),
         library_ms=device_ms(lambda: acc.index_add_(0, b, w)),
         library_ms_index_put=cuda_ms(lambda: acc.index_put_(
             (b.long(),), w, accumulate=True)),
@@ -1549,26 +1581,32 @@ def vote_site(dev, img: np.ndarray) -> dict:
         "index_put_": host_waits(lambda: acc.index_put_(
             (b.long(),), w, accumulate=True)),
         "detect_lines": host_waits(lambda: le.detect_lines(x, cfg))}
-    filled = int((lay.offsets[1:] > lay.offsets[:-1]).sum())
-    row["filled_segments"] = filled
-    row["bound_ms"], row["bound_by"] = bound(
-        voting * (8 + 4) + (n + 1) * 8 + filled * 4 * 2, voting)
-    row["bound_ms_call"], _ = bound(O * 4 + O * 8 + n * 4, O)
-    log(f"vote site: {O} rows ({voting} voting, {filled} bins filled) -> "
-        f"{n} bins; card against "
-        f"CPU index_add_ bit-equal {exact}, {launched} launches in 2 calls; "
-        f"kernel {row['ms']:.4f} ms on the device, bound "
-        f"{row['bound_ms']:.5f} ms ({row['bound_by']}; voting rows, offsets,"
-        f" filled bins), {100 * row['bound_ms'] / row['ms']:.2f}%; a call "
-        f"(layout + kernel) {row['call_ms']:.4f} ms, bound "
-        f"{row['bound_ms_call']:.5f} ms (every row), "
-        f"{100 * row['bound_ms_call'] / row['call_ms']:.2f}%; layout "
-        f"{row['layout_ms']:.4f} ms; atomic index_add_ "
-        f"{row['library_ms']:.4f} ms, index_put_(accumulate) "
+    work = vote_work(O, n, voting, st["n_long"])
+    row.update(work)
+    row["bound_ms"], row["bound_by"] = bound(work["reduce_bytes"], voting)
+    row["bound_ms_layout"], _ = bound(work["layout_bytes"], 0)
+    row["bound_ms_call"], _ = bound(work["call_bytes"], voting)
+    row["factor"] = row["ms"] / row["library_ms"]
+    row["call_factor"] = row["call_device_ms"] / row["library_ms"]
+    log(f"vote site: {O} rows ({voting} voting, {st['filled']} bins "
+        f"filled, the longest {st['longest']} pixels, {st['n_long']} bins "
+        f"over {segment_sum.SMALL_BIN}; right view {st_r['voting']} voting, "
+        f"longest {st_r['longest']}, {st_r['n_long']} long) -> {n} bins; "
+        f"card against CPU index_add_ bit-equal {exact}, {launched} "
+        f"launches in 2 calls; on the device: the ordering sum "
+        f"{row['ms']:.4f} ms (bound {row['bound_ms']:.5f} ms, "
+        f"{100 * row['bound_ms'] / row['ms']:.2f}%; atomic index_add_ "
+        f"{row['library_ms']:.4f} ms, factor {row['factor']:.2f}), the "
+        f"layout {row['layout_ms']:.4f} ms (bound "
+        f"{row['bound_ms_layout']:.5f} ms), a whole call "
+        f"{row['call_device_ms']:.4f} ms (bound {row['bound_ms_call']:.5f} "
+        f"ms, {100 * row['bound_ms_call'] / row['call_device_ms']:.2f}%; "
+        f"factor {row['call_factor']:.2f}); a call on CUDA events "
+        f"{row['call_ms']:.4f} ms; index_put_(accumulate) "
         f"{row['library_ms_index_put']:.4f} ms a call, CPU index_add_ "
         f"{row['plain_ms']:.3f} ms; the host waits for the device in: "
         + json.dumps({k: v["waits"] for k, v in row["host_waits"].items()}))
-    if not exact or launched != 2 or not all(
+    if not exact or launched != 8 or not all(
             v["conclusive"] and not v["waits"]
             for k, v in row["host_waits"].items() if k != "index_put_"):
         raise AssertionError(f"vote site: bit-equal {exact}, launches "
@@ -2037,7 +2075,8 @@ DIST_REPS = 3
 SEGMENT_SUM_REPLACES = (
     "lldslam_tpu/optim/ba.py:104-108, 208, 217-222; "
     "lldslam_tpu/optim/lines_ba.py:115-119, 398-428, 542-547; "
-    "lldslam_tpu/optim/pose_graph.py:80-84, 104-105 (.at[].add)")
+    "lldslam_tpu/optim/pose_graph.py:80-84, 104-105; "
+    "lldslam_tpu/frontend/line_extract.py:93 (.at[].add)")
 
 
 def same_bits(a, b) -> bool:
@@ -2172,6 +2211,19 @@ def keep_segment_calls(kept: dict):
             mod.segment_sum_ = segment_sum.segment_sum_
 
 
+SHORT_MEAN = 8   # csrc/segment_sum.cu kShortMean: O < 8 n leads by rows
+
+
+def segment_work(O: int, n: int, C: int, filled: int) -> int:
+    """Bytes a launch of the segment-sum kernel moves, each read or write
+    once: every row's C floats and its perm entry, each filled segment's C
+    outputs read and written, and what the grid reads to find its rows:
+    every row's sorted segment (a thread per row, O < SHORT_MEAN n) or
+    every segment's offsets (a block per segment)."""
+    rows = O * C * 4 + O * 8 + 2 * filled * C * 4
+    return rows + (O * 8 if O < SHORT_MEAN * n else (n + 1) * 8)
+
+
 def segment_sum_rows(dev, kept: dict, label: str) -> dict:
     """The segment-sum kernel on each kept call of a real solve (`kept`
     from keep_segment_calls): bit-equal to CPU index_add_ (its plain
@@ -2214,15 +2266,19 @@ def segment_sum_rows(dev, kept: dict, label: str) -> dict:
                 (lay.index,), src, accumulate=True)),
             plain_ms=statistics.median(plain),
             layout_ms=cuda_ms(lambda: segment_layout(lay.index, n)))
+        filled = int((lay.offsets[1:] > lay.offsets[:-1]).sum())
+        row["filled_segments"] = filled
         row["bound_ms"], row["bound_by"] = bound(
-            O * C * 4 + O * 8 + 2 * n * C * 4, O * C)
+            segment_work(O, n, C, filled), O * C)
+        row["factor"] = row["ms"] / row["library_ms"]
         rows[name] = row
         log(f"segment_sum {name}: {k['calls']} calls; exact "
             f"against CPU index_add_, repeats; kernel {row['ms']:.4f} ms on "
             f"the device ({row['call_ms']:.4f} ms a call), bound "
             f"{row['bound_ms']:.5f} ms ({row['bound_by']}, "
             f"{100 * row['bound_ms'] / row['ms']:.2f}%); atomic index_add_ "
-            f"{row['library_ms']:.4f} ms on the device, "
+            f"{row['library_ms']:.4f} ms on the device (kernel / atomic "
+            f"{row['factor']:.2f}), "
             f"index_put_(accumulate) {row['library_ms_index_put']:.4f} ms a "
             f"call, CPU index_add_ {row['plain_ms']:.4f} ms; layout build "
             f"{row['layout_ms']:.4f} ms a call")

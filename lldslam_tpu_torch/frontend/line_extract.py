@@ -19,10 +19,10 @@ stays, the lower slot on a tie).
 
 Two things differ from the JAX code in form, not in result:
 - the vote accumulates with `index_add_`, a serial loop in pixel order, on
-  the CPU, and on the card through `ops/segment_sum.segment_sum_`, which
-  adds each bin's voting pixels in pixel order (the card's `index_add_`
-  adds with atomics, in an order that changes from run to run): the
-  card's accumulator is the CPU's bit for bit, with no host sync;
+  the CPU, and on the card through `ops/segment_sum.bin_sum`, which adds
+  each bin's voting pixels in pixel order (the card's `index_add_` adds
+  with atomics, in an order that changes from run to run): the card's
+  accumulator is the CPU's bit for bit, with no sort and no host sync;
 - the support pass (the (peaks, pixels) masks and sums) runs in chunks of
   `SUPPORT_CHUNK` peaks, so one call holds a chunk's float (chunk, H*W)
   arrays at a time and the (max_lines, H*W) support masks as bool, instead
@@ -43,7 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.segment_sum import segment_layout, segment_sum_
+from ..ops.segment_sum import bin_sum
 
 # peaks per support-pass chunk: a chunk's float (32, H*W) arrays are about
 # 60 MB each at KITTI size
@@ -137,19 +137,14 @@ def _votes(img: torch.Tensor, cfg: LineDetConfig):
 
 
 def _accumulate(bins: torch.Tensor, w: torch.Tensor, n: int) -> torch.Tensor:
-    """Sum of the votes `w` per bin, (n,): on the CPU `index_add_` over
-    every pixel (a serial loop in pixel order); on the card the segment
-    sum over the pixels whose vote is not zero, each bin's in pixel order.
-    The other pixels are keyed past the last bin, so the layout leaves
-    them out of every segment: a running sum that starts at +0.0 is never
-    -0.0, and adding a zero leaves it unchanged, so the card's bits are
-    the CPU's. The pixels that are not edges (their vote is +0.0), most
-    of an image, drop out of the adds."""
-    acc = torch.zeros(n, dtype=w.dtype, device=w.device)
-    if not acc.is_cuda:
-        return acc.index_add_(0, bins, w)
-    key = torch.where(w != 0, bins.long(), n)
-    return segment_sum_(acc, segment_layout(key, n), w)
+    """Sum of the votes `w` per bin, (n,) (`ops/segment_sum.bin_sum`): on
+    the CPU `index_add_` over every pixel (a serial loop in pixel order); on
+    the card the sum over the pixels whose vote is not zero, each bin's in
+    pixel order, through a layout built with no sort. A running sum that
+    starts at +0.0 is never -0.0, and adding a zero leaves it unchanged, so
+    the card's bits are the CPU's. The pixels that are not edges (their
+    vote is +0.0), most of an image, drop out of the adds."""
+    return bin_sum(bins, w, n)
 
 
 def _top_k(x: torch.Tensor, k: int):

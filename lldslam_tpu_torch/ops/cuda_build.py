@@ -122,10 +122,13 @@ def library() -> ctypes.CDLL:
                                        vp, vp, vp, i32, vp, vp, vp, vp]
         lib.lld_gated_best2.argtypes = [vp] * 7 + [i32, i32] + [vp] * 5 + [
             i32, vp, vp]
-        lib.lld_segment_sum.argtypes = [vp] * 4 + [ctypes.c_longlong, i32,
-                                                   i32, vp]
+        i64 = ctypes.c_longlong
+        lib.lld_segment_sum.argtypes = [vp] * 5 + [i64, i32, i32, vp]
+        lib.lld_bin_layout.argtypes = [vp] * 8 + [i64, i32, i32, vp]
+        lib.lld_bin_reduce.argtypes = [vp] * 6 + [i64, i32, vp]
         for fn in (lib.lld_orb_describe, lib.lld_stereo_sad,
-                   lib.lld_gated_best2, lib.lld_segment_sum):
+                   lib.lld_gated_best2, lib.lld_segment_sum,
+                   lib.lld_bin_layout, lib.lld_bin_reduce):
             fn.restype = i32
         _lib = lib
     return _lib
@@ -139,22 +142,28 @@ def check(err: int, what: str) -> None:
 
 def launch(fn: str, what: str, device: torch.device, *args) -> None:
     """Call the library's `fn` with `args` and the current stream of
-    `device`, with `device` current for the call (the `.cu` launches use
-    the current device: it is switched for the call when another one is
-    current); raises on a nonzero CUDA error code. The stream's handle
-    comes from `torch._C._cuda_getCurrentRawStream`, far cheaper on the
-    host than a `torch.cuda.Stream` object, and the device is switched
-    only when it has to be: the sparse solvers launch a kernel thousands
-    of times a loop event."""
-    kernel = getattr(library(), fn)
-    current = torch.cuda.current_device()
-    index = current if device.index is None else device.index
-    if index == current:
+    `device` (see `call`)."""
+    current = torch._C._cuda_getDevice()
+    call(getattr(library(), fn), what,
+         current if device.index is None else device.index, *args)
+
+
+def call(kernel, what: str, index: int, *args) -> None:
+    """Call the bound library function `kernel` with `args` and the current
+    stream of card `index`, with that card current for the call (the `.cu`
+    launches use the current device: it is switched for the call when
+    another one is current); raises on a nonzero CUDA error code. The
+    stream's handle comes from `torch._C._cuda_getCurrentRawStream` and the
+    current card from `torch._C._cuda_getDevice`, far cheaper on the host
+    than a `torch.cuda.Stream` object or `torch.cuda.current_device`: the
+    sparse solvers launch a kernel thousands of times a loop event."""
+    if index == torch._C._cuda_getDevice():
         err = kernel(*args, torch._C._cuda_getCurrentRawStream(index))
     else:
         with torch.cuda.device(index):
             err = kernel(*args, torch._C._cuda_getCurrentRawStream(index))
-    check(err, what)
+    if err:
+        check(err, what)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -387,6 +387,41 @@ def _snapshot_host(h: dict):
     return feats, h["depth"]
 
 
+def warmup_mono_programs(cam, n_kp: int, device="cuda") -> None:
+    """Run the monocular bootstrap's device work once on dummy inputs at
+    `n_kp` keypoints a frame: the windowed initialization match, then the
+    H/F initializer's two RANSACs and both reconstructions (the bootstrap
+    runs one of them). Its SVDs are batched over 256 hypotheses, n_kp
+    points and their pose candidates, shapes whose solver routines a warm-up
+    at other shapes does not reach. The hypothesis draw takes a generator
+    of its own; no map, tracker state or shared generator is read or
+    written. Waits for the card at the end."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(0)
+    t = lambda a: upload(a, dev)
+    X = rng.uniform((-2.0, -1.5, 4.0), (2.0, 1.5, 8.0), (n_kp, 3))
+    px = lambda P: np.stack([cam.fx * P[:, 0] / P[:, 2] + cam.cx,
+                             cam.fy * P[:, 1] / P[:, 2] + cam.cy], -1)
+    x1 = t(px(X).astype(np.float32))
+    x2 = t(px(X - (0.2, 0.0, 0.0)).astype(np.float32))
+    valid = t(np.ones(n_kp, bool))
+    zero = t(np.zeros(n_kp, np.float32))
+    desc = t(rng.integers(-2**31, 2**31, (2, n_kp, 8), dtype=np.int32))
+    feats = [matching.FrameFeatures(xy=x, ur=zero - 1.0,
+                                    octave=zero.to(torch.int32), angle=zero,
+                                    desc=d, valid=valid)
+             for x, d in ((x1, desc[0]), (x2, desc[1]))]
+    matching.search_for_initialization(*feats)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    H, _, inh, F, _, inf_ = initializer.ransac_models(
+        x1, x2, valid, *initializer.draw_hypotheses(valid, gen))
+    initializer.reconstruct_h(cam, H, x1, x2, inh)
+    initializer.reconstruct_f(cam, F, x1, x2, inf_)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 # the host-bound results of a pipelined step
 _HOST_KEYS = ("T", "stats", "decide", "kp2last", "kp2pt_l", "ok",
               "in_frustum", "carried")

@@ -85,13 +85,16 @@ class System:
         (`LoopCloser.warmup`, or with loops off
         `loop.closing.warmup_loop_programs`), then the mapper's keyframe
         stage, local BA (joint with lines) and, with loops on, a BoW
-        descent (`LocalMapper.warmup`); also
+        descent (`LocalMapper.warmup`), then the monocular bootstrap's match
+        and H/F initializer at the tracker's keypoint count
+        (`pipeline.tracker.warmup_mono_programs`); also
         `torch.func`'s first forward-mode pass (about 2 s), and on the card
         the CUDA kernels' build and the solver libraries the relocalization
-        and monocular paths call (batched eigh, SVD, solve, inverse).
+        path calls (batched eigh, SVD, solve, inverse).
         Nothing is compiled ahead: the port runs eagerly. The map, the
         tracker's state and every generator stay as they were."""
         from .loop.closing import warmup_loop_programs
+        from .pipeline.tracker import warmup_mono_programs
         tr = self.tracker
         dev = tr.device
         eye = torch.eye(4, device=dev).expand(2, 4, 4)
@@ -109,6 +112,7 @@ class System:
         else:
             warmup_loop_programs(tr.cam, dev)
         tr.mapper.warmup(voc=None if lc is None else lc.voc)
+        warmup_mono_programs(tr.cam, tr.store.n_kp, dev)
 
     # -- frame input ------------------------------------------------------
     def track_stereo(self, img_l: np.ndarray | None,

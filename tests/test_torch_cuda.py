@@ -35,10 +35,13 @@ the dense reduced system agrees with the CPU and repeats bit for bit.
 The distributed bundle adjustment on a one-rank NCCL group runs without a
 host synchronisation, and the loop closer's distributed global BA on the
 card equals its single route bit for bit. The fixed-order segment-sum
-kernel equals CPU index_add_ bit for bit on random layouts, long and short
-segments, and the sparse solvers of a loop event (pose graph, global BA,
-joint point+line global BA, line refinement) give the same bits in two
-runs.
+kernel equals CPU index_add_ bit for bit on random layouts (every width it
+is compiled for, long and short segments, a segment of 8,000 rows, every
+row in one segment, segments far above rows), the vote's entry (bin_sum)
+equals CPU index_add_ over every pixel on a KITTI view and on synthetic
+votes with bins of thousands of pixels, and the sparse solvers of a loop
+event (pose graph, global BA, joint point+line global BA, line
+refinement) give the same bits in two runs.
 """
 from types import SimpleNamespace
 
@@ -196,6 +199,19 @@ SEGMENT_CASES = {
     "point_seen": (20000, 5000, (), True),
     "pose_graph": (120, 29, (7, 7), True),
     "empty_segments": (3000, 400, (4,), True),
+    # every width the kernel is compiled for, and two generic ones
+    "width_3": (9000, 3000, (3,), True),
+    "width_7": (300, 24, (7,), False),
+    "width_16": (8000, 300, (4, 4), True),
+    "width_18_dense_cells": (8000, 29 * 5000, (6, 3), False),  # by row
+    "generic_5": (5000, 700, (5,), True),
+    "generic_64": (4000, 40, (8, 8), True),
+    # a segment of more than 4,096 rows; every row in one segment; segments
+    # far above rows (mostly empty)
+    "long_segment": (12000, 3, (6,), True),
+    "long_with_empty": (20000, 60, (6,), True),
+    "one_segment": (10000, 1, (9,), True),
+    "mostly_empty": (3000, 400000, (), True),
 }
 
 
@@ -204,12 +220,20 @@ def test_segment_sum_equals_cpu_index_add(dev, case):
     """The segment-sum kernel against CPU index_add_ (its plain version)
     on random layouts, bit for bit, and against a second launch; addends
     spread over twelve decades so the order of the adds shows in the
-    bits. "empty_segments" leaves every other segment without rows."""
+    bits. "empty_segments" and "long_with_empty" leave every other
+    segment without rows;
+    "long_segment" puts 8,000 rows in segment 1; the cases cover every
+    width the kernel is compiled for (1, 3, 4, 6, 7, 9, 16, 18, 36, 49) and
+    two others, long segments (a thread per output) and short ones (a
+    thread per row; segments far above rows too), and nonzero start
+    values."""
     O, n, cols, nonzero = SEGMENT_CASES[case]
     rng = np.random.default_rng(7)
     idx = rng.integers(0, n, O)
-    if case == "empty_segments":
+    if case in ("empty_segments", "long_with_empty"):
         idx = 2 * (idx // 2)
+    if case == "long_segment":
+        idx[rng.choice(O, 8000, replace=False)] = 1
     src = (rng.normal(size=(O,) + cols) * np.exp(
         3.0 * rng.normal(size=(O,) + (1,) * len(cols)))).astype(np.float32)
     out0 = (rng.normal(size=(n,) + cols) if nonzero else
@@ -225,6 +249,91 @@ def test_segment_sum_equals_cpu_index_add(dev, case):
     assert segment_sum.launches - before == 2
     assert torch.equal(runs[0].cpu(), want)
     assert torch.equal(runs[0], runs[1])
+
+
+def _vote_case(case: str, rng) -> tuple[np.ndarray, np.ndarray, int]:
+    """(bins int32, votes float32, n) of a synthetic vote over the pixels
+    of a KITTI view (1241 x 376) and 77,880 bins: a tenth of the pixels
+    vote, their votes spread over twelve decades; "long_bin" gives bin 7
+    6,000 voting pixels in one run of the image, bin 9 5,000 and bin 11
+    800 spread over all of it; "all_zero" has no vote, "one_pixel" one;
+    "negative_and_signed_zeros" flips half the signs and sets some votes
+    to -0.0 (which the card leaves out and the CPU adds, to the same
+    bits)."""
+    O, n = 1241 * 376, 77880
+    bins = rng.integers(0, n, O).astype(np.int32)
+    w = np.where(rng.random(O) < 0.1,
+                 np.exp(3.0 * rng.normal(size=O)), 0.0).astype(np.float32)
+    if case == "long_bin":
+        run = np.arange(100000, 106000)
+        spread = rng.choice(np.setdiff1d(np.arange(O), run), 5800,
+                            replace=False)
+        bins[run], bins[spread[:5000]], bins[spread[5000:]] = 7, 9, 11
+        w[run] = np.exp(3.0 * rng.normal(size=run.size))
+        w[spread] = np.exp(3.0 * rng.normal(size=spread.size))
+    elif case == "all_zero":
+        w[:] = 0.0
+    elif case == "one_pixel":
+        w[:] = 0.0
+        w[O // 3] = 3.25
+    elif case == "negative_and_signed_zeros":
+        w = np.where(rng.random(O) < 0.5, -w, w).astype(np.float32)
+        w[rng.random(O) < 0.05] = -0.0
+    return bins, w, n
+
+
+@pytest.mark.parametrize("case", ["kitti_view", "long_bin", "all_zero",
+                                  "one_pixel", "negative_and_signed_zeros"])
+def test_bin_sum_equals_cpu_index_add(dev, case):
+    """The vote's entry (ops/segment_sum.bin_sum: layout with no sort, then
+    the ordering sum) against CPU index_add_ over every pixel, bit for bit
+    (signs of zeros included), on a second call too: the seeded lines
+    world's KITTI view (its Sobel bins and votes, computed on the CPU) and
+    synthetic votes with bins of 6,000, 5,000 and 800 voting pixels, no
+    vote, one vote. Four launches a call; the layout's offsets count each
+    bin's voting pixels."""
+    from lldslam_tpu_torch.frontend import line_extract as le
+    if case == "kitti_view":
+        cam = CameraConfig(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157,
+                           bf=386.1448, width=1241, height=376).stereo_camera()
+        img = make_sequence(cam, 1, seed=2, with_lines=True)[0][0]
+        cfg = le.LineDetConfig(max_lines=256)
+        _, _, mag, edge, _, b, n_rho = le._votes(
+            torch.from_numpy(img).float(), cfg)
+        bins = b.reshape(-1).numpy()
+        w = torch.where(edge, mag, 0.0).reshape(-1).numpy()
+        n = n_rho * cfg.n_phi
+    else:
+        bins, w, n = _vote_case(case, np.random.default_rng(11))
+    bc, wc = torch.from_numpy(bins), torch.from_numpy(w)
+    want = torch.zeros(n).index_add_(0, bc, wc)
+    bd, wd = bc.to(dev), wc.to(dev)
+    before = segment_sum.launches
+    got = [segment_sum.bin_sum(bd, wd, n) for _ in range(2)]
+    lay = segment_sum.bin_layout(bd, wd, n)
+    torch.cuda.synchronize()
+    assert segment_sum.launches - before == 11
+    assert torch.equal(got[0].cpu(), want) and torch.equal(got[0], got[1])
+    assert torch.equal(torch.signbit(got[0].cpu()), torch.signbit(want))
+    counts = torch.bincount(bc[wc != 0].long(), minlength=n)
+    offsets = lay.offsets[:n + 1].cpu().long()
+    assert torch.equal(offsets[1:] - offsets[:-1], counts)
+    assert int(lay.n_long) == int((counts > segment_sum.SMALL_BIN).sum())
+    if case == "long_bin":
+        assert int(counts.max()) == 6000
+
+
+def test_bin_sum_rejects_bad_inputs_on_card(dev):
+    """int64 bins and a CPU vote beside card bins raise before any
+    launch."""
+    bins = torch.tensor([1, 0, 1], dtype=torch.int32, device=dev)
+    w = torch.ones(3, device=dev)
+    before = segment_sum.launches
+    with pytest.raises(ValueError, match="int32"):
+        segment_sum.bin_sum(bins.long(), w, 2)
+    with pytest.raises(ValueError, match="one device"):
+        segment_sum.bin_sum(bins, w.cpu(), 2)
+    assert segment_sum.launches == before
 
 
 def test_segment_sum_rejects_bad_inputs_on_card(dev):
@@ -777,7 +886,7 @@ def test_detect_lines_on_card(dev):
     want = le._accumulate(bins.reshape(-1), w, n)
     before = segment_sum.launches
     got = le._accumulate(bins.reshape(-1).to(dev), w.to(dev), n)
-    assert segment_sum.launches == before + 1
+    assert segment_sum.launches == before + 4
     assert torch.equal(got.cpu(), want) and int(edge.sum()) > 100
     a, b = le.detect_lines(x, cfg), le.detect_lines(x, cfg)
     for u, v in zip(a, b):

@@ -56,6 +56,7 @@ from lldslam_tpu_torch.config import (CameraConfig, LineConfig,  # noqa: E402
                                       SlamConfig, TrackingConfig)
 from lldslam_tpu_torch.frontend import line_extract as tle  # noqa: E402
 from lldslam_tpu_torch.io import stored_lines as tsl  # noqa: E402
+from lldslam_tpu_torch.ops import segment_sum  # noqa: E402
 from lldslam_tpu_torch.ops.orb import OrbConfig  # noqa: E402
 from lldslam_tpu_torch.pipeline.tracker import StereoTracker  # noqa: E402
 from lldslam_tpu_torch.system import System  # noqa: E402
@@ -275,6 +276,29 @@ def test_accumulator_is_jax_scatter():
     want = jnp.zeros(n, jnp.float32).at[jnp.asarray(bins.reshape(-1).numpy())
                                         ].add(jnp.asarray(w.numpy()))
     assert np.array_equal(acc.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("case", ["moved", "segments", "right"])
+def test_bin_sum_is_index_add_and_jax_scatter(case):
+    """The vote's entry `ops/segment_sum.bin_sum` on the CPU, on the bins
+    and votes of three renders: bit-equal to `index_add_` over every pixel
+    into zeros (the accumulator before it had its own entry) and to the
+    JAX package's `.at[].add` (lldslam_tpu/frontend/line_extract.py:93);
+    `_accumulate` is that entry."""
+    img = _t(_render(case))
+    cfg = tle.LineDetConfig()
+    _, _, mag, edge, _, bins, n_rho = tle._votes(img, cfg)
+    w = torch.where(edge, mag, 0.0).reshape(-1)
+    b = bins.reshape(-1)
+    n = n_rho * cfg.n_phi
+    got = segment_sum.bin_sum(b, w, n)
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    assert torch.equal(got, torch.zeros(n).index_add_(0, b, w))
+    want = jnp.zeros(n, jnp.float32).at[jnp.asarray(b.numpy())].add(
+        jnp.asarray(w.numpy()))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert torch.equal(tle._accumulate(b, w, n), got)
+    assert int(edge.sum()) > 100
 
 
 class _Pairs:

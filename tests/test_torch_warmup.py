@@ -178,3 +178,40 @@ def test_warmed_system_tracks_bit_equal():
     n = warm.map.n_pt
     assert cold.map.n_pt == n
     assert np.array_equal(warm.map.pt_pos[:n], cold.map.pt_pos[:n])
+
+
+def test_warmup_mono_programs_leaves_no_trace():
+    """The monocular bootstrap's match and H/F initializer on dummy inputs,
+    on the CPU: the global generators do not move; a second call runs
+    too."""
+    from lldslam_tpu_torch.pipeline.tracker import warmup_mono_programs
+    cam = CameraConfig(**CAM).stereo_camera()
+    g0 = _generators()
+    warmup_mono_programs(cam, 600, "cpu")
+    warmup_mono_programs(cam, 600, torch.device("cpu"))
+    g1 = _generators()
+    assert torch.equal(g0[0], g1[0]) and np.array_equal(g0[1], g1[1])
+
+
+def test_warmed_system_bootstraps_mono_bit_equal():
+    """System.warmup before a monocular bootstrap: the tracker's
+    relocalization generator (the bootstrap's hypothesis draw) stays as it
+    was, and the corridor's left views bootstrap and track to poses and map
+    points bit-equal to those of a System that did not warm up."""
+    frames = synthetic.make_sequence(CameraConfig(**CAM).stereo_camera(), 5,
+                                     n_per_m=25.0, seed=3)
+    warm, cold = (System(_cfg(), enable_loops=False, device="cpu")
+                  for _ in range(2))
+    gen = warm.tracker._reloc_gen.get_state()
+    warm.warmup()
+    assert torch.equal(gen, warm.tracker._reloc_gen.get_state())
+    states = []
+    for s in (warm, cold):
+        states.append([s.track_monocular(l, timestamp=0.1 * i)[1].state
+                       for i, (l, _) in enumerate(frames)])
+    assert states[0] == states[1] and "OK" in states[0], states
+    (_, Tw), (_, Tc) = warm.tracker.trajectory(), cold.tracker.trajectory()
+    assert len(Tw) >= 2 and np.array_equal(Tw, Tc)
+    n = warm.map.n_pt
+    assert n > 0 and cold.map.n_pt == n
+    assert np.array_equal(warm.map.pt_pos[:n], cold.map.pt_pos[:n])

@@ -8,13 +8,15 @@ On a layout of the ring map's global BA (8,322 observation rows over 29
 keyframes, 6 columns: the CG step's pose-side sum; and over 4,926 points,
 3 columns: its point-side sum), times N back-to-back calls of each of:
 the atomic `index_add_`, `index_put_(accumulate=True)`, `segment_sum_`
-(the wrapper: input checks, launch), its input checks alone, its launch
-alone (`cuda_build.launch`), `torch.cuda.device` entered and left, the
-current stream's handle (`current_stream().cuda_stream`, and the raw
-handle `torch._C._cuda_getCurrentRawStream`), `torch.cuda.current_device`
-and the bare ctypes call of the kernel. Host clock around the N calls, the
-card synchronised before and after; each reading is the median of 5
-rounds, in µs a call. Prints one JSON line with the card's name and power limit.
+(the wrapper: input checks, launch), its launch alone (`cuda_build.call`
+on the bound kernel with the same arguments), the bare ctypes call of the
+kernel, the current stream's handle (`current_stream().cuda_stream`, and
+the raw handle `torch._C._cuda_getCurrentRawStream`) and the current card
+(`torch.cuda.current_device`, `torch._C._cuda_getDevice`). Host clock
+around the N calls, the card synchronised before and after; each reading
+is the median of 5 rounds, in µs a call; `above_index_add` is
+`segment_sum` less `index_add`. Prints one JSON line with the card's name
+and power limit.
 """
 from __future__ import annotations
 
@@ -46,11 +48,6 @@ def per_call_us(fn, calls: int, rounds: int = 5) -> float:
     return statistics.median(out)
 
 
-def enter_and_leave(dev) -> None:
-    with torch.cuda.device(dev):
-        pass
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--calls", type=int, default=2000)
@@ -63,27 +60,26 @@ def main() -> int:
         src = torch.randn(8322, C, generator=g).to(dev)
         out = torch.zeros(n, C, device=dev)
         lay = segment_sum.segment_layout(idx, n)
-        p = cuda_build.ptr
-        args = (p(src), p(lay.perm), p(lay.offsets), p(out), 8322, n, C)
+        args = (src.data_ptr(), lay.perm.data_ptr(), lay.ordered.data_ptr(),
+                lay.offsets.data_ptr(), out.data_ptr(), 8322, n, C)
         kernel = cuda_build.library().lld_segment_sum
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        res[label] = dict(
+        r = res[label] = dict(
             index_add=per_call_us(lambda: out.index_add_(0, idx, src), calls),
             index_put=per_call_us(lambda: out.index_put_(
                 (idx,), src, accumulate=True), max(1, calls // 10)),
             segment_sum=per_call_us(
                 lambda: segment_sum.segment_sum_(out, lay, src), calls),
-            checks=per_call_us(lambda: segment_sum._check(out, lay, src),
-                               calls),
-            launch=per_call_us(lambda: cuda_build.launch(
-                "lld_segment_sum", "segment_sum_ launch", dev, *args), calls),
-            device_context=per_call_us(lambda: enter_and_leave(dev), calls),
+            launch=per_call_us(lambda: cuda_build.call(
+                kernel, "segment_sum_ launch", 0, *args), calls),
+            ctypes_call=per_call_us(lambda: kernel(*args, stream), calls),
             stream_handle=per_call_us(
                 lambda: torch.cuda.current_stream(dev).cuda_stream, calls),
             raw_stream=per_call_us(
-                lambda: torch._C._cuda_getCurrentRawStream(dev.index), calls),
+                lambda: torch._C._cuda_getCurrentRawStream(0), calls),
             current_device=per_call_us(torch.cuda.current_device, calls),
-            ctypes_call=per_call_us(lambda: kernel(*args, stream), calls))
+            get_device=per_call_us(torch._C._cuda_getDevice, calls))
+        r["above_index_add"] = r["segment_sum"] - r["index_add"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
