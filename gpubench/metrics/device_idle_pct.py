@@ -1,0 +1,9 @@
+"""The device's idle share of the traced window, %: 100 less the union of
+its device intervals over the window's host seconds."""
+
+
+def read(run):
+    t = run["traced"]
+    if not t or t["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
