@@ -21,6 +21,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import tracing
+
 # popcount of every byte value
 _POPCOUNT8 = np.unpackbits(np.arange(256, dtype=np.uint8)[:, None],
                            axis=1).sum(1).astype(np.int32)
@@ -50,6 +52,7 @@ def _desc_tensor(descs, device) -> torch.Tensor:
     if isinstance(descs, torch.Tensor):
         return descs.to(device=device, dtype=torch.int32)
     a = np.ascontiguousarray(descs, dtype=np.uint32).view(np.int32)
+    tracing.count("host_waits")     # a blocking upload from pageable
     return torch.from_numpy(a).to(device)
 
 
@@ -337,10 +340,14 @@ class Vocabulary:
         or an int32 tensor."""
         words = _descend(self._children, self._desc, self._word,
                          _desc_tensor(descs, self.device), self.L)
+        tracing.count("host_waits")
         words = words.cpu().numpy().astype(np.int32)
         if valid is not None:
-            valid = valid.cpu().numpy() if isinstance(valid, torch.Tensor) \
-                else np.asarray(valid)
+            if isinstance(valid, torch.Tensor):
+                tracing.count("host_waits")
+                valid = valid.cpu().numpy()
+            else:
+                valid = np.asarray(valid)
             words = np.where(valid, words, -1)
         return words
 
@@ -374,6 +381,7 @@ def _descend(node_children: torch.Tensor, node_desc: torch.Tensor,
     child at a tie; childless slots at distance 1 << 30). descs (N, 8)
     int32. Returns (N,) int64 word ids (-1 if the walk ends on an inner
     node without children)."""
+    tracing.count("host_waits")         # a blocking upload from pageable
     lut = torch.from_numpy(_POPCOUNT8).to(descs.device)
     node = torch.zeros(descs.shape[0], dtype=torch.int64, device=descs.device)
     for _ in range(L):

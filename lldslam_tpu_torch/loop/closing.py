@@ -34,13 +34,13 @@ then runs the same correction on its own copy of the same map.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..config import SlamConfig
 from ..frontend import matching
 from ..ops import hamming
@@ -76,6 +76,8 @@ def project_match(store: MapStore, feats: matching.FrameFeatures,
     dev = feats.xy.device
     pids = pids[-PROJECT_CAP:]
     view = view_from_store(store, pids, PROJECT_CAP, dev)
+    # two host waits: the pose's blocking upload, the matches' read-back
+    tracing.count("host_waits", 2)
     T = torch.from_numpy(np.ascontiguousarray(T_cw, np.float32)).to(dev)
     _, kp2pt, _, _ = matching.search_by_projection(
         store.cam, T, view, feats, n_levels=store.cfg.n_levels,
@@ -115,12 +117,13 @@ class LoopCloser:
         warmup_loop_programs(self.store.cam, self.device)
 
     def _t(self, a) -> torch.Tensor:
+        tracing.count("host_waits")     # a blocking upload from pageable
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _time(self, key: str, t0: float) -> float:
-        now = time.perf_counter()
-        self.stage_times[key] = self.stage_times.get(key, 0.0) + (now - t0)
-        return now
+    def _span(self, key: str, name: str | None = None) -> tracing.span:
+        """A span `loop.<key>` (or `name`) whose seconds add to
+        stage_times[key]."""
+        return tracing.span(name or "loop." + key, self.stage_times, key)
 
     def _kf_feats(self, kf: int) -> matching.FrameFeatures:
         s = self.store
@@ -151,33 +154,38 @@ class LoopCloser:
     def process_keyframe(self, kf_id: int) -> bool:
         """Run the loop pipeline for a new keyframe. Returns True when a loop
         was detected and the map corrected."""
-        t0 = time.perf_counter()
         s = self.store
-        ids, vals = self.voc.bow_vector(s.kf_desc[kf_id], s.kf_kp_valid[kf_id])
-        self._time("bow", t0)
+        with self._span("bow"):
+            ids, vals = self.voc.bow_vector(s.kf_desc[kf_id],
+                                            s.kf_kp_valid[kf_id])
         return self._finish(kf_id, ids, vals)
 
     def _finish(self, kf_id: int, ids, vals) -> bool:
-        t1 = time.perf_counter()
-        candidate = self._detect(kf_id, ids, vals)
-        t2 = self._time("detect", t1)
+        with self._span("detect"):
+            candidate = self._detect(kf_id, ids, vals)
         corrected = False
         if candidate is not None:
-            before = {k: self.stage_times.get(k, 0.0) for k in EVENT_STAGES}
-            res = self._compute_sim3(kf_id, candidate)
-            if res is not None:
-                S_cm, n_inl = res
-                self._correct(kf_id, candidate, S_cm)
-                self.events.append(LoopEvent(kf_id, candidate, n_inl, {
-                    k: 1e3 * (self.stage_times[k] - before[k])
-                    for k in EVENT_STAGES}))
-                self.last_loop_kf = kf_id
-                self.consistent_groups = []
-                corrected = True
-        self._time("sim3+correct", t2)
+            # a loop event: the Sim3 verification, and the correction when
+            # it holds
+            with self._span("sim3+correct", "loop.event"):
+                corrected = self._event(kf_id, candidate)
         self.db.add(kf_id, ids, vals)
         self.stage_times["n"] = self.stage_times.get("n", 0) + 1
         return corrected
+
+    def _event(self, kf_id: int, candidate: int) -> bool:
+        before = {k: self.stage_times.get(k, 0.0) for k in EVENT_STAGES}
+        res = self._compute_sim3(kf_id, candidate)
+        if res is None:
+            return False
+        S_cm, n_inl = res
+        self._correct(kf_id, candidate, S_cm)
+        self.events.append(LoopEvent(kf_id, candidate, n_inl, {
+            k: 1e3 * (self.stage_times[k] - before[k])
+            for k in EVENT_STAGES}))
+        self.last_loop_kf = kf_id
+        self.consistent_groups = []
+        return True
 
     # ------------------------------------------------------------------
 
@@ -227,57 +235,61 @@ class LoopCloser:
         """Descriptor match + Sim3 RANSAC + refinement + guided matching.
         Returns ((R, t, s) S_cm aligning m's camera frame into c's, refined
         inliers) or None."""
-        t0 = time.perf_counter()
         s = self.store
         cam = s.cam
-        has_c = s.kf_kp_valid[kf_c] & (s.kf_pt_ids[kf_c] >= 0)
-        has_m = s.kf_kp_valid[kf_m] & (s.kf_pt_ids[kf_m] >= 0)
-        idx, ok, _ = hamming.match_descriptors(
-            self._t(s.kf_desc[kf_c].view(np.int32)), self._t(has_c),
-            self._t(s.kf_desc[kf_m].view(np.int32)), self._t(has_m),
-            max_dist=hamming.TH_LOW, ratio=0.75)
-        idx, ok = idx.cpu().numpy(), ok.cpu().numpy()
-        sel_c = np.nonzero(ok)[0]
-        if len(sel_c) < 20:
-            return None
-        n = min(len(sel_c), SIM3_CAP)
-        sel_c = sel_c[:n]
-        sel_m = idx[sel_c]
-        pc = s.pt_pos[s.kf_pt_ids[kf_c, sel_c]]
-        pm = s.pt_pos[s.kf_pt_ids[kf_m, sel_m]]
-        Tc, Tm = s.kf_pose[kf_c], s.kf_pose[kf_m]
-        X1 = self._t(((Tc[:3, :3] @ pc.T).T + Tc[:3, 3]).astype(np.float32))
-        X2 = self._t(((Tm[:3, :3] @ pm.T).T + Tm[:3, 3]).astype(np.float32))
-        uv1 = self._t(s.kf_xy[kf_c, sel_c])
-        uv2 = self._t(s.kf_xy[kf_m, sel_m])
-        s2_1 = self._t((1.0 / self._inv_sigma2)[s.kf_oct[kf_c, sel_c]])
-        s2_2 = self._t((1.0 / self._inv_sigma2)[s.kf_oct[kf_m, sel_m]])
-        valid = torch.ones(n, dtype=torch.bool, device=self.device)
-        S, inl, n_inl = sim3_solver.ransac_sim3(
-            cam, cam, X1, X2, uv1, uv2, s2_1, s2_2, valid, self._gen)
-        (R, t, sc), inl2, n_ref = sim3_solver.refine_sim3(
-            cam, cam, S, X1, X2, uv1, uv2, 1.0 / s2_1, 1.0 / s2_2, inl)
-        n_inl, n_ref = int(n_inl), int(n_ref)
-        t1 = self._time("sim3", t0)
+        with self._span("sim3"):
+            has_c = s.kf_kp_valid[kf_c] & (s.kf_pt_ids[kf_c] >= 0)
+            has_m = s.kf_kp_valid[kf_m] & (s.kf_pt_ids[kf_m] >= 0)
+            idx, ok, _ = hamming.match_descriptors(
+                self._t(s.kf_desc[kf_c].view(np.int32)), self._t(has_c),
+                self._t(s.kf_desc[kf_m].view(np.int32)), self._t(has_m),
+                max_dist=hamming.TH_LOW, ratio=0.75)
+            tracing.count("host_waits", 2)
+            idx, ok = idx.cpu().numpy(), ok.cpu().numpy()
+            sel_c = np.nonzero(ok)[0]
+            if len(sel_c) < 20:
+                return None
+            n = min(len(sel_c), SIM3_CAP)
+            sel_c = sel_c[:n]
+            sel_m = idx[sel_c]
+            pc = s.pt_pos[s.kf_pt_ids[kf_c, sel_c]]
+            pm = s.pt_pos[s.kf_pt_ids[kf_m, sel_m]]
+            Tc, Tm = s.kf_pose[kf_c], s.kf_pose[kf_m]
+            X1 = self._t(((Tc[:3, :3] @ pc.T).T + Tc[:3, 3]).astype(
+                np.float32))
+            X2 = self._t(((Tm[:3, :3] @ pm.T).T + Tm[:3, 3]).astype(
+                np.float32))
+            uv1 = self._t(s.kf_xy[kf_c, sel_c])
+            uv2 = self._t(s.kf_xy[kf_m, sel_m])
+            s2_1 = self._t((1.0 / self._inv_sigma2)[s.kf_oct[kf_c, sel_c]])
+            s2_2 = self._t((1.0 / self._inv_sigma2)[s.kf_oct[kf_m, sel_m]])
+            valid = torch.ones(n, dtype=torch.bool, device=self.device)
+            S, inl, n_inl = sim3_solver.ransac_sim3(
+                cam, cam, X1, X2, uv1, uv2, s2_1, s2_2, valid, self._gen)
+            (R, t, sc), inl2, n_ref = sim3_solver.refine_sim3(
+                cam, cam, S, X1, X2, uv1, uv2, 1.0 / s2_1, 1.0 / s2_2, inl)
+            tracing.count("host_waits", 2)
+            n_inl, n_ref = int(n_inl), int(n_ref)
         # both gates (RANSAC, then the OptimizeSim3 refinement) at >= 20
         if n_inl < 20 or n_ref < 20:
             return None
-        R, t = R.cpu().numpy(), t.cpu().numpy()
-        sc = float(sc)
-        inl2 = inl2.cpu().numpy()
+        with self._span("guided"):
+            tracing.count("host_waits", 4)
+            R, t = R.cpu().numpy(), t.cpu().numpy()
+            sc = float(sc)
+            inl2 = inl2.cpu().numpy()
 
-        # guided matching with the corrected pose: project the loop side's
-        # local map points into the current keyframe, demand >= 40 matched
-        # features in all
-        Tm = s.kf_pose[kf_m]
-        T_corr = np.eye(4, dtype=np.float32)
-        T_corr[:3, :3] = R @ Tm[:3, :3]
-        T_corr[:3, 3] = sc * (R @ Tm[:3, 3]) + t
-        loop_pids = self._loop_points(kf_m)
-        kp2lp = self._project_match(kf_c, loop_pids, T_corr, th=2.5)
-        matched = set(np.nonzero(kp2lp >= 0)[0].tolist())
-        matched |= set(int(x) for x in sel_c[inl2])
-        self._time("guided", t1)
+            # guided matching with the corrected pose: project the loop
+            # side's local map points into the current keyframe, demand
+            # >= 40 matched features in all
+            Tm = s.kf_pose[kf_m]
+            T_corr = np.eye(4, dtype=np.float32)
+            T_corr[:3, :3] = R @ Tm[:3, :3]
+            T_corr[:3, 3] = sc * (R @ Tm[:3, 3]) + t
+            loop_pids = self._loop_points(kf_m)
+            kp2lp = self._project_match(kf_c, loop_pids, T_corr, th=2.5)
+            matched = set(np.nonzero(kp2lp >= 0)[0].tolist())
+            matched |= set(int(x) for x in sel_c[inl2])
         if len(matched) < 40:
             return None
         self._loop_guided = (kp2lp, loop_pids)
@@ -306,7 +318,18 @@ class LoopCloser:
     def _correct(self, kf_c: int, kf_m: int, S_cm):
         """Essential-graph optimization + point remap + loop fusion +
         global BA."""
-        tt = time.perf_counter()
+        with self._span("pose_graph"):
+            poses_old, R_new, t_new, s_new = self._pose_graph(kf_c, kf_m,
+                                                              S_cm)
+        with self._span("fusion"):
+            self._remap_and_fuse(kf_c, poses_old, R_new, t_new, s_new)
+        with self._span("global_ba"):
+            self.global_ba()
+        self.stage_times["n_events"] = self.stage_times.get("n_events", 0) + 1
+
+    def _pose_graph(self, kf_c: int, kf_m: int, S_cm):
+        """The essential graph optimized with the loop edge: the keyframes'
+        old poses (K, 4, 4) and the solved Sim(3) R, t, s (host arrays)."""
         s = self.store
         K = s.n_kf
         R_cm, t_cm, s_cm = S_cm
@@ -369,11 +392,15 @@ class LoopCloser:
             e_valid=torch.ones(len(e_i), dtype=torch.bool,
                                device=self.device))
         g_opt = pose_graph.optimize_pose_graph(g, iters=15, cg_iters=48)
-        R_new = g_opt.R.cpu().numpy()
-        t_new = g_opt.t.cpu().numpy()
-        s_new = g_opt.s.cpu().numpy()
-        t1 = self._time("pose_graph", tt)
+        tracing.count("host_waits", 3)
+        return (poses_old, g_opt.R.cpu().numpy(), g_opt.t.cpu().numpy(),
+                g_opt.s.cpu().numpy())
 
+    def _remap_and_fuse(self, kf_c: int, poses_old, R_new, t_new, s_new):
+        """The poses, points and map lines moved by the solved graph, then
+        loop fusion."""
+        s = self.store
+        K = len(poses_old)
         # Sim3 -> SE3 write-back (t / s)
         T_new = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
         T_new[:, :3, :3] = R_new
@@ -405,11 +432,6 @@ class LoopCloser:
             s.refresh_obs_counts()
             s._update_point_geometry(loop_pids)
             self._loop_guided = (None, None)
-        t2 = self._time("fusion", t1)
-
-        self.global_ba()
-        self._time("global_ba", t2)
-        self.stage_times["n_events"] = self.stage_times.get("n_events", 0) + 1
 
     def _remap_lines(self, poses_old, R_new, t_new, s_new):
         """Map lines through their anchor keyframe like the points:
@@ -546,6 +568,7 @@ class LoopCloser:
                 iters=10, cg_iters=64, gamma=float(self.cfg.line.gamma))
             solved = joint.base
             self._write_back_lines(lids, joint.q, joint.alpha)
+        tracing.count("host_waits", 2)
         s.kf_pose[:K] = solved.poses.cpu().numpy()
         s.pt_pos[pids] = solved.points.cpu().numpy()
 
@@ -574,6 +597,7 @@ class LoopCloser:
                 iters=10, cg_iters=64, gamma=float(self.cfg.line.gamma))
             points, q, alpha = ds.assemble(group, points, q, alpha)
             self._write_back_lines(lids, q[:len(lids)], alpha[:len(lids)])
+        tracing.count("host_waits", 2)
         s.kf_pose[:K] = poses.cpu().numpy()
         s.pt_pos[pids] = points[:len(pids)].cpu().numpy()
 
@@ -613,6 +637,7 @@ class LoopCloser:
     def _write_back_lines(self, lids: np.ndarray, q, alpha):
         """Solved minimal line states back into the store, where finite."""
         s = self.store
+        tracing.count("host_waits", 2)
         X0, d = (x.cpu().numpy() for x in glines.x0dir_from_minimal(q, alpha))
         fin = np.isfinite(X0).all(-1) & np.isfinite(d).all(-1)
         s.ln_x0[lids[fin]] = X0[fin]

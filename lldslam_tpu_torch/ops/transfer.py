@@ -15,11 +15,15 @@ may synchronise the stream:
   waits on that event alone and returns the same tree of numpy arrays. A
   pinned buffer read before its event completes would hold garbage, so
   nothing reads it but `result()`. On the CPU the copy is taken at once.
+  The wait counts as one `host_waits` and one `event_waits` of the
+  current frame's record (lldslam_tpu_torch/tracing.py), on the CPU too.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .. import tracing
 
 
 def upload(a, device: torch.device) -> torch.Tensor:
@@ -72,6 +76,8 @@ class HostCopy:
     def result(self):
         """The tree of numpy arrays (waits for the copy on a card)."""
         if self._result is None:
+            tracing.count("host_waits")
+            tracing.count("event_waits")
             if self._event is not None:
                 self._event.synchronize()
             raw = self._host.numpy()

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..geometry.camera import StereoCamera
 from .sim3_solver import draw_hypotheses, horn_sim3
 
@@ -23,6 +24,7 @@ def _control_points(Pw: torch.Tensor) -> torch.Tensor:
     c0 = Pw.mean(dim=-2)
     Pc = Pw - c0[..., None, :]
     cov = torch.einsum("...ni,...nj->...ij", Pc, Pc) / Pw.shape[-2]
+    tracing.count("host_waits")         # eigh's error check
     w, V = torch.linalg.eigh(cov)                       # ascending
     sig = torch.sqrt(torch.clamp(w, min=1e-12))
     dirs = V.transpose(-1, -2) * sig[..., None]
@@ -52,6 +54,7 @@ def epnp(cam: StereoCamera, Pw: torch.Tensor, uv: torch.Tensor):
     rows_v = torch.stack([zeros, A * cam.fy, A * dv[..., None]], dim=-1)
     M = torch.cat([rows_u.reshape(*batch, n, 12),
                    rows_v.reshape(*batch, n, 12)], dim=-2)  # (..., 2n, 12)
+    tracing.count("host_waits", 2)      # svd waits twice on the card
     Vh = torch.linalg.svd(M, full_matrices=True)[2]
     v = Vh[..., -1, :].reshape(*batch, 4, 3)              # null-space ctrl pts
     i0, i1 = torch.triu_indices(4, 4, 1, device=Pw.device)   # the 6 pairs
@@ -86,6 +89,7 @@ def score_pnp(cam: StereoCamera, Pw, uv, sigma2, valid, idx):
     finite = torch.isfinite(T.reshape(n_hyp, -1)).all(dim=-1)
     scores = torch.where(finite, inl.sum(-1), torch.full_like(inl.sum(-1), -1))
     best = torch.argmax(scores)
+    tracing.count("host_waits", 3)      # each index by a device scalar
     return T[best], inl[best], torch.clamp(scores[best], min=0)
 
 

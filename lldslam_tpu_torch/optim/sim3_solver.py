@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..geometry import sim3 as gs
 from ..geometry.camera import StereoCamera
 
@@ -42,6 +43,7 @@ def horn_sim3(P1: torch.Tensor, P2: torch.Tensor):
         torch.stack([Szx - Sxz, Sxy + Syx, -Sxx + Syy - Szz, Syz + Szy], -1),
         torch.stack([Sxy - Syx, Szx + Sxz, Syz + Szy, -Sxx - Syy + Szz], -1),
     ], -2)
+    tracing.count("host_waits")         # eigh's error check
     q = torch.linalg.eigh(N)[1][..., -1]   # top eigenvector (w, x, y, z)
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     R = torch.stack([
@@ -88,6 +90,7 @@ def score_sim3(cam1: StereoCamera, cam2: StereoCamera, P1, P2, uv1, uv2,
     inl = (err1 < CHI2_SIM3) & (err2 < CHI2_SIM3) & valid[None]
     scores = inl.sum(-1)
     best = torch.argmax(scores)
+    tracing.count("host_waits", 5)      # each index by a device scalar
     return (R[best], t[best], s[best]), inl[best], scores[best]
 
 

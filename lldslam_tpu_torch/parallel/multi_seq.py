@@ -46,11 +46,10 @@ landed).
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import SlamConfig
 from ..frontend import matching
 from ..frontend.frame import build_frame_batch
@@ -89,30 +88,33 @@ class MultiSequenceDriver:
         solo = [i for i in live if i not in batch]
         results: list = [None] * S
         if batch:
-            t0 = time.perf_counter()
-            stack = _pair_stack([pairs[i] for i in batch])
-            fdb = build_frame_batch(torch.from_numpy(stack).to(self.device),
-                                    self.cam, self.cfg.orb)
-            t1 = time.perf_counter()
             trs = [self.trackers[i] for i in batch]
-            fds, ms = [], []
-            for b, tr in enumerate(trs):
+            ms = []
+            for tr in trs:
                 tr.frame_id += 1
-                ms.append(TrackMetrics(frame_id=tr.frame_id,
-                                       t_build=(t1 - t0) / len(batch)))
-                fds.append(fdb.seq(b))
-            T_preds = [tr._predict_pose(fd) for tr, fd in zip(trs, fds)]
-            t2 = time.perf_counter()
-            outs = StereoTracker._step_batch(trs, fdb.feats, fdb.depth,
-                                             T_preds)
-            t_disp = (time.perf_counter() - t2) / len(batch)
+                ms.append(TrackMetrics(frame_id=tr.frame_id))
+                tracing.start(ms[-1])
+            # the batched build and step on the first member's record
+            with tracing.frame(ms[0]):
+                with tracing.span("build") as sb:
+                    stack = _pair_stack([pairs[i] for i in batch])
+                    fdb = build_frame_batch(
+                        torch.from_numpy(stack).to(self.device), self.cam,
+                        self.cfg.orb)
+                fds = [fdb.seq(b) for b in range(len(trs))]
+                T_preds = [tr._predict_pose(fd) for tr, fd in zip(trs, fds)]
+                with tracing.span("dispatch") as sd:
+                    outs = StereoTracker._step_batch(trs, fdb.feats,
+                                                     fdb.depth, T_preds)
             for i, tr, fd, m, (host, step) in zip(batch, trs, fds, ms, outs):
-                m.t_dispatch = t_disp
-                t3 = time.perf_counter()
-                tr._track_finalize(fd, host, step, timestamps[i], m,
-                                   tr.frame_id)
-                m.t_step = time.perf_counter() - t3 - m.t_kf
-                tr._finish_metrics(m)
+                m.t_build = sb.seconds / len(batch)
+                m.t_dispatch = sd.seconds / len(batch)
+                with tracing.frame(m):
+                    with tracing.span("finalize"):
+                        tr._track_finalize(fd, host, step, timestamps[i], m,
+                                           tr.frame_id)
+                        tr._finish_metrics(m)
+                    tracing.end_frame(m)
                 results[i] = (tr.T_cw.copy(), m)
         for i in solo:
             results[i] = self.trackers[i].process(pairs[i][0], pairs[i][1],
@@ -257,14 +259,51 @@ class PipelinedMultiSequenceDriver(MultiSequenceDriver):
         return results
 
     def _step(self, pairs, timestamps, pair_devs, results):
-        t0 = time.perf_counter()
         members, stk = self._members, self._stk
         trs = [self.trackers[i] for i in members]
-        if pair_devs is not None:
-            stack = torch.stack([pair_devs[i] for i in members])
-        else:
-            stack = trs[0]._t(_pair_stack([pairs[i] for i in members]))
-        fdb = build_frame_batch(stack, self.cam, self.cfg.orb)
+        # each member's frame is handed over here; the batched build and
+        # step are recorded on the first member's record
+        ms = [TrackMetrics(frame_id=tr.frame_id + 1) for tr in trs]
+        for m in ms:
+            tracing.start(m)
+        with tracing.frame(ms[0]):
+            with tracing.span("build") as sb:
+                if pair_devs is not None:
+                    stack = torch.stack([pair_devs[i] for i in members])
+                else:
+                    stack = trs[0]._t(_pair_stack([pairs[i]
+                                                   for i in members]))
+                fdb = build_frame_batch(stack, self.cam, self.cfg.orb)
+            with tracing.span("dispatch") as sd:
+                out = self._dispatch(trs, stk, fdb)
+                host = {k: out[k] for k in trk._HOST_KEYS}
+                host.update(trk._snapshot_fields(fdb))
+        for m in ms:
+            m.t_build = sb.seconds / len(ms)
+            m.t_dispatch = sd.seconds / len(ms)
+        prev = {k: stk[k] for k in ("last_feats", "last_ptpos", "last_haspt",
+                                    "last_ismap", "last_prov")}
+        for k in ("T", "vel", "since", "scal"):
+            stk[k] = out[k]
+        stk["last_feats"] = fdb.feats
+        for k in ("ptpos", "haspt", "ismap", "prov"):
+            stk["last_" + k] = out[k]
+        rec = dict(members=list(members), fdb=fdb, prev=prev, host=host,
+                   ts=[timestamps[i] for i in members],
+                   view_pids=[tr._view_pid for tr in trs], ms=ms)
+        for tr in trs:
+            tr.frame_id += 1
+        self._pending.append(rec)
+        for i in members:
+            results[i] = (None, None)
+        if len(self._pending) >= self.W:
+            recs, self._pending = self._pending, []
+            self._absorb()
+            self._inflight = (recs, HostCopy([r["host"] for r in recs]))
+
+    def _dispatch(self, trs: list, stk: dict, fdb) -> dict:
+        """The members' post-BA views and reference counts taken into the
+        stack, then the batched chained step."""
         # per-tracker updates since the last frame: post-BA views and the
         # last keyframe's reference count
         for b, tr in enumerate(trs):
@@ -277,7 +316,7 @@ class PipelinedMultiSequenceDriver(MultiSequenceDriver):
                 stk["scal"] = _put(stk["scal"], b, tr._adopted_scal(
                     stk["since"][b], stk["scal"][b], tr.frame_id + 1))
         cfgT, tr0 = self.cfg.tracking, trs[0]
-        out = trk._track_step_chained(
+        return trk._track_step_chained(
             self.cam, stk["T"], stk["vel"], stk["last_feats"],
             stk["last_ptpos"], stk["last_haspt"], fdb.feats, fdb.depth,
             stk["view"], tr0._inv_sigma2_lut, stk["last_ismap"],
@@ -285,30 +324,6 @@ class PipelinedMultiSequenceDriver(MultiSequenceDriver):
             tr0.orb.scale, cfgT.min_motion_matches,
             float(self.cfg.close_depth),
             max(cfgT.min_frames_between_kf, 3), cfgT.max_frames_between_kf)
-        prev = {k: stk[k] for k in ("last_feats", "last_ptpos", "last_haspt",
-                                    "last_ismap", "last_prov")}
-        for k in ("T", "vel", "since", "scal"):
-            stk[k] = out[k]
-        stk["last_feats"] = fdb.feats
-        for k in ("ptpos", "haspt", "ismap", "prov"):
-            stk["last_" + k] = out[k]
-        host = {k: out[k] for k in trk._HOST_KEYS}
-        host.update(trk._snapshot_fields(fdb))
-        rec = dict(members=list(members), fdb=fdb, prev=prev, host=host,
-                   ts=[timestamps[i] for i in members],
-                   view_pids=[tr._view_pid for tr in trs], fids=[])
-        t_disp = (time.perf_counter() - t0) / len(members)
-        for tr in trs:
-            tr.frame_id += 1
-            rec["fids"].append(tr.frame_id)
-        rec["t_dispatch"] = t_disp
-        self._pending.append(rec)
-        for i in members:
-            results[i] = (None, None)
-        if len(self._pending) >= self.W:
-            recs, self._pending = self._pending, []
-            self._absorb()
-            self._inflight = (recs, HostCopy([r["host"] for r in recs]))
 
     # -- window finalize -------------------------------------------------
 
@@ -322,10 +337,10 @@ class PipelinedMultiSequenceDriver(MultiSequenceDriver):
         """Each frame of the window, each sequence in turn, through its
         tracker's `_finalize_rec`; the frame and rollback slices of the
         batch are taken only where a path reads them."""
-        for rec, h in zip(recs, copy.result()):
+        hosts = trk._copy_wait(copy, [m for r in recs for m in r["ms"]])
+        for rec, h in zip(recs, hosts):
             for b, i in enumerate(rec["members"]):
-                m = TrackMetrics(frame_id=rec["fids"][b],
-                                 t_dispatch=rec["t_dispatch"])
+                m = rec["ms"][b]
                 srec = dict(
                     fd=lambda b=b, fdb=rec["fdb"]: fdb.seq(b),
                     prev=lambda b=b, p=rec["prev"]: (
@@ -334,7 +349,7 @@ class PipelinedMultiSequenceDriver(MultiSequenceDriver):
                         p["last_ptpos"][b], p["last_haspt"][b],
                         p["last_ismap"][b], p["last_prov"][b]),
                     host={k: v[b] for k, v in h.items()}, m=m,
-                    ts=rec["ts"][b], fid=rec["fids"][b],
+                    ts=rec["ts"][b], fid=m.frame_id,
                     view_pid=rec["view_pids"][b])
                 self.trackers[i]._finalize_rec(srec)
 

@@ -38,12 +38,12 @@ has one of a few shapes.
 """
 from __future__ import annotations
 
-import time
 from collections import deque
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import SlamConfig
 from ..frontend import matching
 from ..ops.transfer import HostCopy, upload
@@ -89,6 +89,7 @@ class LocalMapper:
         self._inv_sigma2 = np.power(
             1.0 / store.cfg.scale ** 2, np.arange(store.cfg.n_levels)
         ).astype(np.float32)
+        tracing.count("host_waits")     # a blocking upload from pageable
         self._lut_dev = torch.from_numpy(self._inv_sigma2).to(self.device)
         # called with each culled keyframe id (the tracker points it at the
         # loop closer's KeyFrameDatabase.erase)
@@ -112,10 +113,9 @@ class LocalMapper:
 
     # ------------------------------------------------------------------
 
-    def _time(self, key: str, t0: float) -> float:
-        now = time.perf_counter()
-        self.stage_times[key] = self.stage_times.get(key, 0.0) + (now - t0)
-        return now
+    def _span(self, key: str) -> tracing.span:
+        """A span `mapper.<key>` whose seconds add to stage_times[key]."""
+        return tracing.span("mapper." + key, self.stage_times, key)
 
     def cache_frame(self, kf_id: int, feats) -> int:
         """Register a new keyframe's device feature tensors in the cache."""
@@ -246,22 +246,21 @@ class LocalMapper:
         `fuse_ba` its windowed BA (problem built now, before this stage's
         writeback) whose post-BA view becomes `pending_view`. A third
         queued stage forces the oldest's absorb."""
-        t0 = time.perf_counter()
-        while len(self._pending_kfq) >= 2:
-            self._absorb_head()
-        stage, out = self._launch_stage(kf_id)
-        if voc is not None:
-            c = self.cache.arrays
-            s0 = stage["slots"][0]
-            out["words"] = voc.device_words(c.desc[s0], c.valid[s0])
-        prep = self._prepare_ba(kf_id) if fuse_ba else None
-        if prep is not None:
-            ba_out = self._launch_ba(prep)
-            self.pending_view = (ba_out.pop("view"), prep["vp"])
-            out["ba"] = ba_out
-        stage.update(fused=fuse_ba, ba=prep, host=HostCopy(out))
-        self._pending_kfq.append(stage)
-        self._time("dispatch_kf_staged", t0)
+        with self._span("dispatch_kf_staged"):
+            while len(self._pending_kfq) >= 2:
+                self._absorb_head()
+            stage, out = self._launch_stage(kf_id)
+            if voc is not None:
+                c = self.cache.arrays
+                s0 = stage["slots"][0]
+                out["words"] = voc.device_words(c.desc[s0], c.valid[s0])
+            prep = self._prepare_ba(kf_id) if fuse_ba else None
+            if prep is not None:
+                ba_out = self._launch_ba(prep)
+                self.pending_view = (ba_out.pop("view"), prep["vp"])
+                out["ba"] = ba_out
+            stage.update(fused=fuse_ba, ba=prep, host=HostCopy(out))
+            self._pending_kfq.append(stage)
 
     def absorb_kf_stage(self) -> dict:
         """Write back the oldest queued stage (triangulated points, fusion,
@@ -306,37 +305,39 @@ class LocalMapper:
         """Culling and the stage inputs on the host, then triangulation +
         fusion queued on the device. Returns (the stage's host record,
         its device outputs)."""
-        t0 = time.perf_counter()
-        s = self.store
-        dev = self.device
-        s.refresh_obs_counts()
-        # newly created points of this KF enter the culling probation window
-        row = s.kf_pt_ids[kf_id]
-        new_ids = row[(row >= 0) & (s.pt_first_kf[row.clip(0)] == kf_id)]
-        self.note_created(kf_id, new_ids)
-        recent = [ids for _, ids in self._recent if len(ids)]
-        if recent:
-            s.cull_points(np.concatenate(recent), current_kf=kf_id)
-        covis, _ = s.covisible_kfs(kf_id, min_shared=15, top=10)
-        nbs_tri = [int(nb) for nb in covis[:TRI_NEIGHBOURS]]
-        nbs_fuse = [int(nb) for nb in covis[:FUSE_NEIGHBOURS]]
-        slots = [int(x) for x in self.ensure_cached([kf_id] + nbs_tri + nbs_fuse)]
-        # fuse view: this KF's current points
-        my = row[row >= 0]
-        pids = np.unique(my)
-        pids = pids[s.pt_valid[pids]][-FUSE_VIEW_CAP:]
-        free_tri = np.stack([s.kf_kp_valid[k] & (s.kf_pt_ids[k] < 0)
-                             for k in [kf_id] + nbs_tri])
-        valid_fuse = np.stack([s.kf_kp_valid[k] for k in nbs_fuse]) \
-            if nbs_fuse else np.zeros((0, s.n_kp), bool)
-        t = lambda a: upload(a, dev)
-        view = mapper_fast.view_from_store(s, pids, FUSE_VIEW_CAP, dev)
-        tri, fuse = mapper_fast.kf_stage_cached(
-            self.cam, self.cache.arrays, slots[:1 + len(nbs_tri)],
-            t(s.kf_pose[[kf_id] + nbs_tri]), t(free_tri),
-            slots[1 + len(nbs_tri):], t(s.kf_pose[nbs_fuse]), t(valid_fuse),
-            view, self._lut_dev, s.cfg.n_levels, s.cfg.scale)
-        self._time("dispatch_kf", t0)
+        with self._span("dispatch_kf"):
+            s = self.store
+            dev = self.device
+            s.refresh_obs_counts()
+            # newly created points of this KF enter the culling probation
+            # window
+            row = s.kf_pt_ids[kf_id]
+            new_ids = row[(row >= 0) & (s.pt_first_kf[row.clip(0)] == kf_id)]
+            self.note_created(kf_id, new_ids)
+            recent = [ids for _, ids in self._recent if len(ids)]
+            if recent:
+                s.cull_points(np.concatenate(recent), current_kf=kf_id)
+            covis, _ = s.covisible_kfs(kf_id, min_shared=15, top=10)
+            nbs_tri = [int(nb) for nb in covis[:TRI_NEIGHBOURS]]
+            nbs_fuse = [int(nb) for nb in covis[:FUSE_NEIGHBOURS]]
+            slots = [int(x) for x in
+                     self.ensure_cached([kf_id] + nbs_tri + nbs_fuse)]
+            # fuse view: this KF's current points
+            my = row[row >= 0]
+            pids = np.unique(my)
+            pids = pids[s.pt_valid[pids]][-FUSE_VIEW_CAP:]
+            free_tri = np.stack([s.kf_kp_valid[k] & (s.kf_pt_ids[k] < 0)
+                                 for k in [kf_id] + nbs_tri])
+            valid_fuse = np.stack([s.kf_kp_valid[k] for k in nbs_fuse]) \
+                if nbs_fuse else np.zeros((0, s.n_kp), bool)
+            t = lambda a: upload(a, dev)
+            view = mapper_fast.view_from_store(s, pids, FUSE_VIEW_CAP, dev)
+            tri, fuse = mapper_fast.kf_stage_cached(
+                self.cam, self.cache.arrays, slots[:1 + len(nbs_tri)],
+                t(s.kf_pose[[kf_id] + nbs_tri]), t(free_tri),
+                slots[1 + len(nbs_tri):], t(s.kf_pose[nbs_fuse]),
+                t(valid_fuse), view, self._lut_dev, s.cfg.n_levels,
+                s.cfg.scale)
         stage = dict(kf_id=kf_id, slots=slots, nbs_tri=nbs_tri,
                      nbs_fuse=nbs_fuse,
                      pid_arr=np.concatenate(
@@ -349,30 +350,30 @@ class LocalMapper:
     def _stage_writeback(self, stage: dict, out: dict):
         """Host writeback of a stage's results (numpy): new points from the
         triangulated matches, then fusion."""
-        t1 = time.perf_counter()
         s = self.store
         kf_id = stage["kf_id"]
-        created: list[int] = []
-        claimed = np.zeros(s.n_kp, bool)
-        for tri, nb in zip(out["tri"], stage["nbs_tri"]):
-            match, X = tri["match"], tri["X"]
-            sel = np.nonzero((match >= 0) & ~claimed)[0]
-            if len(sel) == 0:
-                continue
-            sel = sel[: s.room_for_points(len(sel))]
-            if len(sel) == 0:
-                break
-            ids = s.create_points(kf_id, sel, X[sel])
-            s.kf_pt_ids[nb, match[sel]] = ids  # second observation
-            s.mark_obs_dirty()
-            claimed[sel] = True
-            created.extend(ids.tolist())
-        if created:
-            self.note_created(kf_id, np.asarray(created, np.int32))
-            s.refresh_obs_counts()
-        t2 = self._time("triangulate", t1)
-        self._fuse_writeback(out["fuse"], stage["pid_arr"], stage["nbs_fuse"])
-        self._time("fuse", t2)
+        with self._span("triangulate"):
+            created: list[int] = []
+            claimed = np.zeros(s.n_kp, bool)
+            for tri, nb in zip(out["tri"], stage["nbs_tri"]):
+                match, X = tri["match"], tri["X"]
+                sel = np.nonzero((match >= 0) & ~claimed)[0]
+                if len(sel) == 0:
+                    continue
+                sel = sel[: s.room_for_points(len(sel))]
+                if len(sel) == 0:
+                    break
+                ids = s.create_points(kf_id, sel, X[sel])
+                s.kf_pt_ids[nb, match[sel]] = ids  # second observation
+                s.mark_obs_dirty()
+                claimed[sel] = True
+                created.extend(ids.tolist())
+            if created:
+                self.note_created(kf_id, np.asarray(created, np.int32))
+                s.refresh_obs_counts()
+        with self._span("fuse"):
+            self._fuse_writeback(out["fuse"], stage["pid_arr"],
+                                 stage["nbs_fuse"])
         self.stage_times["n"] = self.stage_times.get("n", 0) + 1
 
     def _fuse_writeback(self, fuse_kp2pt, pid_arr, nbs_fuse):
@@ -461,7 +462,6 @@ class LocalMapper:
         another BA in flight (the reference interrupts a running local BA
         when a keyframe arrives), a map of one keyframe, or the adaptive
         cadence."""
-        t0 = time.perf_counter()
         s = self.store
         if self._ba_inflight():
             self.stage_times["ba_skip_dropped"] = self.stage_times.get(
@@ -480,6 +480,13 @@ class LocalMapper:
                 "ba_cadence_skipped", 0) + 1
             self.cull_keyframes(kf_id)
             return None
+        with self._span("dba_build"):
+            return self._build_ba(kf_id, fid)
+
+    def _build_ba(self, kf_id: int, fid: int):
+        """The padded problem tensors of this keyframe's windowed BA; None
+        (after keyframe culling) when its window holds no problem."""
+        s = self.store
         self._last_ba_frame = fid
         meta = self._build_problem_np(kf_id)
         if meta is None:
@@ -523,7 +530,6 @@ class LocalMapper:
         if self.enable_lines:
             prep["lmeta"] = lmeta = self._line_obs_np(window)
             prep["lines"] = self._line_tensors(window, lmeta)
-        self._time("dba_build", t0)
         return prep
 
     def _line_tensors(self, window: np.ndarray, lmeta: dict):
@@ -581,11 +587,10 @@ class LocalMapper:
     def _run_ba(self, kf_id: int, prep: dict):
         """Windowed BA on the device, then writeback + outlier erasure +
         keyframe culling. Returns (post-BA view, view point ids)."""
-        t0 = time.perf_counter()
-        out = self._launch_ba(prep)
-        view = out.pop("view")
-        self._ba_writeback(kf_id, prep, HostCopy(out).result())
-        self._time("ba", t0)
+        with self._span("ba"):
+            out = self._launch_ba(prep)
+            view = out.pop("view")
+            self._ba_writeback(kf_id, prep, HostCopy(out).result())
         return view, prep["vp"]
 
     def _launch_ba(self, prep: dict) -> dict:

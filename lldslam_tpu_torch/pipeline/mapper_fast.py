@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..frontend import matching
 from ..geometry.camera import StereoCamera
 from ..geometry import lines as glines
@@ -50,7 +51,9 @@ def view_from_store(store, pids: np.ndarray, cap: int,
     mind[:P] = store.pt_min_dist[pids]
     maxd[:P] = store.pt_max_dist[pids]
     valid[:P] = True
-    t = lambda a: torch.from_numpy(a).to(device)
+    def t(a):
+        tracing.count("host_waits")    # a blocking upload from pageable
+        return torch.from_numpy(a).to(device)
     return matching.MapPointView(pos=t(pos), desc=t(desc.view(np.int32)),
                                  normal=t(normal), min_dist=t(mind),
                                  max_dist=t(maxd), valid=t(valid))

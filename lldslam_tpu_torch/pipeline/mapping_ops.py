@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..frontend import matching
 from ..geometry import se3
 from ..geometry.camera import StereoCamera
@@ -27,6 +28,8 @@ def triangulate_pair(cam: StereoCamera, T1: torch.Tensor, T2: torch.Tensor,
     per KF1 feature)."""
     N = xy1.shape[0]
     dev, dt = T1.device, T1.dtype
+    # two host waits: inv's error check, and Kinv's blocking upload
+    tracing.count("host_waits", 2)
     T21 = T2 @ torch.linalg.inv(T1)
     R, t = T21[:3, :3], T21[:3, 3]
     E = se3.hat(t) @ R

@@ -78,14 +78,14 @@ for both.
 from __future__ import annotations
 
 import enum
-import time
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import SlamConfig
 from ..frontend import line_extract, line_match, matching
 from ..frontend.frame import (FrameData, build_frame_mono,
@@ -156,69 +156,74 @@ def _track_core(cam, T_pred: torch.Tensor, last_feats: matching.FrameFeatures,
     created point id. None (or all -1) carries nothing and leaves every
     result as without it. `close_unassoc` marks the close features without
     an association: the points a keyframe at this frame would create."""
-    obs = torch.cat([cur.xy, cur.ur[..., None]], dim=-1)
-    lut = inv_sigma2_lut[cur.octave.long()]
-    is_stereo = cur.ur >= 0
-
     # --- motion-model association ---
-    kp2last_a = matching.match_last_frame(
-        cam, T_pred, last_feats, last_ptpos, last_haspt, cur,
-        n_levels=n_levels, scale=scale, radius=7.0)
-    kp2last_b = matching.match_last_frame(
-        cam, T_pred, last_feats, last_ptpos, last_haspt, cur,
-        n_levels=n_levels, scale=scale, radius=14.0)
-    kp2last = torch.where((kp2last_a >= 0).sum(-1, keepdim=True) >= 20,
-                          kp2last_a, kp2last_b)
-    n_mm = (kp2last >= 0).sum(-1)
-    has_mm = n_mm >= min_mm
-    li = torch.clamp(kp2last, min=0)
-    pobs1 = pose_opt.PointPoseObs(X=_rows(last_ptpos, li), obs=obs,
-                                  inv_sigma2=lut, is_stereo=is_stereo,
-                                  valid=(kp2last >= 0) & cur.valid)
-    T1, pt_in1, _, _ = pose_opt.optimize_pose(cam, T_pred, pobs1)
-    T1 = torch.where(has_mm[..., None, None], T1, T_pred)
-    kp2last = torch.where(pt_in1 & has_mm[..., None], kp2last, -1)
-    li = torch.clamp(kp2last, min=0)
+    with tracing.span("track.motion_match"):
+        obs = torch.cat([cur.xy, cur.ur[..., None]], dim=-1)
+        lut = inv_sigma2_lut[cur.octave.long()]
+        is_stereo = cur.ur >= 0
+        kp2last_a = matching.match_last_frame(
+            cam, T_pred, last_feats, last_ptpos, last_haspt, cur,
+            n_levels=n_levels, scale=scale, radius=7.0)
+        kp2last_b = matching.match_last_frame(
+            cam, T_pred, last_feats, last_ptpos, last_haspt, cur,
+            n_levels=n_levels, scale=scale, radius=14.0)
+        kp2last = torch.where((kp2last_a >= 0).sum(-1, keepdim=True) >= 20,
+                              kp2last_a, kp2last_b)
+        n_mm = (kp2last >= 0).sum(-1)
+        has_mm = n_mm >= min_mm
+        li = torch.clamp(kp2last, min=0)
+        pobs1 = pose_opt.PointPoseObs(X=_rows(last_ptpos, li), obs=obs,
+                                      inv_sigma2=lut, is_stereo=is_stereo,
+                                      valid=(kp2last >= 0) & cur.valid)
+    with tracing.span("track.pose_lm"):
+        T1, pt_in1, _, _ = pose_opt.optimize_pose(cam, T_pred, pobs1)
+        T1 = torch.where(has_mm[..., None, None], T1, T_pred)
+        kp2last = torch.where(pt_in1 & has_mm[..., None], kp2last, -1)
+        li = torch.clamp(kp2last, min=0)
 
     # --- local-map association + final pose ---
-    _, kp2pt_l, _, in_frustum = matching.search_by_projection(
-        cam, T1, view, cur, n_levels=n_levels, scale=scale, th=1.0)
-    use_l = kp2pt_l >= 0
-    X2 = torch.where(use_l[..., None],
-                     _rows(view.pos, torch.clamp(kp2pt_l, min=0)),
-                     _rows(last_ptpos, li))
-    valid2 = (use_l | (kp2last >= 0)) & cur.valid
-    pobs2 = pose_opt.PointPoseObs(X=X2, obs=obs, inv_sigma2=lut,
-                                  is_stereo=is_stereo, valid=valid2)
-    T2, pt_in2, _, _ = pose_opt.optimize_pose(cam, T1, pobs2)
+    with tracing.span("track.map_search"):
+        _, kp2pt_l, _, in_frustum = matching.search_by_projection(
+            cam, T1, view, cur, n_levels=n_levels, scale=scale, th=1.0)
+        use_l = kp2pt_l >= 0
+        X2 = torch.where(use_l[..., None],
+                         _rows(view.pos, torch.clamp(kp2pt_l, min=0)),
+                         _rows(last_ptpos, li))
+        valid2 = (use_l | (kp2last >= 0)) & cur.valid
+        pobs2 = pose_opt.PointPoseObs(X=X2, obs=obs, inv_sigma2=lut,
+                                      is_stereo=is_stereo, valid=valid2)
+    with tracing.span("track.pose_lm"):
+        T2, pt_in2, _, _ = pose_opt.optimize_pose(cam, T1, pobs2)
 
-    final_ok = valid2 & pt_in2
-    # map-only association: a local-view hit is a map point; a last-frame
-    # hit inherits the flag (temporal seeds are not map points), and so
-    # does a carried provisional identity
-    ismap2 = use_l | ((kp2last >= 0) & _rows(last_ismap, li))
-    if last_prov is None:
-        carried = torch.full_like(kp2last, -1)
-    else:
-        carried = torch.where((kp2last >= 0) & final_ok,
-                              _rows(last_prov, li), -1)
-        ismap2 = ismap2 | (carried >= 0)
-    map_ok = final_ok & ismap2
-    close = (depth > 0) & (depth < close_depth) & cur.valid
-    stats = torch.stack([n_mm, map_ok.sum(-1), (close & map_ok).sum(-1),
-                         (close & ~map_ok).sum(-1), cur.valid.sum(-1),
-                         ((cur.ur >= 0) & cur.valid).sum(-1)], dim=-1)
-    # next-frame chain state with temporal seeding (inv_ex: no host check)
-    T_wc = torch.linalg.inv_ex(T2)[0]
-    Xc = backproject(cam, cur.xy, torch.clamp(depth, min=1e-6))
-    Xw_depth = Xc @ T_wc[..., :3, :3].transpose(-1, -2) \
-        + T_wc[..., None, :3, 3]
+    with tracing.span("track.tail"):
+        final_ok = valid2 & pt_in2
+        # map-only association: a local-view hit is a map point; a
+        # last-frame hit inherits the flag (temporal seeds are not map
+        # points), and so does a carried provisional identity
+        ismap2 = use_l | ((kp2last >= 0) & _rows(last_ismap, li))
+        if last_prov is None:
+            carried = torch.full_like(kp2last, -1)
+        else:
+            carried = torch.where((kp2last >= 0) & final_ok,
+                                  _rows(last_prov, li), -1)
+            ismap2 = ismap2 | (carried >= 0)
+        map_ok = final_ok & ismap2
+        close = (depth > 0) & (depth < close_depth) & cur.valid
+        stats = torch.stack([n_mm, map_ok.sum(-1), (close & map_ok).sum(-1),
+                             (close & ~map_ok).sum(-1), cur.valid.sum(-1),
+                             ((cur.ur >= 0) & cur.valid).sum(-1)], dim=-1)
+        # next-frame chain state with temporal seeding (inv_ex: no host
+        # check)
+        T_wc = torch.linalg.inv_ex(T2)[0]
+        Xc = backproject(cam, cur.xy, torch.clamp(depth, min=1e-6))
+        Xw_depth = Xc @ T_wc[..., :3, :3].transpose(-1, -2) \
+            + T_wc[..., None, :3, 3]
+        ptpos = torch.where(final_ok[..., None], X2, Xw_depth)
     return dict(
         T=T2, stats=stats, kp2last=kp2last, kp2pt_l=kp2pt_l, ok=map_ok,
         in_frustum=in_frustum, final=final_ok, carried=carried,
-        close_unassoc=close & ~final_ok,
-        ptpos=torch.where(final_ok[..., None], X2, Xw_depth),
-        haspt=final_ok | close, ismap=map_ok)
+        close_unassoc=close & ~final_ok, ptpos=ptpos, haspt=final_ok | close,
+        ismap=map_ok)
 
 
 def _kf_decision(stats: torch.Tensor, since_kf: torch.Tensor,
@@ -281,12 +286,13 @@ def _track_step_chained(cam, T_prev: torch.Tensor, vel_prev: torch.Tensor,
 
 def _chain_tail(step: dict, T: torch.Tensor, T_prev: torch.Tensor,
                 since_kf, kf_scal, min_gap: int, max_gap: int) -> dict:
-    decide, since2, scal2 = _kf_decision(step["stats"], since_kf, kf_scal,
-                                         min_gap, max_gap)
-    return dict(step, T=T, decide=decide, since=since2, scal=scal2,
-                prov=_prov_update(decide, step["carried"],
-                                  step["close_unassoc"]),
-                vel=T @ torch.linalg.inv_ex(T_prev)[0])
+    with tracing.span("track.tail"):
+        decide, since2, scal2 = _kf_decision(step["stats"], since_kf,
+                                             kf_scal, min_gap, max_gap)
+        return dict(step, T=T, decide=decide, since=since2, scal=scal2,
+                    prov=_prov_update(decide, step["carried"],
+                                      step["close_unassoc"]),
+                    vel=T @ torch.linalg.inv_ex(T_prev)[0])
 
 
 def _track_step_chained_lines(cam, T_prev, vel_prev, last_feats, last_ptpos,
@@ -304,9 +310,10 @@ def _track_step_chained_lines(cam, T_prev, vel_prev, last_feats, last_ptpos,
                        last_haspt, last_ismap, cur, depth, view,
                        inv_sigma2_lut, n_levels, scale, min_mm, close_depth,
                        last_prov=last_prov)
-    T3, det2ln, n_line = _line_step(
-        cam, step["T"], line_view, fl,
-        _line_point_obs(cur, step, inv_sigma2_lut), gamma, md_thr)
+    with tracing.span("track.line_step"):
+        T3, det2ln, n_line = _line_step(
+            cam, step["T"], line_view, fl,
+            _line_point_obs(cur, step, inv_sigma2_lut), gamma, md_thr)
     out = _chain_tail(step, T3, T_prev, since_kf, kf_scal, min_gap, max_gap)
     out.update(det2ln=det2ln, n_line=n_line)
     return out
@@ -333,6 +340,7 @@ def _read_back(step: dict) -> list[dict]:
         i32(k) for k in ("stats", "kp2last", "kp2pt_l", "ok", "in_frustum",
                          "carried")]
     cuts = np.cumsum([p.shape[1] for p in parts])[:-1]
+    tracing.count("host_waits")
     packed = torch.cat(parts, dim=1).cpu().numpy()
     out = []
     for row in packed:
@@ -343,6 +351,17 @@ def _read_back(step: dict) -> list[dict]:
                         kp2pt_l=kp2pt_l, ok=ok.astype(bool),
                         in_frustum=in_frustum.astype(bool), carried=carried))
     return out
+
+
+def _copy_wait(copy: HostCopy, ms: list) -> list:
+    """A window's host copy, waited for in a `copy.wait` span on the
+    window's first frame's record; every frame of the window (`ms`, their
+    records) gets its share of the wait as `t_get`."""
+    with tracing.frame(ms[0]), tracing.span("copy.wait") as sp:
+        hosts = copy.result()
+    for m in ms:
+        m.t_get = sp.seconds / len(ms)
+    return hosts
 
 
 def _line_step(cam, T: torch.Tensor, view, fl: line_match.FrameLines,
@@ -439,7 +458,9 @@ class FrameLog:
 
 @dataclass
 class TrackMetrics:
-    """Per-frame telemetry; t_* are wall-clock seconds."""
+    """Per-frame telemetry: the frame's record of spans and counters
+    (lldslam_tpu_torch/tracing.py); t_* are wall-clock seconds, each read
+    from its span."""
 
     frame_id: int = 0
     state: str = ""
@@ -453,11 +474,13 @@ class TrackMetrics:
     n_kfs: int = 0
     n_line_matches: int = 0   # line inliers of the joint pose LM
     n_lines: int = 0          # valid map lines
-    t_build: float = 0.0
-    t_step: float = 0.0
-    t_kf: float = 0.0
-    t_dispatch: float = 0.0   # the step's dispatch (a batched step's share)
-    t_get: float = 0.0        # pipelined: host wait for the window's copy
+    t_build: float = 0.0      # `build` (a batched build's share)
+    t_kf: float = 0.0         # `kf.create`
+    t_dispatch: float = 0.0   # `dispatch` (a batched step's share)
+    t_get: float = 0.0        # `copy.wait`: its share of the window's wait
+    # (name, start_ns, end_ns, parent index), the root `frame` first
+    spans: list = field(default_factory=list)
+    counts: dict = field(default_factory=dict)
 
 
 class StereoTracker:
@@ -483,6 +506,9 @@ class StereoTracker:
         self._ref_matches = 0
         self.logs: list[FrameLog] = []
         self.metrics: list[TrackMetrics] = []
+        # one a keyframe: its id (kf) and frame id (fid), and the host
+        # seconds of its mapper step (`kf.mapper`) and loop step
+        # (`loop.query`, staged on the pipelined route)
         self.kf_timings: list[dict] = []
         self.localization_only = False
         self._reloc_gen = torch.Generator(device=self.device)
@@ -613,24 +639,32 @@ class StereoTracker:
         in this call, or (current pose, None) when none was."""
         self.frame_id += 1
         m = TrackMetrics(frame_id=self.frame_id)
-        t0 = time.perf_counter()
-        pair = pair_dev if pair_dev is not None \
-            else self.stage_pair(img_l, img_r)
-        fd = build_frame_pair(pair, self.cam, self.orb)
-        if self.enable_lines:
-            if lines_dev is not None:
-                kl, kr = lines_dev
-            elif self._line_source is not None:
-                kl, kr = stage_stored_pair(*self._line_source, self.frame_id,
-                                           device=self.device)
-            else:
+        with tracing.frame(m):
+            with tracing.span("build") as sp:
+                pair = pair_dev if pair_dev is not None \
+                    else self.stage_pair(img_l, img_r)
+                fd = build_frame_pair(pair, self.cam, self.orb)
+                if self.enable_lines:
+                    self._cur_fl = self._frame_lines(pair, lines_dev)
+            m.t_build = sp.seconds
+            return self._process_fd(fd, timestamp, m)
+
+    def _frame_lines(self, pair: torch.Tensor, lines_dev):
+        """The frame's stereo-matched lines: the staged or stored
+        detections, or the native detector's on both views."""
+        if lines_dev is not None:
+            kl, kr = lines_dev
+        elif self._line_source is not None:
+            kl, kr = stage_stored_pair(*self._line_source, self.frame_id,
+                                       device=self.device)
+        else:
+            with tracing.span("lines.detect"):
                 kl = line_extract.detect_lines(pair[0], self.line_cfg)
                 kr = line_extract.detect_lines(pair[1], self.line_cfg)
-            self._cur_fl = line_match.match_stereo_lines(
+        with tracing.span("lines.stereo_match"):
+            return line_match.match_stereo_lines(
                 self.cam, kl, kr, md_thr=self._md_gate,
                 min_len=self.cfg.line.min_line_len)
-        m.t_build = time.perf_counter() - t0
-        return self._process_fd(fd, timestamp, m)
 
     def process_rgbd(self, img: np.ndarray, depthmap: np.ndarray,
                      timestamp: float = 0.0, depth_factor: float = 1.0):
@@ -638,13 +672,15 @@ class StereoTracker:
         values times depth_factor are metres, 0 for no reading)."""
         self.frame_id += 1
         m = TrackMetrics(frame_id=self.frame_id)
-        t0 = time.perf_counter()
-        self._cur_fl = None   # lines are stereo-seeded
-        fd = build_frame_rgbd(self._image(img),
-                              self._t(np.asarray(depthmap, np.float32)),
-                              self.cam, self.orb, depth_factor=depth_factor)
-        m.t_build = time.perf_counter() - t0
-        return self._process_fd(fd, timestamp, m)
+        with tracing.frame(m):
+            with tracing.span("build") as sp:
+                self._cur_fl = None   # lines are stereo-seeded
+                fd = build_frame_rgbd(
+                    self._image(img), self._t(np.asarray(depthmap,
+                                                         np.float32)),
+                    self.cam, self.orb, depth_factor=depth_factor)
+            m.t_build = sp.seconds
+            return self._process_fd(fd, timestamp, m)
 
     def process_mono(self, img: np.ndarray, timestamp: float = 0.0):
         """Track one monocular frame: the H/F bootstrap until it succeeds,
@@ -652,27 +688,28 @@ class StereoTracker:
         self._mono = True
         self.frame_id += 1
         m = TrackMetrics(frame_id=self.frame_id)
-        t0 = time.perf_counter()
-        self._cur_fl = None
-        fd = build_frame_mono(self._image(img), self.orb)
-        m.t_build = time.perf_counter() - t0
-        return self._process_fd(fd, timestamp, m)
+        with tracing.frame(m):
+            with tracing.span("build") as sp:
+                self._cur_fl = None
+                fd = build_frame_mono(self._image(img), self.orb)
+            m.t_build = sp.seconds
+            return self._process_fd(fd, timestamp, m)
 
     def _process_fd(self, fd: FrameData, timestamp: float, m: TrackMetrics):
         if self.pipeline and self.state == TrackState.OK and not self._mono \
                 and not self.localization_only:
             return self._process_pipelined(fd, timestamp, m)
         self.flush()
-        t0 = time.perf_counter()
-        if self.state == TrackState.NOT_INITIALIZED:
-            # localization mode tracks against a map, never starts one
-            if not self.localization_only:
-                self._initialize(fd, timestamp, m)
-        else:
-            self._track(fd, timestamp, m)
+        with tracing.span("track.sync"):
+            if self.state == TrackState.NOT_INITIALIZED:
+                # localization mode tracks against a map, never starts one
+                if not self.localization_only:
+                    self._initialize(fd, timestamp, m)
+            else:
+                self._track(fd, timestamp, m)
         self._resync = True   # the device chain reseeds at its next dispatch
-        m.t_step = time.perf_counter() - t0 - m.t_kf
         self._finish_metrics(m)
+        tracing.end_frame(m)
         return self.T_cw.copy(), m
 
     def _finish_metrics(self, m: TrackMetrics):
@@ -714,7 +751,6 @@ class StereoTracker:
         if self.localization_only:
             # no keyframes: keep the device decision from ever firing
             min_gap = max_gap = 1 << 28
-        t0 = time.perf_counter()
         c = self._chain
         prev = (self._last_feats, self._last_ptpos, self._last_haspt,
                 self._last_ismap, self._last_prov)
@@ -724,21 +760,23 @@ class StereoTracker:
                 self._last_prov, c["since"], c["scal"], self.orb.n_levels,
                 self.orb.scale, self.cfg.tracking.min_motion_matches,
                 float(self.cfg.close_depth), min_gap, max_gap)
-        if with_lines:
-            out = _track_step_chained_lines(
-                *args, self._line_view, cur_fl, float(self.cfg.line.gamma),
-                self._md_gate)
-        else:
-            out = _track_step_chained(*args)
-        host = {k: out[k] for k in _HOST_KEYS}
-        host.update(_snapshot_fields(fd))
+        with tracing.span("dispatch") as sp:
+            if with_lines:
+                out = _track_step_chained_lines(
+                    *args, self._line_view, cur_fl,
+                    float(self.cfg.line.gamma), self._md_gate)
+            else:
+                out = _track_step_chained(*args)
+            host = {k: out[k] for k in _HOST_KEYS}
+            host.update(_snapshot_fields(fd))
+            if with_lines:
+                host.update(det2ln=out["det2ln"], n_line=out["n_line"],
+                            lines=_line_fields(cur_fl))
+        m.t_dispatch = sp.seconds
         rec = dict(fd=fd, ts=timestamp, m=m, fid=self.frame_id, prev=prev,
                    view_pid=self._view_pid, host=host)
         if with_lines:
-            host.update(det2ln=out["det2ln"], n_line=out["n_line"],
-                        lines=_line_fields(cur_fl))
             rec.update(fl=cur_fl, line_view_ids=self._line_view_ids)
-        m.t_dispatch = time.perf_counter() - t0
         # the chain moves on to new tensors: a record's `prev` stays valid
         self._chain = {k: out[k] for k in ("T", "vel", "since", "scal")}
         self._last_feats = fd.feats
@@ -782,9 +820,7 @@ class StereoTracker:
         """Finalize the oldest copied window, frame by frame (waits on its
         copy's event alone)."""
         recs, copy = self._windows.popleft()
-        t = time.perf_counter()
-        hosts = copy.result()
-        recs[-1]["m"].t_get = time.perf_counter() - t
+        hosts = _copy_wait(copy, [r["m"] for r in recs])
         ret = None
         for rec, h in zip(recs, hosts):
             rec["host"] = h
@@ -827,13 +863,14 @@ class StereoTracker:
         mapper's stage, the view, the loop queue's head once its words are
         in and the mapper idle. True when a loop correction rewrote the
         map (the chain then resyncs)."""
-        self.mapper.step_pending()
-        self._adopt_view()
-        self._match_loop_words()
-        if self._pending_loops and self._pending_loops[0][1] is not None \
-                and not self.mapper.busy:
-            return self._absorb_loop()
-        return False
+        with tracing.span("kf.stage"):
+            self.mapper.step_pending()
+            self._adopt_view()
+            self._match_loop_words()
+            if self._pending_loops and self._pending_loops[0][1] is not None \
+                    and not self.mapper.busy:
+                return self._absorb_loop()
+            return False
 
     def _match_loop_words(self):
         """Attach the mapper's freshly absorbed BoW words to their queued
@@ -855,10 +892,15 @@ class StereoTracker:
         if self.loop_closer is None:
             return False
         T_ref_old = self.store.kf_pose[self.ref_kf].copy()
-        if words is None:
-            corrected = self.loop_closer.process_keyframe(kf_id)
-        else:
-            corrected = self.loop_closer.finish_keyframe(kf_id, words)
+        with tracing.span("loop.query") as sp:
+            if words is None:
+                corrected = self.loop_closer.process_keyframe(kf_id)
+            else:
+                corrected = self.loop_closer.finish_keyframe(kf_id, words)
+        for entry in reversed(self.kf_timings):
+            if entry["kf"] == kf_id:
+                entry["loop"] += sp.seconds
+                break
         if corrected:
             T_cr = self.T_cw @ np.linalg.inv(T_ref_old)
             self.T_cw = (T_cr @ self.store.kf_pose[self.ref_kf]).astype(
@@ -875,20 +917,29 @@ class StereoTracker:
         staged keyframe work, then (chain poisoned) a synchronous re-track,
         (weak: fewer than min_track_inliers) the chain rolled back and a
         synchronous re-track, or the frame's associations, provisional ids,
-        visibility counts, pose and the reaction to the device decision."""
+        visibility counts, pose and the reaction to the device decision.
+        The frame's record is current throughout; its root span closes
+        here."""
         m: TrackMetrics = rec["m"]
-        t0 = time.perf_counter()
+        with tracing.frame(m):
+            with tracing.span("finalize"):
+                self._finalize_host(rec, m)
+            tracing.end_frame(m)
+        return self.T_cw.copy(), m
+
+    def _finalize_host(self, rec: dict, m: TrackMetrics):
         self._step_kf_pipeline()
         fd = rec["fd"]() if callable(rec["fd"]) else rec["fd"]
         if self._resync:
             # the predecessor was finalized synchronously: the _last_*
             # state is already its own, not the poisoned chain's
             self._cur_fl = rec.get("fl")
-            if self.state == TrackState.NOT_INITIALIZED:
-                self._initialize(fd, rec["ts"], m, fid=rec["fid"])
-            else:
-                self._track(fd, rec["ts"], m, fid=rec["fid"])
-            return self._close_rec(m, t0)
+            with tracing.span("track.sync"):
+                if self.state == TrackState.NOT_INITIALIZED:
+                    self._initialize(fd, rec["ts"], m, fid=rec["fid"])
+                else:
+                    self._track(fd, rec["ts"], m, fid=rec["fid"])
+            return self._finish_metrics(m)
         h = rec["host"]
         n_mm, n_in, tracked_close, untracked_close, n_kp, n_st = \
             (int(x) for x in h["stats"])
@@ -896,12 +947,13 @@ class StereoTracker:
         if n_in < self.cfg.tracking.min_track_inliers:
             self._resync = True
             prev = rec["prev"]
-            (self._last_feats, self._last_ptpos, self._last_haspt,
-             self._last_ismap, self._last_prov) = \
-                prev() if callable(prev) else prev
             self._cur_fl = rec.get("fl")
-            self._track(fd, rec["ts"], m, fid=rec["fid"])
-            return self._close_rec(m, t0)
+            with tracing.span("track.sync"):
+                (self._last_feats, self._last_ptpos, self._last_haspt,
+                 self._last_ismap, self._last_prov) = \
+                    prev() if callable(prev) else prev
+                self._track(fd, rec["ts"], m, fid=rec["fid"])
+            return self._finish_metrics(m)
         m.n_inliers = n_in
         self._cur_det2ln = None
         if "fl" in rec:
@@ -926,20 +978,15 @@ class StereoTracker:
         self.velocity = (T_np @ np.linalg.inv(self.T_cw)).astype(np.float32)
         self.T_cw = T_np.astype(np.float32)
         if int(h["decide"]) > 0 and not self.localization_only:
-            t_kf = time.perf_counter()
-            self._create_kf(fd, kp2pt, rec["ts"], rec["fid"],
-                            snap=_snapshot_host(h), lines_np=h.get("lines"),
-                            n_in_kf=n_in)
-            m.t_kf = time.perf_counter() - t_kf
+            with tracing.span("kf.create") as sp:
+                self._create_kf(fd, kp2pt, rec["ts"], rec["fid"],
+                                snap=_snapshot_host(h),
+                                lines_np=h.get("lines"), n_in_kf=n_in)
+            m.t_kf = sp.seconds
             m.new_kf = True
         self._last_kp2pt = kp2pt
         self._log_frame(rec["ts"])
-        return self._close_rec(m, t0)
-
-    def _close_rec(self, m: TrackMetrics, t0: float):
-        m.t_step = time.perf_counter() - t0 - m.t_kf
         self._finish_metrics(m)
-        return self.T_cw.copy(), m
 
     def _resolve_provisional(self, kp2pt: np.ndarray,
                              carried: np.ndarray) -> np.ndarray:
@@ -954,8 +1001,9 @@ class StereoTracker:
 
     def _snapshot_np(self, fd: FrameData):
         """Host copy of the frame's features and depth."""
-        return _snapshot_host({k: v.cpu().numpy() for k, v in
-                               _snapshot_fields(fd).items()})
+        fields = _snapshot_fields(fd)
+        tracing.count("host_waits", len(fields))
+        return _snapshot_host({k: v.cpu().numpy() for k, v in fields.items()})
 
     def _initialize(self, fd: FrameData, timestamp: float, m: TrackMetrics,
                     fid: int | None = None):
@@ -1148,6 +1196,7 @@ class StereoTracker:
                                 fd.feats, self._inv_sigma2_lut)
         T_fb, _, _, _ = pose_opt.optimize_pose(self.cam, self._t(self.T_cw),
                                                pobs)
+        tracing.count("host_waits")
         T_fb = T_fb.cpu().numpy()
         return T_fb if np.isfinite(T_fb).all() else None
 
@@ -1163,6 +1212,7 @@ class StereoTracker:
             max_dist=hamming.TH_LOW, ratio=0.7)
         ok = hamming.rotation_consistency_mask(
             fd.feats.angle, self._t(s.kf_angle[self.ref_kf]), idx, ok)
+        tracing.count("host_waits", 2)
         idx, ok = idx.cpu().numpy(), ok.cpu().numpy()
         kp2pt = np.full(s.n_kp, -1, np.int32)
         kp2pt[ok] = s.kf_pt_ids[self.ref_kf, idx[ok]]
@@ -1215,12 +1265,14 @@ class StereoTracker:
         voc, db = self.loop_closer.voc, self.loop_closer.db
         ids, vals = voc.bow_vector(f.desc, f.valid)
         cands = db.detect_reloc_candidates(ids, vals)[:5]
+        tracing.count("host_waits", 2)
         xy, octave = f.xy.cpu().numpy(), f.octave.cpu().numpy()
         for kf in cands:
             has_kf = s.kf_kp_valid[kf] & (s.kf_pt_ids[kf] >= 0)
             idx, ok, _ = hamming.match_descriptors(
                 f.desc, f.valid, self._t(s.kf_desc[kf].view(np.int32)),
                 self._t(has_kf), max_dist=hamming.TH_LOW, ratio=0.7)
+            tracing.count("host_waits", 2)
             idx, ok = idx.cpu().numpy(), ok.cpu().numpy()
             sel = np.nonzero(ok)[0]
             if len(sel) < 15:
@@ -1233,6 +1285,7 @@ class StereoTracker:
                 self._t(s2), torch.ones(n, dtype=torch.bool,
                                         device=self.device),
                 self._reloc_gen)
+            tracing.count("host_waits")
             if int(n_inl) < 10:
                 continue
             # robust refinement on the whole candidate set
@@ -1251,6 +1304,7 @@ class StereoTracker:
             for th in (2.5, 0.75):
                 if n_in >= 50:
                     break
+                tracing.count("host_waits")
                 kp2pt_w = self._project_view_match(fd, pids,
                                                    T2.cpu().numpy(), th=th)
                 kp2pt = np.where(kp2pt >= 0, kp2pt, kp2pt_w)
@@ -1260,6 +1314,7 @@ class StereoTracker:
                 self._refresh_local_view()
                 self._refresh_ref_matches()
                 self._reloc_kp2pt = kp2pt
+                tracing.count("host_waits")
                 return T2.cpu().numpy().astype(np.float32)
         return None
 
@@ -1271,6 +1326,7 @@ class StereoTracker:
         pobs = _gather_pose_obs(self.cam, self._t(X), self._t(rows),
                                 fd.feats, self._inv_sigma2_lut)
         T2, _, _, n_in = pose_opt.optimize_pose(self.cam, T, pobs)
+        tracing.count("host_waits")
         return T2, int(n_in)
 
     def _project_view_match(self, fd: FrameData, pids: np.ndarray,
@@ -1436,9 +1492,9 @@ class StereoTracker:
         new_kf = (not self.localization_only) and self._need_new_kf(
             n_in, tracked_close, untracked_close, fid)
         if new_kf:
-            t0 = time.perf_counter()
-            self._create_kf(fd, kp2pt, timestamp, fid)
-            m.t_kf = time.perf_counter() - t0
+            with tracing.span("kf.create") as sp:
+                self._create_kf(fd, kp2pt, timestamp, fid)
+            m.t_kf = sp.seconds
             m.new_kf = True
         self._remember_frame(fd, kp2pt, None if new_kf else step)
         self._log_frame(timestamp)
@@ -1455,6 +1511,7 @@ class StereoTracker:
             self.cam, step["T"], self._line_view, self._cur_fl,
             _line_point_obs(cur, step, self._inv_sigma2_lut),
             float(self.cfg.line.gamma), self._md_gate)
+        tracing.count("host_waits", 3)
         det2ln = det2ln.cpu().numpy()
         self._cur_det2ln = np.where(
             det2ln >= 0, self._line_view_ids[np.maximum(det2ln, 0)],
@@ -1552,44 +1609,47 @@ class StereoTracker:
         self.ref_kf = kf
         self.last_kf_frame = fid
         self.mapper.cache_frame(kf, fd.feats)
-        t0 = time.perf_counter()
+        timing = dict(kf=kf, fid=fid, mapper=0.0, loop=0.0)
+        self.kf_timings.append(timing)
         if pipelined:
             lc = self.loop_closer
-            self.mapper.dispatch_kf_stage(kf, voc=None if lc is None
-                                          else lc.voc, fuse_ba=True)
-            self._adopt_view()
-            self._match_loop_words()
-            if lc is not None:
-                self._pending_loops.append([kf, None])
-            t1 = time.perf_counter()
-            self._refresh_ref_matches()
-            if n_in_kf:
-                self._kappa = float(np.clip(
-                    self._ref_matches / max(n_in_kf, 1), 0.2, 1.2))
-            self._refm_host = (np.float32([self._ref_matches, self._kappa]),
-                               fid)
-            if self.enable_lines:
-                self._refresh_line_view()
-            self.kf_timings.append(dict(mapper=t1 - t0, loop=0.0,
-                                        view=time.perf_counter() - t1))
+            with tracing.span("kf.mapper") as sp:
+                self.mapper.dispatch_kf_stage(kf, voc=None if lc is None
+                                              else lc.voc, fuse_ba=True)
+                self._adopt_view()
+                self._match_loop_words()
+                if lc is not None:
+                    self._pending_loops.append([kf, None])
+            timing["mapper"] = sp.seconds
+            with tracing.span("kf.view"):
+                self._refresh_ref_matches()
+                if n_in_kf:
+                    self._kappa = float(np.clip(
+                        self._ref_matches / max(n_in_kf, 1), 0.2, 1.2))
+                self._refm_host = (
+                    np.float32([self._ref_matches, self._kappa]), fid)
+                if self.enable_lines:
+                    self._refresh_line_view()
             return False
-        view_out = self.mapper.process_keyframe(kf)
-        t1 = time.perf_counter()
+        with tracing.span("kf.mapper") as sp:
+            view_out = self.mapper.process_keyframe(kf)
+        timing["mapper"] = sp.seconds
         corrected = False
         if self.loop_closer is not None:
-            corrected = self.loop_closer.process_keyframe(kf)
-        t2 = time.perf_counter()
-        # refresh the current pose from the (BA- or loop-)corrected KF pose
-        self.T_cw = s.kf_pose[kf].copy()
-        if view_out is not None and not corrected:
-            self._view, self._view_pid = view_out   # post-BA view
-        else:
-            self._refresh_local_view()
-        self._refresh_ref_matches()
-        if self.enable_lines:
-            self._refresh_line_view()
-        self.kf_timings.append(dict(mapper=t1 - t0, loop=t2 - t1,
-                                    view=time.perf_counter() - t2))
+            with tracing.span("loop.query") as sp:
+                corrected = self.loop_closer.process_keyframe(kf)
+            timing["loop"] = sp.seconds
+        with tracing.span("kf.view"):
+            # refresh the current pose from the (BA- or loop-)corrected KF
+            # pose
+            self.T_cw = s.kf_pose[kf].copy()
+            if view_out is not None and not corrected:
+                self._view, self._view_pid = view_out   # post-BA view
+            else:
+                self._refresh_local_view()
+            self._refresh_ref_matches()
+            if self.enable_lines:
+                self._refresh_line_view()
         return corrected
 
     def _create_kf_lines(self, kf: int, lines_np: dict | None = None):
@@ -1599,44 +1659,41 @@ class StereoTracker:
         stereo-triangulated lines of 28 px or more without one become new
         map lines (world frame at the current pose), then retriangulation
         (staged in pipelined mode), culling and the distinctive-descriptor
-        update. Seconds per stage accumulate in `line_kf_times`."""
+        update. Each stage is a span `lines.kf_<stage>`; its seconds
+        accumulate in `line_kf_times[<stage>]`."""
         lt = self.line_kf_times
-        t_prev = time.perf_counter()
-
-        def mark(key):
-            nonlocal t_prev
-            now = time.perf_counter()
-            lt[key] = lt.get(key, 0.0) + (now - t_prev)
-            t_prev = now
-
+        stage = lambda key: tracing.span("lines.kf_" + key, lt, key)
         s = self.store
-        if lines_np is None:
-            lines_np = {k: v.cpu().numpy()
-                        for k, v in _line_fields(self._cur_fl).items()}
-        X0c, dc = lines_np["X0"], lines_np["d"]
-        mark("snap")
-        det2ln = (self._cur_det2ln if self._cur_det2ln is not None
-                  else np.full(s.n_ln_det, -1, np.int32))
-        s.add_keyframe_lines(kf, lines_np, det2ln.copy())
-        lengths = np.linalg.norm(lines_np["p2"] - lines_np["p1"], axis=-1)
-        newsel = np.nonzero(lines_np["valid"] & lines_np["has_r"]
-                            & (det2ln < 0) & (lengths >= 28.0))[0]
-        newsel = newsel[: s.room_for_lines(len(newsel))]
-        if len(newsel):
-            T_wc = np.linalg.inv(self.T_cw)
-            Pw = (T_wc[:3, :3] @ X0c[newsel].T).T + T_wc[:3, 3]
-            dw = (T_wc[:3, :3] @ dc[newsel].T).T
-            dw /= np.maximum(np.linalg.norm(dw, axis=-1, keepdims=True), 1e-9)
-            X0w = Pw - np.sum(Pw * dw, axis=-1, keepdims=True) * dw
-            s.create_lines(kf, newsel, X0w.astype(np.float32),
-                           dw.astype(np.float32))
-        mark("create")
-        s.retriangulate_lines(device=self.device)   # staged when pipelined
-        mark("retri")
-        s.cull_lines()
-        mark("cull")
-        s.update_line_descriptors()
-        mark("desc")
+        with stage("snap"):
+            if lines_np is None:
+                fields = _line_fields(self._cur_fl)
+                tracing.count("host_waits", len(fields))
+                lines_np = {k: v.cpu().numpy() for k, v in fields.items()}
+            X0c, dc = lines_np["X0"], lines_np["d"]
+        with stage("create"):
+            det2ln = (self._cur_det2ln if self._cur_det2ln is not None
+                      else np.full(s.n_ln_det, -1, np.int32))
+            s.add_keyframe_lines(kf, lines_np, det2ln.copy())
+            lengths = np.linalg.norm(lines_np["p2"] - lines_np["p1"],
+                                     axis=-1)
+            newsel = np.nonzero(lines_np["valid"] & lines_np["has_r"]
+                                & (det2ln < 0) & (lengths >= 28.0))[0]
+            newsel = newsel[: s.room_for_lines(len(newsel))]
+            if len(newsel):
+                T_wc = np.linalg.inv(self.T_cw)
+                Pw = (T_wc[:3, :3] @ X0c[newsel].T).T + T_wc[:3, 3]
+                dw = (T_wc[:3, :3] @ dc[newsel].T).T
+                dw /= np.maximum(np.linalg.norm(dw, axis=-1, keepdims=True),
+                                 1e-9)
+                X0w = Pw - np.sum(Pw * dw, axis=-1, keepdims=True) * dw
+                s.create_lines(kf, newsel, X0w.astype(np.float32),
+                               dw.astype(np.float32))
+        with stage("retri"):
+            s.retriangulate_lines(device=self.device)  # staged when pipelined
+        with stage("cull"):
+            s.cull_lines()
+        with stage("desc"):
+            s.update_line_descriptors()
         lt["n"] = lt.get("n", 0) + 1
 
     def trajectory(self):

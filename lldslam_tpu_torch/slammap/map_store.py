@@ -326,6 +326,7 @@ class MapStore:
         keyframes later, as the JAX package's staged path does
         (`absorb_retriangulate(keep=1)` first); otherwise at once."""
         import torch
+        from .. import tracing
         from ..geometry import lines as gl
         from ..ops.transfer import HostCopy
 
@@ -389,7 +390,9 @@ class MapStore:
         normals[rows_pi[keep], col[keep]] = rows_n[keep]
         centers[rows_pi[keep], col[keep]] = rows_c[keep]
         mask[rows_pi[keep], col[keep]] = True
-        t = lambda a: torch.from_numpy(a).to(device)
+        def t(a):
+            tracing.count("host_waits")    # a blocking upload from pageable
+            return torch.from_numpy(a).to(device)
         X0, d, ok = gl.triangulate_multi_view(t(normals), t(centers), t(mask))
         solve = HostCopy(dict(X0=X0, d=d, ok=ok))
         self._pending_retri.append((cand, solve))
