@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
 
 Phases, each fatal on failure (nonzero exit, no result line):
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
-2. build: the four CUDA kernels compiled from lldslam_tpu_torch/csrc with
+2. build: the five CUDA kernels compiled from lldslam_tpu_torch/csrc with
    nvcc;
 3. K1a (fused ORB describe) and K1b (fused stereo SAD) against their plain
    PyTorch versions, every output exact, at the frame build's shapes
@@ -17,15 +17,27 @@ Phases, each fatal on failure (nonzero exit, no result line):
    exact, at the tracking (4096 x 2048), fusion (2048 x 2048) and loop /
    relocalization (8192 x 2048) shapes with tied columns, an empty row and
    a one-candidate row;
+   then the points-only pose LM (csrc/pose_lm.cu, 4 x 10 iterations)
+   against optimize_pose_plain on the same card tensors at the tracking
+   step's 2048 rows (io.kernel_inputs.pose_lm_inputs), one mix problem a
+   launch and mix, few, none, mix in one launch: poses within 5e-5 m and
+   5e-6 rad, inlier masks equal but for rows within 1% of their chi2
+   threshold (tests/test_torch_cuda.py::test_pose_lm_equals_plain), each
+   problem of a batched launch bit-equal to its own S = 1 launch;
    each of phases 3-4 prints kernel ms, plain ms and bound ms (K1a's and
-   K1b's bytes count the distinct pixels their taps touch in this run);
+   K1b's bytes count the distinct pixels their taps touch in this run; the
+   pose LM's bound is far below its time, which the latency of its 45
+   dependent block-wide reductions sets);
 5. main path: 30 synthetic KITTI-size stereo frames (1241x376, 2000 ORB
    features, 8 levels x 1.2) through lldslam_tpu_torch.system.System on the
    card with its defaults (loop closing on, the shipped 99106-word
    vocabulary), with asserts on tracking state, keyframes, the loop step of
    every keyframe, kernel launches and ATE; it also reports the pairs K2g's
    gates pass per call at the tracking and fusion sites, and times K1a and
-   K1b again on the last frame's own inputs against their bound;
+   K1b again on the last frame's own inputs against their bound; the pose
+   LM kernel launches twice a tracking step (counted at the track site)
+   and its last frame's two calls are held to the plain LM as in phase 4,
+   the last one timed;
 6. lines: the stored-line world of the JAX bench's lines section (30
    seed-2 KITTI-size frames with lines painted on the walls, stored
    detections written by lldslam_tpu_torch.io.synthetic.gen_stored_lines
@@ -68,7 +80,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    within 0.05 m, keyframe counts within one); K1a, K1b and K2g (tracking
    site) launched once per batched frame; on the last batched frame each
    kernel exact against its plain version and, sequence by sequence,
-   against an S = 1 launch; ms per batched frame, sequence-frames per
+   against an S = 1 launch; the pose LM twice a batched step (S = 4 in one
+   launch), the last batched frame's two calls held to the plain LM as in
+   phase 4; ms per batched frame, sequence-frames per
    second against the solo runs', one torch.profiler window of 5 batched
    frames against 5 solo frames (device kernels, busy share), each
    kernel's device time at S = 4 against its bound; then S = 13 at the JAX
@@ -96,7 +110,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    the synchronous main path; ATE under the JAX package's CPU run of the
    same schedule + 0.02 m; 0 host syncs in a steady-state dispatch; K1a
    and K1b on the last frame build and K2g on its last call at the
-   tracking and at the fusion site exact against their plain versions; ms
+   tracking and at the fusion site exact against their plain versions; the
+   pose LM twice a chained step, its last two calls held to the plain LM
+   as in phase 4 (likewise in 16 and pipelined_native_lines); ms
    per call against the synchronous frames, the synchronous step's
    read-back wait, the busy share; then the same schedule again: the same
    keyframes and poses, bit for bit;
@@ -108,7 +124,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    corridors for 20 frames with sequence 1 ending after 12, against each
    sequence's solo pipelined System: every frame OK, centres within 0.35 m,
    K1a and K1b once a batched frame, the last frame's batched K1a, K1b and
-   K2g exact against their plain versions, sequence-frames/s;
+   K2g exact against their plain versions, the pose LM twice a batched
+   step and its last batched calls held as in phase 4, sequence-frames/s;
 18. dist (after loop_lines): the loop-event solvers repeat bit for bit and
    the distributed global BA (lldslam_tpu_torch.parallel.dist_schur) on
    the one-rank NCCL group of dist_schur.make_mesh equals the single route
@@ -141,8 +158,10 @@ the loop-lines correction on the distributed route; multiseq and
 multiseq_13 the driver runs; mini_kitti the two mini KITTI CLI runs;
 native_lines the KITTI-size CLI run on the native detector; pipelined,
 pipelined_lines and pipelined_native_lines the staged frames and the flush;
-pipelined_multiseq the driver run. The second-to-last line is the kernel table as JSON, the last
-line the device summary as JSON.
+pipelined_multiseq the pipelined multi-sequence run. The pose LM's launches
+are counted by the caller's site too (track, ref_anchor, reloc). The
+second-to-last line is the kernel table as JSON, the last line the device
+summary as JSON.
 """
 from __future__ import annotations
 
@@ -260,6 +279,12 @@ COLD_TIMEOUT_S = 300
 # in work, the map growing between them)
 COLD_AFTER_WARMUP_RATIO = 1.5
 COLD_NOT_HELD = ("reloc_frame",)
+# the pose LM kernel against the plain LM on the same card tensors
+# (tests/test_torch_cuda.py::test_pose_lm_equals_plain): poses within these
+# (m, rad), float32 sums in another order; inlier masks equal but for rows
+# whose chi2 at the plain pose lies within this share of their threshold
+POSE_LM_TOL = (5e-5, 5e-6)
+POSE_LM_NEAR = 0.01
 
 
 def log(msg: str) -> None:
@@ -634,23 +659,168 @@ def phase_k2g(dev) -> dict:
     return out
 
 
+def pose_lm_work(args, rounds: int = 4, iters: int = 10
+                 ) -> tuple[int, int]:
+    """(bytes, operations) of one pose LM launch on its arguments: each
+    row's inputs read once (X, obs, information, the stereo and valid
+    flags: 30 bytes) and its inlier flag written, a problem's pose in and
+    out and its count; about 300 operations a row in each of the
+    1 + rounds x (iters + 1) passes (residual, Huber weight, Jacobian and
+    the 27 sums of H, b and the cost)."""
+    T0, X = args[1], args[2]
+    S = T0.shape[0] if T0.dim() == 3 else 1
+    rows = S * X.shape[-2]
+    return rows * 31 + S * (64 + 64 + 4), rows * 300 * (1 + rounds * (iters + 1))
+
+
+def _pose_gaps(Ta, Tb) -> tuple[float, float]:
+    """(translation m, rotation rad) between two (4, 4) float64 poses."""
+    W = Ta[:3, :3].T @ Tb[:3, :3]
+    return (float(np.linalg.norm(Ta[:3, 3] - Tb[:3, 3])),
+            float(0.5 * np.linalg.norm([W[2, 1] - W[1, 2], W[0, 2] - W[2, 0],
+                                        W[1, 0] - W[0, 1]])))
+
+
+def _near_threshold(cam, T, X, obs, info, stereo) -> np.ndarray:
+    """Rows whose chi2 at pose T (float64 on the host) lies within
+    POSE_LM_NEAR of their threshold."""
+    from lldslam_tpu_torch.optim import residuals as res
+    Xc = X @ T[:3, :3].T + T[:3, 3]
+    u = cam.fx * Xc[:, 0] / Xc[:, 2] + cam.cx
+    r = obs - np.stack([u, cam.fy * Xc[:, 1] / Xc[:, 2] + cam.cy,
+                        u - cam.bf / Xc[:, 2]], -1)
+    chi2 = info * (r[:, 0] ** 2 + r[:, 1] ** 2 + stereo * r[:, 2] ** 2)
+    th = np.where(stereo, res.CHI2_STEREO, res.CHI2_MONO)
+    return np.abs(chi2 - th) <= POSE_LM_NEAR * th
+
+
+def hold_pose_lm(label: str, kept, timed: bool = False) -> dict:
+    """The pose LM kernel (`ops.pose_lm.pose_lm`) on kept (site, args)
+    calls against `optimize_pose_plain` on the same card tensors: for each
+    problem (each s of a batched call) the poses within POSE_LM_TOL, the
+    inlier masks equal but for rows near their threshold at the plain pose,
+    the counts apart by at most those rows and equal to the mask's; in a
+    call of S > 1 problems each problem bit-equal to its own S = 1 launch.
+    `timed`: the last call's kernel device ms, the plain LM's ms a call
+    (CUDA events: its 6,000 launches overflow the launch queue that
+    device_ms needs) and the bound."""
+    from lldslam_tpu_torch.ops import pose_lm
+    from lldslam_tpu_torch.optim.pose_opt import (PointPoseObs,
+                                                  optimize_pose_plain)
+    if not kept:
+        raise AssertionError(f"{label}: no pose LM call kept")
+    host = lambda t: t.double().cpu().numpy()
+    gap_t = gap_r = 0.0
+    problems = apart = near_rows = 0
+    for _, args in kept:
+        cam, T0, rows = args[0], args[1], args[2:]
+        got = pose_lm.pose_lm(*args)
+        want = optimize_pose_plain(cam, T0, PointPoseObs(*rows))
+        b = (lambda t: t) if T0.dim() == 3 else (lambda t: t[None])
+        Tg, Tw = host(b(got[0])), host(b(want[0]))
+        ig, iw = b(got[1]).cpu().numpy(), b(want[1]).cpu().numpy()
+        ng, nw = b(got[2]).cpu().numpy(), b(want[3]).cpu().numpy()
+        X, obs, info = (host(b(t)) for t in rows[:3])
+        st = b(rows[3]).cpu().numpy()
+        S = Tg.shape[0]
+        for s in range(S):
+            dt, da = _pose_gaps(Tg[s], Tw[s])
+            near = _near_threshold(cam, Tw[s], X[s], obs[s], info[s], st[s])
+            off = int(((ig[s] != iw[s]) & ~near).sum())
+            if (dt > POSE_LM_TOL[0] or da > POSE_LM_TOL[1] or off
+                    or abs(int(ng[s]) - int(nw[s])) > int(near.sum())
+                    or int(ng[s]) != int(ig[s].sum())):
+                raise AssertionError(
+                    f"{label}: pose LM problem {s} of {S} off the plain LM: "
+                    f"{dt} m, {da} rad, {off} inlier rows apart off the "
+                    f"threshold band, inliers {int(ng[s])} / {int(nw[s])}")
+            if S > 1:
+                one = pose_lm.pose_lm(cam, *(t[s:s + 1] for t in args[1:]))
+                if not all(torch.equal(x[s], y[0]) for x, y in zip(got, one)):
+                    raise AssertionError(f"{label}: pose LM problem {s} of "
+                                         f"{S} differs from its S = 1 launch")
+            gap_t, gap_r = max(gap_t, dt), max(gap_r, da)
+            apart += int((ig[s] != iw[s]).sum())
+            near_rows += int(near.sum())
+            problems += 1
+    out = dict(calls=len(kept), problems=problems,
+               rows=int(kept[-1][1][2].shape[-2]), max_translation_gap_m=gap_t,
+               max_rotation_gap_rad=gap_r, inlier_rows_apart=apart,
+               near_threshold_rows=near_rows)
+    msg = (f"{label}: pose LM kernel on {len(kept)} calls ({problems} "
+           f"problems of {out['rows']} rows) against the plain LM: poses "
+           f"within {gap_t:.3e} m and {gap_r:.3e} rad, {apart} inlier rows "
+           f"apart, all within {POSE_LM_NEAR:.0%} of their threshold "
+           f"({near_rows} such rows)")
+    if timed:
+        args = kept[-1][1]
+        obs_ = PointPoseObs(*args[2:])
+        out["ms"] = device_ms(lambda: pose_lm.pose_lm(*args))
+        out["call_ms"] = cuda_ms(lambda: pose_lm.pose_lm(*args))
+        out["plain_ms"] = cuda_ms(
+            lambda: optimize_pose_plain(args[0], args[1], obs_), reps=5,
+            warm=1)
+        out["bound_ms"], out["bound_by"] = bound(*pose_lm_work(args))
+        msg += (f"; kernel {out['ms']:.4f} ms on the device "
+                f"({out['call_ms']:.4f} ms a call), plain "
+                f"{out['plain_ms']:.2f} ms, bound {out['bound_ms']:.4f} ms "
+                f"({out['bound_by']}; the latency of the dependent passes "
+                f"bounds it), {100 * out['bound_ms'] / out['ms']:.1f}% of "
+                f"bound")
+    log(msg)
+    return out
+
+
+def phase_pose_lm(dev) -> dict:
+    """The pose LM kernel against the plain LM at the tracking step's
+    capacity (io.kernel_inputs.pose_lm_inputs, N = 2048, 4 x 10): one mix
+    problem a launch, and mix, few, none, mix in one launch."""
+    from lldslam_tpu_torch.geometry.camera import StereoCamera
+    from lldslam_tpu_torch.io import kernel_inputs as ki
+    cam = StereoCamera(**ki.KITTI_CAM, width=KITTI_W, height=KITTI_H)
+    rng = np.random.default_rng(2)
+    by_s = {}
+    for kinds in (("mix",), ("mix", "few", "none", "mix")):
+        T0, obs = ki.pose_lm_inputs(rng, dev, kinds)
+        by_s[f"S{len(kinds)}"] = hold_pose_lm(
+            f"pose LM S={len(kinds)} ({', '.join(kinds)})",
+            [("track", (cam, T0, *obs))], timed=True)
+    out = dict(by_s["S1"])
+    out["by_S"] = by_s
+    return out
+
+
 def reset_counts() -> None:
-    from lldslam_tpu_torch.ops import (match_best2, orb_describe,
+    from lldslam_tpu_torch.ops import (match_best2, orb_describe, pose_lm,
                                        segment_sum, stereo_sad)
     orb_describe.launches = 0
     stereo_sad.launches = 0
     match_best2.launches = 0
     match_best2.launches_by_site = {}
     segment_sum.launches = 0
+    pose_lm.launches = 0
+    pose_lm.launches_by_site = {}
 
 
 def read_counts() -> dict:
-    from lldslam_tpu_torch.ops import (match_best2, orb_describe,
+    from lldslam_tpu_torch.ops import (match_best2, orb_describe, pose_lm,
                                        segment_sum, stereo_sad)
     return dict(k1a=orb_describe.launches, k1b=stereo_sad.launches,
                 k2g=match_best2.launches,
                 k2g_sites=dict(match_best2.launches_by_site),
-                segsum=segment_sum.launches)
+                segsum=segment_sum.launches, lm=pose_lm.launches,
+                lm_sites=dict(pose_lm.launches_by_site))
+
+
+def need_lm_launches(counts: dict, cores: int, label: str) -> None:
+    """The pose LM kernel launched twice for each of the `cores` calls of
+    `_track_core` (a batched call counts once), all at the track site."""
+    track = counts["lm_sites"].get("track", 0)
+    if cores <= 0 or track != 2 * cores:
+        raise AssertionError(f"{label}: {track} pose LM launches at the "
+                             f"track site for {cores} tracking steps")
+    log(f"{label}: pose LM launches {counts['lm']} by site "
+        f"{counts['lm_sites']} ({cores} tracking steps)")
 
 
 def kitti_config():
@@ -804,23 +974,29 @@ def phase_main_path(dev, frames, poses) -> dict:
     tr = sys_.tracker
     if tr.vocabulary is None or tr.vocabulary.n_words != SHIPPED_WORDS:
         raise AssertionError("the shipped vocabulary was not loaded")
-    from lldslam_tpu_torch.ops import match_best2, orb_describe, stereo_sad
+    from lldslam_tpu_torch.ops import (match_best2, orb_describe, pose_lm,
+                                       stereo_sad)
     kept_g, restore_g = keep_inputs(match_best2, "gated_best2",
                                     sites=("tracking", "fusion"))
     kept_a, restore_a = keep_inputs(orb_describe, "describe", last_only=True)
     kept_b, restore_b = keep_inputs(stereo_sad, "sad_refine", last_only=True)
+    kept_lm, restore_lm = keep_inputs(pose_lm, "pose_lm", sites=("track",))
     # the tracking step's read-back: the host's wait for the device and
     # the one copy, what the pipelined schedule takes off the frame
     from lldslam_tpu_torch.pipeline import tracker as tmod
-    rb_ms = []
+    rb_ms, cores = [], [0]
     restore_rb = timed_calls(tmod, "_read_back", rb_ms)
+    restore_core = count_calls(tmod, "_track_core", cores)
     try:
         reset_counts()
         ms, metrics = track(sys_, frames, label="main path")
         counts = read_counts()
     finally:
         restore_g(), restore_a(), restore_b(), restore_rb()
+        restore_lm(), restore_core()
     frame_k = frame_kernels("main path", kept_a, kept_b)
+    need_lm_launches(counts, cores[0], "main path")
+    lm = hold_pose_lm("main path, last frame's", kept_lm[-2:], timed=True)
     gates = gate_density(kept_g)
     for site, o in gates.items():
         log(f"main path: K2g at the {site} site, {len(o['M'])} calls of "
@@ -871,7 +1047,8 @@ def phase_main_path(dev, frames, poses) -> dict:
     if not ate <= ATE_BOUND_M:
         raise AssertionError(f"ATE {ate} m above {ATE_BOUND_M} m")
     return dict(counts, frame_kernels=frame_k, k2g_gated_pairs=gates,
-                kf_frames=kf_frames, T_wc=T_wc, ms=ms, read_back_ms=rb_ms)
+                pose_lm=lm, kf_frames=kf_frames, T_wc=T_wc, ms=ms,
+                read_back_ms=rb_ms)
 
 
 def timed_calls(mod, name: str, times: list, keep: list | None = None):
@@ -1215,7 +1392,7 @@ def mini_kitti_runs(dev) -> dict:
         f.writelines(keep)
     gt = _kitti_rows(f"{MINI_KITTI}/gt.txt")
     out, bad = dict(counts=dict(k1a=0, k1b=0, k2g=0, k2g_sites={},
-                                segsum=0)), []
+                                segsum=0, lm=0, lm_sites={})), []
     reset_counts()
     for label, settings in (("stored", f"{MINI_KITTI}/settings.yaml"),
                             ("native", native)):
@@ -1229,10 +1406,11 @@ def mini_kitti_runs(dev) -> dict:
                       device="cpu")
         reset_counts()
         total = out["counts"]
-        for k in ("k1a", "k1b", "k2g", "segsum"):
+        for k in ("k1a", "k1b", "k2g", "segsum", "lm"):
             total[k] += counts[k]
-        for site, c in counts["k2g_sites"].items():
-            total["k2g_sites"][site] = total["k2g_sites"].get(site, 0) + c
+        for key in ("k2g_sites", "lm_sites"):
+            for site, c in counts[key].items():
+                total[key][site] = total[key].get(site, 0) + c
         ate = ate_rmse(card["T"], gt, align=False)
         dc = float(np.linalg.norm(card["T"][:, :3, 3] - cpu["T"][:, :3, 3],
                                   axis=-1).max())
@@ -1710,6 +1888,9 @@ def phase_reloc(dev) -> tuple[dict, dict]:
                              f"{[x.state for x in blind]}")
     if m.state != "OK" or m.reloc_kf < 0:
         raise AssertionError("relocalization failed")
+    if counts["lm_sites"].get("reloc", 0) <= 0:
+        raise AssertionError(f"reloc: the pose LM kernel was not launched at "
+                             f"the reloc site: {counts['lm_sites']}")
     if not (e_t < RELOC_BOUND[0] and e_r < RELOC_BOUND[1]):
         raise AssertionError(f"relocalized pose error {e_t} m {e_r} rad")
     need_launches(counts, "reloc", ("tracking", "fusion"))
@@ -2636,8 +2817,10 @@ def phase_multiseq(dev) -> dict:
     """S = 4 KITTI-size corridors through MultiSequenceDriver against their
     solo Systems; then S = 13 at the bench's multi-sequence config."""
     from lldslam_tpu_torch.io.synthetic import make_sequence
-    from lldslam_tpu_torch.ops import match_best2, orb_describe, stereo_sad
+    from lldslam_tpu_torch.ops import (match_best2, orb_describe, pose_lm,
+                                       stereo_sad)
     from lldslam_tpu_torch.parallel.multi_seq import MultiSequenceDriver
+    from lldslam_tpu_torch.pipeline import tracker as tmod
     from lldslam_tpu_torch.system import System
 
     cfg = kitti_config()
@@ -2668,6 +2851,9 @@ def phase_multiseq(dev) -> dict:
     kept_b, rb = keep_batched(stereo_sad, "sad_refine", 4, armed)
     kept_g, rg = keep_batched(match_best2, "gated_best2", 3, armed,
                               site="tracking")
+    kept_lm, rlm = keep_inputs(pose_lm, "pose_lm", sites=("track",))
+    cores = [0]
+    rc = count_calls(tmod, "_track_core", cores)
     try:
         reset_counts()
         rows = drive_driver(drv, seqs, range(MULTISEQ_FRAMES - 1), "multiseq")
@@ -2675,9 +2861,13 @@ def phase_multiseq(dev) -> dict:
         rows += drive_driver(drv, seqs, [MULTISEQ_FRAMES - 1], "multiseq")
         counts = read_counts()
     finally:
-        ra(), rb(), rg()
+        ra(), rb(), rg(), rlm(), rc()
     n_batched = check_batched_launches(rows, n_seq, "multiseq")
     kernels = batched_kernel_rows(kept_a, kept_b, kept_g)
+    need_lm_launches(counts, cores[0], "multiseq")
+    kernels["pose_lm"] = hold_pose_lm(
+        "multiseq, last batched frame's",
+        [k for k in kept_lm if k[1][1].shape[0] == n_seq][-2:], timed=True)
 
     # parity with the solo runs
     parity = []
@@ -2795,7 +2985,8 @@ def run_pipelined(dev, cfg, frames, label: str, lines: bool = False,
     (at both its sites) held to their plain versions on their last calls'
     inputs."""
     from lldslam_tpu_torch.io.stored_lines import stage_stored_pair
-    from lldslam_tpu_torch.ops import match_best2, orb_describe, stereo_sad
+    from lldslam_tpu_torch.ops import (match_best2, orb_describe, pose_lm,
+                                       stereo_sad)
     from lldslam_tpu_torch.pipeline import tracker as tmod
     from lldslam_tpu_torch.system import System
 
@@ -2823,7 +3014,8 @@ def run_pipelined(dev, cfg, frames, label: str, lines: bool = False,
     n_meas = len(staged) - (n_profile if profile else 0)
     step_name = "_track_step_chained_lines" if lines or native \
         else "_track_step_chained"
-    restore = []
+    cores = [0]
+    restore = [count_calls(tmod, "_track_core", cores)]
     if measure:
         kept_step, r = keep_inputs(tmod, step_name, last_only=True)
         restore.append(r)
@@ -2833,6 +3025,8 @@ def run_pipelined(dev, cfg, frames, label: str, lines: bool = False,
         restore.append(r)
         kept_g, r = keep_inputs(match_best2, "gated_best2",
                                 sites=("tracking", "fusion"), last_only=True)
+        restore.append(r)
+        kept_lm, r = keep_inputs(pose_lm, "pose_lm", sites=("track",))
         restore.append(r)
     results, ms = [], []
     feed = iter(staged)
@@ -2845,6 +3039,7 @@ def run_pipelined(dev, cfg, frames, label: str, lines: bool = False,
     prof = None
     try:
         reset_counts()
+        cores[0] = 0
         for _ in range(n_meas):
             t = time.perf_counter()
             one()
@@ -2859,6 +3054,7 @@ def run_pipelined(dev, cfg, frames, label: str, lines: bool = False,
     finally:
         for r in restore:
             r()
+    need_lm_launches(counts, cores[0], label)
     metrics = tr.metrics
     _, T_wc = tr.trajectory()
     out = dict(
@@ -2888,6 +3084,8 @@ def run_pipelined(dev, cfg, frames, label: str, lines: bool = False,
             out["dispatch_waits"] = {
                 k: host_waits(fn) for k, fn in native_pieces(tr, pair).items()}
         out["kernels_exact"] = _hold_kernels(label, kept_a, kept_b, kept_g)
+        out["pose_lm"] = hold_pose_lm(f"{label}, last chained step's",
+                                      kept_lm[-2:])
         log(f"{label}: host syncs in one steady-state dispatch: "
             f"{out['dispatch_syncs']}" + (
                 f"; profiler window of {n_profile} staged frames: "
@@ -3199,9 +3397,11 @@ def phase_pipelined_multiseq(dev, seqs) -> dict:
     sequence 1 ending after PIPE_MULTISEQ_END frames. The last frame's
     batched K1a, K1b and K2g (tracking site) calls are held to their plain
     versions."""
-    from lldslam_tpu_torch.ops import match_best2, orb_describe, stereo_sad
+    from lldslam_tpu_torch.ops import (match_best2, orb_describe, pose_lm,
+                                       stereo_sad)
     from lldslam_tpu_torch.parallel.multi_seq import \
         PipelinedMultiSequenceDriver
+    from lldslam_tpu_torch.pipeline import tracker as tmod
     from lldslam_tpu_torch.system import System
 
     cfg = kitti_config()
@@ -3225,7 +3425,10 @@ def phase_pipelined_multiseq(dev, seqs) -> dict:
         k1a=keep_batched(orb_describe, "describe", 4, armed),
         k1b=keep_batched(stereo_sad, "sad_refine", 4, armed),
         k2g=keep_batched(match_best2, "gated_best2", 3, armed,
-                         site="tracking"))
+                         site="tracking"),
+        lm=keep_inputs(pose_lm, "pose_lm", sites=("track",)))
+    cores = [0]
+    restore_core = count_calls(tmod, "_track_core", cores)
     reset_counts()
     t_all = time.perf_counter()
     for i in range(n):
@@ -3251,6 +3454,11 @@ def phase_pipelined_multiseq(dev, seqs) -> dict:
     counts = read_counts()
     for _, restore in kept.values():
         restore()
+    restore_core()
+    need_lm_launches(counts, cores[0], "pipelined_multiseq")
+    kept_lm = kept.pop("lm")[0]
+    lm = hold_pose_lm("pipelined_multiseq, last batched step's",
+                      [k for k in kept_lm if k[1][1].shape[0] >= 2][-2:])
     exact = {}
     for key, fn, plain in (
             ("k1a", orb_describe.describe, orb_describe.describe_plain),
@@ -3289,7 +3497,7 @@ def phase_pipelined_multiseq(dev, seqs) -> dict:
                              f"rebuilds {drv.n_rebuilds}")
     ms_b = [r["ms"] for r in full]
     out = dict(counts=counts, parity=parity, rows=rows, wall_ms=wall_ms,
-               kernels_exact=exact,
+               kernels_exact=exact, pose_lm=lm,
                seq_fps=1e3 * live / wall_ms,
                solo_fps=1e3 / statistics.mean(solo_ms), solo_ms=solo_ms)
     log(f"pipelined_multiseq: S={n_seq}: per call ms median "
@@ -3317,11 +3525,13 @@ def main() -> int:
     phase_done("build", phase_build())
     k1a, k1b = phase_done("k1", phase_k1(dev))
     k2g = phase_done("k2g", phase_k2g(dev))
+    k_lm = phase_done("pose_lm", phase_pose_lm(dev))
     frames, poses = main_sequence()
     main_out = phase_done("main", phase_main_path(dev, frames, poses))
     paths = dict(main=main_out)
-    paths["pipelined"] = phase_done("pipelined", phase_pipelined(
-        dev, frames, poses, main_out))["counts"]
+    pipe = phase_done("pipelined", phase_pipelined(dev, frames, poses,
+                                                   main_out))
+    paths["pipelined"] = pipe["counts"]
     lines_world = lines_sequence()
     sync_lines = phase_done("lines", phase_lines(dev, *lines_world))
     paths["lines"] = sync_lines["counts"]
@@ -3351,9 +3561,9 @@ def main() -> int:
     multi = phase_done("multiseq", phase_multiseq(dev))
     paths["multiseq"] = multi["counts"]
     paths["multiseq_13"] = multi["sweep"]["counts"]
-    paths["pipelined_multiseq"] = phase_done(
-        "pipelined_multiseq",
-        phase_pipelined_multiseq(dev, multi["seqs"]))["counts"]
+    pipe_multi = phase_done("pipelined_multiseq",
+                            phase_pipelined_multiseq(dev, multi["seqs"]))
+    paths["pipelined_multiseq"] = pipe_multi["counts"]
     torch.distributed.destroy_process_group()    # dist's one-rank group
     phase_done("cold_start", phase_cold_start())
     by_path = lambda k: {p: c[k] for p, c in paths.items()}
@@ -3386,6 +3596,17 @@ def main() -> int:
              replaces=SEGMENT_SUM_REPLACES, launches=paths["loop"]["segsum"],
              launches_by_path=by_path("segsum"), vote_site=native["vote"],
              **dist_out["segsum"]),
+        dict(name="pose_lm", route="cuda",
+             source="lldslam_tpu_torch/csrc/pose_lm.cu",
+             replaces="lldslam_tpu/optim/pose_opt.py:110", exact=False,
+             tolerance_m_rad=POSE_LM_TOL, launches=paths["main"]["lm"],
+             launches_by_path=by_path("lm"),
+             launches_by_site=by_path("lm_sites"),
+             main_path_frame=paths["main"]["pose_lm"],
+             pipelined_frame=pipe["pose_lm"],
+             multiseq_S4=multi["kernels"]["pose_lm"],
+             pipelined_multiseq=pipe_multi["pose_lm"], library_ms=None,
+             **k_lm),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,11 @@ path gives them, with the cases that reach their edges.
   (copies of keypoints 0-15 at the same position with the same descriptor)
   under rows 0-63, an empty row (64, outside the frustum) and a row with
   one candidate (65, keypoint 20).
+- The pose LM (`ops/pose_lm.pose_lm`): S frames of a KITTI camera at the
+  2048-keypoint capacity of the tracking step, each a kind: `mix` (about
+  1,840 valid rows, 60% stereo, octaves 0-7, 0.5 px x 1.2^octave noise,
+  20% outliers 20-60 px off, from a pose 0.1 m and 0.01 rad off), `few`
+  (8 valid stereo rows, no outlier) or `none` (no valid row).
 
 `chip_smoke.py` and `tests/test_torch_cuda.py` hold each kernel to its plain
 version on these inputs. Everything is made with numpy from `rng` and moved
@@ -32,6 +37,8 @@ from ..ops import image
 from ..ops.orb import EDGE_MARGIN, OrbConfig
 
 KITTI_HW = (376, 1241)
+KITTI_CAM = dict(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157,
+                 bf=386.1448)
 EMPTY_ROW, ONE_ROW, ONE_COL = 64, 65, 20
 
 
@@ -158,3 +165,55 @@ def gated_best2_inputs(rng, device, M: int, N: int = 2048, th: float = 1.0,
             _t(pred_oct.astype(np.int32), device), _t(in_frustum, device),
             _t(b.view(np.int32), device), _t(xy, device), _t(kp_ur, device),
             _t(octave, device), _t(valid, device))
+
+
+def _rot(rng, angle: float) -> np.ndarray:
+    """A rotation by `angle` rad about a random axis (Rodrigues)."""
+    k = rng.normal(size=3)
+    k /= np.linalg.norm(k)
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(angle) * K + (1 - np.cos(angle)) * K @ K
+
+
+def pose_lm_inputs(rng, device, kinds=("mix",), N: int = 2048,
+                   cfg: OrbConfig = OrbConfig(n_features=2000)):
+    """(T_init (S, 4, 4) float32, (X, obs, inv_sigma2, is_stereo, valid)
+    each with the leading S) for S = len(kinds) problems; the camera is
+    KITTI_CAM."""
+    c = KITTI_CAM
+    inv_lut = np.float32(cfg.scale) ** (-2.0 * np.arange(cfg.n_levels))
+    out = []
+    for kind in kinds:
+        T = np.eye(4)
+        T[:3, :3] = _rot(rng, rng.uniform(0, 0.3))
+        T[:3, 3] = rng.uniform(-2, 2, 3)
+        z = rng.uniform(3, 40, N)
+        u = rng.uniform(0, KITTI_HW[1], N)
+        v = rng.uniform(0, KITTI_HW[0], N)
+        Xc = np.stack([(u - c["cx"]) * z / c["fx"], (v - c["cy"]) * z / c["fy"],
+                       z], -1)
+        X = (Xc - T[:3, 3]) @ T[:3, :3]          # world points: T^-1 Xc
+        octave = rng.integers(0, cfg.n_levels, N)
+        sigma = 0.5 * np.float32(cfg.scale) ** octave
+        obs = np.stack([u, v, u - c["bf"] / z], -1) \
+            + rng.normal(size=(N, 3)) * sigma[:, None]
+        out_rows = rng.uniform(size=N) < 0.2
+        obs[out_rows] += rng.choice([-1, 1], (out_rows.sum(), 3)) \
+            * rng.uniform(20, 60, (out_rows.sum(), 3))
+        stereo = rng.uniform(size=N) < 0.6
+        obs[~stereo, 2] = -1.0
+        valid = rng.uniform(size=N) < 0.9
+        if kind == "few":
+            valid[:] = False
+            valid[:8] = stereo[:8] = True
+            obs[:8] = np.stack([u, v, u - c["bf"] / z], -1)[:8]
+        elif kind == "none":
+            valid[:] = False
+        T0 = np.eye(4)
+        T0[:3, :3] = _rot(rng, 0.01)
+        T0[:3, 3] = rng.normal(size=3) * 0.1 / np.sqrt(3)
+        out.append((T0 @ T, X, obs, inv_lut[octave], stereo, valid))
+    T0, X, obs, info, stereo, valid = (np.stack(a) for a in zip(*out))
+    f32 = lambda x: _t(np.asarray(x, np.float32), device)
+    return f32(T0), (f32(X), f32(obs), f32(info), _t(stereo, device),
+                     _t(valid, device))

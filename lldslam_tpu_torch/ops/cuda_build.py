@@ -126,9 +126,12 @@ def library() -> ctypes.CDLL:
         lib.lld_segment_sum.argtypes = [vp] * 5 + [i64, i32, i32, vp]
         lib.lld_bin_layout.argtypes = [vp] * 8 + [i64, i32, i32, vp]
         lib.lld_bin_reduce.argtypes = [vp] * 6 + [i64, i32, vp]
+        f32 = ctypes.c_float
+        lib.lld_pose_lm.argtypes = [vp] * 6 + [i32, i32] + [f32] * 5 + [
+            i32, i32] + [vp] * 4
         for fn in (lib.lld_orb_describe, lib.lld_stereo_sad,
                    lib.lld_gated_best2, lib.lld_segment_sum,
-                   lib.lld_bin_layout, lib.lld_bin_reduce):
+                   lib.lld_bin_layout, lib.lld_bin_reduce, lib.lld_pose_lm):
             fn.restype = i32
         _lib = lib
     return _lib

@@ -16,6 +16,11 @@ waits for the host. Point-only problems take a leading batch axis (poses
 (S, 4, 4), observations (S, N, ...)): the multi-sequence driver's S frames
 solved together, with lambda, the accept test and the inlier rounds kept
 per sequence.
+
+`optimize_pose` routes by its input: a points-only call on CUDA tensors is
+one launch of the pose LM kernel (ops/pose_lm.py, csrc/pose_lm.cu); CPU
+tensors, and the joint point+line LM on any device, run
+`optimize_pose_plain`, the same algorithm op by op.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch
 
 from ..geometry import lines as glines, se3
 from ..geometry.camera import StereoCamera
+from ..ops import pose_lm
 from . import residuals as res
 
 LINE_PYR_FACTOR = 1.44
@@ -111,10 +117,27 @@ def _line_terms(cam, T, l: LinePoseObs, inlier, gamma: float,
 
 def optimize_pose(cam: StereoCamera, T_init: torch.Tensor, pts: PointPoseObs,
                   lns: LinePoseObs | None = None, gamma: float = 0.5,
-                  rounds: int = 4, iters: int = 10):
+                  rounds: int = 4, iters: int = 10, site: str = "other"):
     """Returns (T_opt (4, 4), point inlier mask (N,), line inlier mask (M,)
     (empty without lines), n_inliers (0-d): the point inliers); each with
-    the leading S of a batched point-only call (T_init (S, 4, 4))."""
+    the leading S of a batched point-only call (T_init (S, 4, 4)). Points
+    only on CUDA tensors: one launch of the kernel (`site` labels it in
+    `pose_lm.launches_by_site`); otherwise `optimize_pose_plain`."""
+    if lns is None and T_init.device.type == "cuda":
+        T, inl, n = pose_lm.pose_lm(
+            cam, T_init.contiguous(), *(t.contiguous() for t in pts),
+            rounds=rounds, iters=iters, site=site)
+        return T, inl, torch.empty(0, dtype=torch.bool,
+                                   device=T.device), n
+    return optimize_pose_plain(cam, T_init, pts, lns, gamma, rounds, iters)
+
+
+def optimize_pose_plain(cam: StereoCamera, T_init: torch.Tensor,
+                        pts: PointPoseObs, lns: LinePoseObs | None = None,
+                        gamma: float = 0.5, rounds: int = 4, iters: int = 10):
+    """`optimize_pose` op by op on any device: the CPU's path, the joint
+    point+line LM's on the card, and the plain version the kernel is held
+    to."""
     delta_m2, delta_s2 = res.CHI2_MONO, res.CHI2_STEREO
     dev, dt = T_init.device, T_init.dtype
     eye6 = torch.eye(6, dtype=dt, device=dev)

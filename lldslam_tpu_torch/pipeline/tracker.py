@@ -176,7 +176,8 @@ def _track_core(cam, T_pred: torch.Tensor, last_feats: matching.FrameFeatures,
                                       inv_sigma2=lut, is_stereo=is_stereo,
                                       valid=(kp2last >= 0) & cur.valid)
     with tracing.span("track.pose_lm"):
-        T1, pt_in1, _, _ = pose_opt.optimize_pose(cam, T_pred, pobs1)
+        T1, pt_in1, _, _ = pose_opt.optimize_pose(cam, T_pred, pobs1,
+                                                   site="track")
         T1 = torch.where(has_mm[..., None, None], T1, T_pred)
         kp2last = torch.where(pt_in1 & has_mm[..., None], kp2last, -1)
         li = torch.clamp(kp2last, min=0)
@@ -193,7 +194,8 @@ def _track_core(cam, T_pred: torch.Tensor, last_feats: matching.FrameFeatures,
         pobs2 = pose_opt.PointPoseObs(X=X2, obs=obs, inv_sigma2=lut,
                                       is_stereo=is_stereo, valid=valid2)
     with tracing.span("track.pose_lm"):
-        T2, pt_in2, _, _ = pose_opt.optimize_pose(cam, T1, pobs2)
+        T2, pt_in2, _, _ = pose_opt.optimize_pose(cam, T1, pobs2,
+                                                   site="track")
 
     with tracing.span("track.tail"):
         final_ok = valid2 & pt_in2
@@ -1195,7 +1197,7 @@ class StereoTracker:
         pobs = _gather_pose_obs(self.cam, self._t(X), self._t(rows),
                                 fd.feats, self._inv_sigma2_lut)
         T_fb, _, _, _ = pose_opt.optimize_pose(self.cam, self._t(self.T_cw),
-                                               pobs)
+                                               pobs, site="ref_anchor")
         tracing.count("host_waits")
         T_fb = T_fb.cpu().numpy()
         return T_fb if np.isfinite(T_fb).all() else None
@@ -1325,7 +1327,8 @@ class StereoTracker:
         rows = np.where(kp2pt >= 0, np.arange(len(X)), -1)
         pobs = _gather_pose_obs(self.cam, self._t(X), self._t(rows),
                                 fd.feats, self._inv_sigma2_lut)
-        T2, _, _, n_in = pose_opt.optimize_pose(self.cam, T, pobs)
+        T2, _, _, n_in = pose_opt.optimize_pose(self.cam, T, pobs,
+                                                site="reloc")
         tracing.count("host_waits")
         return T2, int(n_in)
 

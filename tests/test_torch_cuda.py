@@ -41,7 +41,11 @@ row in one segment, segments far above rows), the vote's entry (bin_sum)
 equals CPU index_add_ over every pixel on a KITTI view and on synthetic
 votes with bins of thousands of pixels, and the sparse solvers of a loop
 event (pose graph, global BA, joint point+line global BA, line
-refinement) give the same bits in two runs.
+refinement) give the same bits in two runs. The points-only pose LM kernel
+is held to the plain LM on the same device tensors at the tracking step's
+capacity, one problem a launch and four in one, repeats bit for bit and
+rejects malformed inputs; the chained step launches it twice, counted on
+the frame's record, and the joint point+line LM never.
 """
 from types import SimpleNamespace
 
@@ -54,18 +58,20 @@ from lldslam_tpu_torch.frontend import frame
 from lldslam_tpu_torch.frontend.matching import (FrameFeatures, MapPointView,
                                                  search_by_projection)
 from lldslam_tpu_torch.geometry import lines as glines, se3
+from lldslam_tpu_torch.geometry.camera import StereoCamera
 from lldslam_tpu_torch.io.synthetic import (add_loop_lines, make_loop_map,
                                             make_sequence)
 from lldslam_tpu_torch.loop.closing import LoopCloser
 from lldslam_tpu_torch.io import kernel_inputs
-from lldslam_tpu_torch.ops import (match_best2, orb_describe, segment_sum,
-                                   stereo_sad)
+from lldslam_tpu_torch.ops import (match_best2, orb_describe, pose_lm,
+                                   segment_sum, stereo_sad)
 from lldslam_tpu_torch.ops.orb import OrbConfig
 from lldslam_tpu_torch.ops import rectify
 from lldslam_tpu_torch.optim import (ba, initializer, lines_ba, pose_graph,
                                      pose_opt, sim3_solver)
 from lldslam_tpu_torch.slammap.map_store import MapStore
 from lldslam_tpu_torch.system import _default_vocabulary
+from lldslam_tpu_torch import tracing
 
 pytestmark = pytest.mark.cuda
 
@@ -189,6 +195,108 @@ def test_gated_best2_rejects_bad_inputs(dev):
     for i, t in bad.values():
         with pytest.raises(ValueError):
             match_best2.gated_best2(*args[:i], t, *args[i + 1:])
+
+
+POSE_KINDS = ("mix", "few", "none", "mix")
+POSE_CAM = StereoCamera(**kernel_inputs.KITTI_CAM, width=1241, height=376)
+
+
+def _pose_lm_problem(dev, seed=5):
+    """Four problems at the tracking step's 2048-row capacity
+    (kernel_inputs.pose_lm_inputs): a mono/stereo mix with 20% outliers, 8
+    valid rows, no valid row, another mix."""
+    T0, obs = kernel_inputs.pose_lm_inputs(np.random.default_rng(seed), dev,
+                                           POSE_KINDS)
+    return T0, pose_opt.PointPoseObs(*obs)
+
+
+def _chi2_np(T, p):
+    """Each row's chi2 at pose T, in float64 on the host."""
+    T = T.double().cpu().numpy()
+    X, obs, info = (t.double().cpu().numpy() for t in p[:3])
+    st = p.is_stereo.cpu().numpy()
+    c = POSE_CAM
+    Xc = X @ T[:3, :3].T + T[:3, 3]
+    u = c.fx * Xc[:, 0] / Xc[:, 2] + c.cx
+    r = obs - np.stack([u, c.fy * Xc[:, 1] / Xc[:, 2] + c.cy,
+                        u - c.bf / Xc[:, 2]], -1)
+    return info * (r[:, 0] ** 2 + r[:, 1] ** 2 + st * r[:, 2] ** 2), \
+        np.where(st, 7.815, 5.991)
+
+
+@pytest.mark.parametrize("S", [1, 4])
+def test_pose_lm_equals_plain(dev, S):
+    """The pose LM kernel against the plain LM (`optimize_pose_plain`) on
+    the same device tensors, 4 x 10 iterations at N = 2048: four problems in
+    one launch (S = 4) or one launch each (S = 1). Poses within 5e-5 m and
+    5e-6 rad: both run in float32 with their sums in another order (the
+    kernel's across threads in float64), and on these inputs the plain version in float32
+    lies up to 3.4e-6 m and 1.2e-7 in a rotation entry from itself in
+    float64, so the two may stop that far apart; the bound leaves over ten
+    times that. Inlier masks equal but for rows whose chi2 lies within 1% of
+    their threshold at the plain version's pose; counts apart by at most
+    those rows. The problem with no valid row hands its pose back
+    unchanged, with no inlier."""
+    T0, p = _pose_lm_problem(dev)
+    calls = [(T0, p)] if S == 4 else [
+        (T0[s], pose_opt.PointPoseObs(*(t[s] for t in p))) for s in range(4)]
+    got, want = [], []
+    for T_in, q in calls:
+        before = pose_lm.launches
+        got.append(pose_opt.optimize_pose(POSE_CAM, T_in, q))
+        assert pose_lm.launches == before + 1
+        want.append(pose_opt.optimize_pose_plain(POSE_CAM, T_in, q))
+    torch.cuda.synchronize()
+    cat = lambda outs, i: torch.stack([o[i] for o in outs]) if S == 1 \
+        else outs[0][i]
+    Tg, Tw = cat(got, 0).cpu().double(), cat(want, 0).cpu().double()
+    ig, iw = cat(got, 1).cpu().numpy(), cat(want, 1).cpu().numpy()
+    ng, nw = cat(got, 3).cpu().numpy(), cat(want, 3).cpu().numpy()
+    assert cat(got, 2).numel() == 0 and ig.dtype == bool
+    for s, kind in enumerate(POSE_KINDS):
+        if kind == "none":
+            assert torch.equal(Tg[s], T0[s].cpu().double())
+            assert not ig[s].any() and ng[s] == 0
+            continue
+        dt = float((Tg[s, :3, 3] - Tw[s, :3, 3]).norm())
+        W = Tg[s, :3, :3].T @ Tw[s, :3, :3]
+        da = float(0.5 * torch.stack([W[2, 1] - W[1, 2], W[0, 2] - W[2, 0],
+                                      W[1, 0] - W[0, 1]]).norm())
+        assert dt <= 5e-5 and da <= 5e-6, (kind, dt, da)
+        chi2, th = _chi2_np(Tw[s].float(), pose_opt.PointPoseObs(
+            *(t[s] for t in p)))
+        near = np.abs(chi2 - th) <= 0.01 * th
+        assert (ig[s] == iw[s])[~near].all(), kind
+        assert abs(int(ng[s]) - int(nw[s])) <= int(near.sum())
+        assert ng[s] == ig[s].sum()
+    assert ng[1] == 8 and (ng[[0, 3]] > 1300).all()
+
+
+def test_pose_lm_repeats_bit_for_bit(dev):
+    """Two launches on the same four problems give the same bits."""
+    T0, p = _pose_lm_problem(dev, seed=6)
+    a = pose_opt.optimize_pose(POSE_CAM, T0, p)
+    b = pose_opt.optimize_pose(POSE_CAM, T0, p)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_pose_lm_rejects_bad_inputs(dev):
+    """A CPU tensor among CUDA ones, a float64 input and more rows than the
+    kernel takes each raise before any launch."""
+    T0, p = _pose_lm_problem(dev)
+    args = [POSE_CAM, T0, *p]
+    N = pose_lm.MAX_N + 1
+    big = [POSE_CAM, T0, torch.zeros(4, N, 3, device=dev),
+           torch.zeros(4, N, 3, device=dev), torch.ones(4, N, device=dev),
+           torch.zeros(4, N, dtype=torch.bool, device=dev),
+           torch.zeros(4, N, dtype=torch.bool, device=dev)]
+    before = pose_lm.launches
+    for bad in (args[:2] + [p.X.cpu()] + args[3:],
+                args[:3] + [p.obs.double()] + args[4:], big):
+        with pytest.raises(ValueError):
+            pose_lm.pose_lm(*bad)
+    assert pose_lm.launches == before
 
 
 SEGMENT_CASES = {
@@ -619,12 +727,17 @@ def test_loop_solvers_never_wait_for_the_host(dev):
         jsolved, _, chi2_l = lines_ba.joint_ba_solve_cg(cam, p.joint,
                                                         iters=10, cg_iters=64)
         q_r, a_r = lines_ba.refine_lines_fixed_poses(cam, p.joint)
+        lm_before = pose_lm.launches
         T_opt, _, ln_in, _ = pose_opt.optimize_pose(cam, p.T1, p.pobs,
                                                     p.lpobs, rounds=2, iters=6)
+        lm_joint = pose_lm.launches - lm_before
         # the multi-sequence driver's batched pose LM: keyframes 1-3 at once
         T_b, in_b, _, n_b = pose_opt.optimize_pose(cam, p.T_b0, p.pobs_b)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    # the joint point+line LM runs op by op; the points-only one launches
+    # the kernel once for the three problems
+    assert lm_joint == 0 and pose_lm.launches == lm_before + 1
     assert torch.equal(seg.sum((1, 2)).cpu(), 36 * torch.bincount(
         lay.index.cpu(), minlength=4).float())
     assert float(pose_graph.total_error(g_opt)) < 0.1 * float(p.err_0)
@@ -980,12 +1093,19 @@ def test_chained_step_never_waits_for_the_host(dev, case):
 
     dispatch()                                # builds cached constants
     torch.cuda.synchronize()
+    m = trk.TrackMetrics()
+    before = pose_lm.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
-        out = dispatch()
+        with tracing.frame(m):
+            out = dispatch()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert int(out["stats"][1]) > 100
+    # the step's two point pose LMs: one kernel launch each, counted on the
+    # frame's record (the line step's joint LM runs op by op)
+    assert pose_lm.launches == before + 2
+    assert m.counts["pose_lm_kernel"] == 2
 
 
 def test_ba_solve_dense_on_card_matches_cpu(dev):
