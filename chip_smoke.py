@@ -694,28 +694,38 @@ def _near_threshold(cam, T, X, obs, info, stereo) -> np.ndarray:
     return np.abs(chi2 - th) <= POSE_LM_NEAR * th
 
 
-def hold_pose_lm(label: str, kept, timed: bool = False) -> dict:
+def hold_pose_lm(label: str, kept, timed: bool = False,
+                 gamma: float = 0.5) -> dict:
     """The pose LM kernel (`ops.pose_lm.pose_lm`) on kept (site, args)
     calls against `optimize_pose_plain` on the same card tensors: for each
     problem (each s of a batched call) the poses within POSE_LM_TOL, the
     inlier masks equal but for rows near their threshold at the plain pose,
     the counts apart by at most those rows and equal to the mask's; in a
     call of S > 1 problems each problem bit-equal to its own S = 1 launch.
+    A call with line rows (the line step's joint LM, site "line") runs the
+    line step's schedule at `gamma`, its line inliers held the same way.
     `timed`: the last call's kernel device ms, the plain LM's ms a call
     (CUDA events: its 6,000 launches overflow the launch queue that
     device_ms needs) and the bound."""
     from lldslam_tpu_torch.ops import pose_lm
-    from lldslam_tpu_torch.optim.pose_opt import (PointPoseObs,
+    from lldslam_tpu_torch.optim import pose_opt
+    from lldslam_tpu_torch.optim.pose_opt import (LinePoseObs, PointPoseObs,
                                                   optimize_pose_plain)
+    from lldslam_tpu_torch.pipeline.tracker import (LINE_LM_ITERS,
+                                                    LINE_LM_ROUNDS)
     if not kept:
         raise AssertionError(f"{label}: no pose LM call kept")
     host = lambda t: t.double().cpu().numpy()
     gap_t = gap_r = 0.0
-    problems = apart = near_rows = 0
+    problems = apart = near_rows = line_calls = 0
     for _, args in kept:
-        cam, T0, rows = args[0], args[1], args[2:]
-        got = pose_lm.pose_lm(*args)
-        want = optimize_pose_plain(cam, T0, PointPoseObs(*rows))
+        cam, T0, rows, lrows = args[0], args[1], args[2:7], args[7:]
+        kw = dict(rounds=LINE_LM_ROUNDS, iters=LINE_LM_ITERS,
+                  gamma=gamma) if lrows else {}
+        got = pose_lm.pose_lm(*args, **kw)
+        want = optimize_pose_plain(
+            cam, T0, PointPoseObs(*rows),
+            LinePoseObs(*lrows) if lrows else None, **kw)
         b = (lambda t: t) if T0.dim() == 3 else (lambda t: t[None])
         Tg, Tw = host(b(got[0])), host(b(want[0]))
         ig, iw = b(got[1]).cpu().numpy(), b(want[1]).cpu().numpy()
@@ -727,6 +737,20 @@ def hold_pose_lm(label: str, kept, timed: bool = False) -> dict:
             dt, da = _pose_gaps(Tg[s], Tw[s])
             near = _near_threshold(cam, Tw[s], X[s], obs[s], info[s], st[s])
             off = int(((ig[s] != iw[s]) & ~near).sum())
+            l_apart = l_near = 0
+            if lrows:
+                # the line rows' reclassification sum at the plain pose
+                lo = LinePoseObs(*(t.double() if t.is_floating_point() else t
+                                   for t in lrows))
+                _, _, _, c2, th = pose_opt._line_terms(
+                    cam, want[0].double(), lo, lo.valid.double(), gamma,
+                    need_system=False)
+                l_near_m = ((c2 - 2 * th).abs() <= POSE_LM_NEAR * 2 * th
+                            ).cpu().numpy()
+                l_diff = (got[3] != want[2]).cpu().numpy()
+                l_apart, l_near = int(l_diff.sum()), int(l_near_m.sum())
+                off += int((l_diff & ~l_near_m).sum())
+                line_calls += 1
             if (dt > POSE_LM_TOL[0] or da > POSE_LM_TOL[1] or off
                     or abs(int(ng[s]) - int(nw[s])) > int(near.sum())
                     or int(ng[s]) != int(ig[s].sum())):
@@ -740,21 +764,22 @@ def hold_pose_lm(label: str, kept, timed: bool = False) -> dict:
                     raise AssertionError(f"{label}: pose LM problem {s} of "
                                          f"{S} differs from its S = 1 launch")
             gap_t, gap_r = max(gap_t, dt), max(gap_r, da)
-            apart += int((ig[s] != iw[s]).sum())
-            near_rows += int(near.sum())
+            apart += int((ig[s] != iw[s]).sum()) + l_apart
+            near_rows += int(near.sum()) + l_near
             problems += 1
     out = dict(calls=len(kept), problems=problems,
-               rows=int(kept[-1][1][2].shape[-2]), max_translation_gap_m=gap_t,
-               max_rotation_gap_rad=gap_r, inlier_rows_apart=apart,
-               near_threshold_rows=near_rows)
+               rows=int(kept[-1][1][2].shape[-2]), line_calls=line_calls,
+               max_translation_gap_m=gap_t, max_rotation_gap_rad=gap_r,
+               inlier_rows_apart=apart, near_threshold_rows=near_rows)
     msg = (f"{label}: pose LM kernel on {len(kept)} calls ({problems} "
-           f"problems of {out['rows']} rows) against the plain LM: poses "
+           f"problems of {out['rows']} point rows, {line_calls} with line "
+           f"rows) against the plain LM: poses "
            f"within {gap_t:.3e} m and {gap_r:.3e} rad, {apart} inlier rows "
            f"apart, all within {POSE_LM_NEAR:.0%} of their threshold "
            f"({near_rows} such rows)")
     if timed:
         args = kept[-1][1]
-        obs_ = PointPoseObs(*args[2:])
+        obs_ = PointPoseObs(*args[2:7])
         out["ms"] = device_ms(lambda: pose_lm.pose_lm(*args))
         out["call_ms"] = cuda_ms(lambda: pose_lm.pose_lm(*args))
         out["plain_ms"] = cuda_ms(
@@ -3026,7 +3051,8 @@ def run_pipelined(dev, cfg, frames, label: str, lines: bool = False,
         kept_g, r = keep_inputs(match_best2, "gated_best2",
                                 sites=("tracking", "fusion"), last_only=True)
         restore.append(r)
-        kept_lm, r = keep_inputs(pose_lm, "pose_lm", sites=("track",))
+        kept_lm, r = keep_inputs(pose_lm, "pose_lm",
+                                 sites=("track", "line"))
         restore.append(r)
     results, ms = [], []
     feed = iter(staged)
@@ -3084,8 +3110,14 @@ def run_pipelined(dev, cfg, frames, label: str, lines: bool = False,
             out["dispatch_waits"] = {
                 k: host_waits(fn) for k, fn in native_pieces(tr, pair).items()}
         out["kernels_exact"] = _hold_kernels(label, kept_a, kept_b, kept_g)
+        # the last chained step's two point LMs, and with lines its joint
+        # point+line LM
+        n_lm = 3 if lines or native else 2
+        if lines or native:
+            assert [k[0] for k in kept_lm[-3:]] == ["track", "track", "line"]
         out["pose_lm"] = hold_pose_lm(f"{label}, last chained step's",
-                                      kept_lm[-2:])
+                                      kept_lm[-n_lm:],
+                                      gamma=float(cfg.line.gamma))
         log(f"{label}: host syncs in one steady-state dispatch: "
             f"{out['dispatch_syncs']}" + (
                 f"; profiler window of {n_profile} staged frames: "

@@ -22,7 +22,9 @@ path gives them, with the cases that reach their edges.
   2048-keypoint capacity of the tracking step, each a kind: `mix` (about
   1,840 valid rows, 60% stereo, octaves 0-7, 0.5 px x 1.2^octave noise,
   20% outliers 20-60 px off, from a pose 0.1 m and 0.01 rad off), `few`
-  (8 valid stereo rows, no outlier) or `none` (no valid row).
+  (8 valid stereo rows, no outlier) or `none` (no valid row); with line
+  rows, those of the joint point+line LM beside them (256 a problem at the
+  stored-line capacity, seen from the problem's true pose).
 
 `chip_smoke.py` and `tests/test_torch_cuda.py` hold each kernel to its plain
 version on these inputs. Everything is made with numpy from `rng` and moved
@@ -175,45 +177,105 @@ def _rot(rng, angle: float) -> np.ndarray:
     return np.eye(3) + np.sin(angle) * K + (1 - np.cos(angle)) * K @ K
 
 
-def pose_lm_inputs(rng, device, kinds=("mix",), N: int = 2048,
-                   cfg: OrbConfig = OrbConfig(n_features=2000)):
-    """(T_init (S, 4, 4) float32, (X, obs, inv_sigma2, is_stereo, valid)
-    each with the leading S) for S = len(kinds) problems; the camera is
-    KITTI_CAM."""
+def _pose_problem(rng, kind: str, N: int, cfg: OrbConfig):
+    """One problem of `pose_lm_inputs`: (true pose, T_init, X, obs,
+    inv_sigma2, is_stereo, valid) in numpy."""
     c = KITTI_CAM
     inv_lut = np.float32(cfg.scale) ** (-2.0 * np.arange(cfg.n_levels))
-    out = []
+    T = np.eye(4)
+    T[:3, :3] = _rot(rng, rng.uniform(0, 0.3))
+    T[:3, 3] = rng.uniform(-2, 2, 3)
+    z = rng.uniform(3, 40, N)
+    u = rng.uniform(0, KITTI_HW[1], N)
+    v = rng.uniform(0, KITTI_HW[0], N)
+    Xc = np.stack([(u - c["cx"]) * z / c["fx"], (v - c["cy"]) * z / c["fy"],
+                   z], -1)
+    X = (Xc - T[:3, 3]) @ T[:3, :3]          # world points: T^-1 Xc
+    octave = rng.integers(0, cfg.n_levels, N)
+    sigma = 0.5 * np.float32(cfg.scale) ** octave
+    obs = np.stack([u, v, u - c["bf"] / z], -1) \
+        + rng.normal(size=(N, 3)) * sigma[:, None]
+    out_rows = rng.uniform(size=N) < 0.2
+    obs[out_rows] += rng.choice([-1, 1], (out_rows.sum(), 3)) \
+        * rng.uniform(20, 60, (out_rows.sum(), 3))
+    stereo = rng.uniform(size=N) < 0.6
+    obs[~stereo, 2] = -1.0
+    valid = rng.uniform(size=N) < 0.9
+    if kind == "few":
+        valid[:] = False
+        valid[:8] = stereo[:8] = True
+        obs[:8] = np.stack([u, v, u - c["bf"] / z], -1)[:8]
+    elif kind == "none":
+        valid[:] = False
+    T0 = np.eye(4)
+    T0[:3, :3] = _rot(rng, 0.01)
+    T0[:3, 3] = rng.normal(size=3) * 0.1 / np.sqrt(3)
+    return T, T0 @ T, X, obs, inv_lut[octave], stereo, valid
+
+
+def _line_rows(rng, kind: str, T: np.ndarray, M: int):
+    """The line rows of one problem seen from the true pose T: (X0, d,
+    x1_l, x2_l, x1_r, x2_r, octave, has_right, valid) in numpy."""
+    c = KITTI_CAM
+    mid = np.stack([rng.uniform(-6, 6, M), rng.uniform(-2, 2, M),
+                    rng.uniform(4, 30, M)], -1)
+    dc = rng.normal(size=(M, 3))
+    dc /= np.linalg.norm(dc, axis=-1, keepdims=True)
+    ends = [mid - 0.8 * dc, mid + 0.8 * dc]
+    for e in ends:
+        e[:, 2] = np.maximum(e[:, 2], 2.0)
+    A, B = ((e - T[:3, 3]) @ T[:3, :3] for e in ends)   # world endpoints
+    d = (B - A) / np.linalg.norm(B - A, axis=-1, keepdims=True)
+    X0 = A - np.sum(A * d, -1, keepdims=True) * d
+    octave = rng.integers(0, 3, M)
+    sigma = 0.5 * 1.44 ** octave
+
+    def px(Xc, off):
+        return np.stack([c["fx"] * (Xc[:, 0] - off) / Xc[:, 2] + c["cx"],
+                         c["fy"] * Xc[:, 1] / Xc[:, 2] + c["cy"]], -1) \
+            + rng.normal(size=(M, 2)) * sigma[:, None]
+
+    b = c["bf"] / c["fx"]
+    x1l, x2l, x1r, x2r = (px(e, off) for off in (0.0, b) for e in ends)
+    bad = rng.uniform(size=M) < 0.2
+    for x in (x1l, x2l):
+        x[bad] += rng.choice([-1, 1], (bad.sum(), 2)) \
+            * rng.uniform(20, 40, (bad.sum(), 2))
+    has_right = rng.uniform(size=M) < 0.7
+    x1r[~has_right] = x2r[~has_right] = 0.0
+    valid = rng.uniform(size=M) < 0.9
+    if kind == "few":
+        valid[:] = False
+        valid[:4] = True
+        x1l[:4], x2l[:4] = (px(e, 0.0)[:4] for e in ends)
+    elif kind == "none":
+        valid[:] = False
+    return X0, d, x1l, x2l, x1r, x2r, octave.astype(np.int32), has_right, \
+        valid
+
+
+def pose_lm_inputs(rng, device, kinds=("mix",), N: int = 2048,
+                   cfg: OrbConfig = OrbConfig(n_features=2000), M: int = 0):
+    """(T_init (S, 4, 4) float32, (X, obs, inv_sigma2, is_stereo, valid)
+    each with the leading S) for S = len(kinds) problems; the camera is
+    KITTI_CAM. With M > 0 the rows of the joint point+line LM follow: the
+    nine fields of a LinePoseObs, M line rows a problem seen from its true
+    pose (`mix`: octaves 0-2, 0.5 px x 1.44^octave noise, 20% of the left
+    observations 20-40 px off, 70% with a right observation, 90% valid;
+    `few`: 4 valid rows; `none`: none valid)."""
+    out, lines = [], []
     for kind in kinds:
-        T = np.eye(4)
-        T[:3, :3] = _rot(rng, rng.uniform(0, 0.3))
-        T[:3, 3] = rng.uniform(-2, 2, 3)
-        z = rng.uniform(3, 40, N)
-        u = rng.uniform(0, KITTI_HW[1], N)
-        v = rng.uniform(0, KITTI_HW[0], N)
-        Xc = np.stack([(u - c["cx"]) * z / c["fx"], (v - c["cy"]) * z / c["fy"],
-                       z], -1)
-        X = (Xc - T[:3, 3]) @ T[:3, :3]          # world points: T^-1 Xc
-        octave = rng.integers(0, cfg.n_levels, N)
-        sigma = 0.5 * np.float32(cfg.scale) ** octave
-        obs = np.stack([u, v, u - c["bf"] / z], -1) \
-            + rng.normal(size=(N, 3)) * sigma[:, None]
-        out_rows = rng.uniform(size=N) < 0.2
-        obs[out_rows] += rng.choice([-1, 1], (out_rows.sum(), 3)) \
-            * rng.uniform(20, 60, (out_rows.sum(), 3))
-        stereo = rng.uniform(size=N) < 0.6
-        obs[~stereo, 2] = -1.0
-        valid = rng.uniform(size=N) < 0.9
-        if kind == "few":
-            valid[:] = False
-            valid[:8] = stereo[:8] = True
-            obs[:8] = np.stack([u, v, u - c["bf"] / z], -1)[:8]
-        elif kind == "none":
-            valid[:] = False
-        T0 = np.eye(4)
-        T0[:3, :3] = _rot(rng, 0.01)
-        T0[:3, 3] = rng.normal(size=3) * 0.1 / np.sqrt(3)
-        out.append((T0 @ T, X, obs, inv_lut[octave], stereo, valid))
+        T, *problem = _pose_problem(rng, kind, N, cfg)
+        out.append(problem)
+        if M:
+            lines.append(_line_rows(rng, kind, T, M))
     T0, X, obs, info, stereo, valid = (np.stack(a) for a in zip(*out))
     f32 = lambda x: _t(np.asarray(x, np.float32), device)
-    return f32(T0), (f32(X), f32(obs), f32(info), _t(stereo, device),
-                     _t(valid, device))
+    rows = (f32(X), f32(obs), f32(info), _t(stereo, device),
+            _t(valid, device))
+    if M:
+        X0, d, x1l, x2l, x1r, x2r, oc, hr, lv = (np.stack(a)
+                                                 for a in zip(*lines))
+        rows += (*map(f32, (X0, d, x1l, x2l, x1r, x2r)), _t(oc, device),
+                 _t(hr, device), _t(lv, device))
+    return f32(T0), rows

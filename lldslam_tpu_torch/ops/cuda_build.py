@@ -128,7 +128,7 @@ def library() -> ctypes.CDLL:
         lib.lld_bin_reduce.argtypes = [vp] * 6 + [i64, i32, vp]
         f32 = ctypes.c_float
         lib.lld_pose_lm.argtypes = [vp] * 6 + [i32, i32] + [f32] * 5 + [
-            i32, i32] + [vp] * 4
+            i32, i32] + [vp] * 9 + [i32] + [f32] * 4 + [vp] * 5
         for fn in (lib.lld_orb_describe, lib.lld_stereo_sad,
                    lib.lld_gated_best2, lib.lld_segment_sum,
                    lib.lld_bin_layout, lib.lld_bin_reduce, lib.lld_pose_lm):

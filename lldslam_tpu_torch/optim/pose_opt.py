@@ -10,16 +10,19 @@ round every edge is reclassified:
 - line edges of fixed 3D lines, two per stereo line observation (left and
   right camera), information gamma^2 / 1.44^(2 octave), Huber delta and
   threshold gamma^2-scaled, inliers at twice the threshold, with analytic
-  Jacobians (`residuals.line_pose_jacobian`).
+  Jacobians (`residuals.line_pose_jacobian`) for the increment of the left
+  pose that the step moves, the right view's too (T_rl exp(xi) T; the JAX
+  package takes the right camera's own increment there, so its step stops
+  short of its cost's minimum).
 Accept/reject stays on the device (`torch.where`), so the solver never
 waits for the host. Point-only problems take a leading batch axis (poses
 (S, 4, 4), observations (S, N, ...)): the multi-sequence driver's S frames
 solved together, with lambda, the accept test and the inlier rounds kept
 per sequence.
 
-`optimize_pose` routes by its input: a points-only call on CUDA tensors is
-one launch of the pose LM kernel (ops/pose_lm.py, csrc/pose_lm.cu); CPU
-tensors, and the joint point+line LM on any device, run
+`optimize_pose` routes by its input's device: a call on CUDA tensors,
+points only or the joint point+line LM, is one launch of the pose LM
+kernel (ops/pose_lm.py, csrc/pose_lm.cu); CPU tensors run
 `optimize_pose_plain`, the same algorithm op by op.
 """
 from __future__ import annotations
@@ -97,16 +100,18 @@ def _line_terms(cam, T, l: LinePoseObs, inlier, gamma: float,
     H = b = None
     cost = torch.zeros((), dtype=T.dtype, device=T.device)
     chi2 = []
-    for T_cam, x1, x2, active in ((T, l.x1_l, l.x2_l, inlier),
-                                  (T_r, l.x1_r, l.x2_r, inlier * right)):
+    for T_cam, x1, x2, active, off in (
+            (T, l.x1_l, l.x2_l, inlier, 0.0),
+            (T_r, l.x1_r, l.x2_r, inlier * right, cam.baseline)):
         r = glines.endpoint_residual(cam, T_cam, l.X0, l.d, x1, x2)  # (M, 2)
         c2 = info * torch.sum(r * r, dim=-1)
         chi2.append(c2)
         cost = cost + torch.sum(res.huber_rho(c2, delta_sq) * active)
         if need_system:
-            # (M, 2, 6), the increment applied to this camera's pose as in
-            # the JAX package (exp(xi) T_cam, also for the right camera)
-            J = res.line_pose_jacobian(cam, T_cam, l.X0, l.d, x1, x2)
+            # (M, 2, 6), w.r.t. the increment of the left pose that the
+            # step moves (exp(xi) T; the right view sees T_rl exp(xi) T),
+            # where the JAX package takes the right camera's own exp(xi) T_r
+            J = res.line_pose_jacobian(cam, T, l.X0, l.d, x1, x2, off)
             w = info * res.huber_weight(c2, delta_sq) * active
             Hc = torch.einsum("mri,m,mrj->ij", J, w, J)
             bc = -torch.einsum("mri,m,mr->i", J, w, r)
@@ -120,24 +125,23 @@ def optimize_pose(cam: StereoCamera, T_init: torch.Tensor, pts: PointPoseObs,
                   rounds: int = 4, iters: int = 10, site: str = "other"):
     """Returns (T_opt (4, 4), point inlier mask (N,), line inlier mask (M,)
     (empty without lines), n_inliers (0-d): the point inliers); each with
-    the leading S of a batched point-only call (T_init (S, 4, 4)). Points
-    only on CUDA tensors: one launch of the kernel (`site` labels it in
+    the leading S of a batched call (T_init (S, 4, 4)). On CUDA tensors,
+    with or without lines: one launch of the kernel (`site` labels it in
     `pose_lm.launches_by_site`); otherwise `optimize_pose_plain`."""
-    if lns is None and T_init.device.type == "cuda":
-        T, inl, n = pose_lm.pose_lm(
-            cam, T_init.contiguous(), *(t.contiguous() for t in pts),
-            rounds=rounds, iters=iters, site=site)
-        return T, inl, torch.empty(0, dtype=torch.bool,
-                                   device=T.device), n
+    if T_init.device.type == "cuda":
+        rows = (*pts, *lns) if lns is not None else pts
+        T, inl, n, ln_in = pose_lm.pose_lm(
+            cam, T_init.contiguous(), *(t.contiguous() for t in rows),
+            rounds=rounds, iters=iters, gamma=gamma, site=site)
+        return T, inl, ln_in, n
     return optimize_pose_plain(cam, T_init, pts, lns, gamma, rounds, iters)
 
 
 def optimize_pose_plain(cam: StereoCamera, T_init: torch.Tensor,
                         pts: PointPoseObs, lns: LinePoseObs | None = None,
                         gamma: float = 0.5, rounds: int = 4, iters: int = 10):
-    """`optimize_pose` op by op on any device: the CPU's path, the joint
-    point+line LM's on the card, and the plain version the kernel is held
-    to."""
+    """`optimize_pose` op by op on any device: the CPU's path and the plain
+    version the kernel is held to."""
     delta_m2, delta_s2 = res.CHI2_MONO, res.CHI2_STEREO
     dev, dt = T_init.device, T_init.dtype
     eye6 = torch.eye(6, dtype=dt, device=dev)

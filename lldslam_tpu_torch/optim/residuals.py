@@ -139,11 +139,13 @@ def _line_camera_points(T_cw, X0, d, baseline: float):
     return Cl, dC
 
 
-def line_pose_jacobian(cam: StereoCamera, T_cw, X0, d, x1,
-                       x2) -> torch.Tensor:
+def line_pose_jacobian(cam: StereoCamera, T_cw, X0, d, x1, x2,
+                       baseline: float = 0.0) -> torch.Tensor:
     """(..., 2, 6) Jacobian of the endpoint residual of the world line
-    (X0, d) seen from T_cw, w.r.t. the pose increment xi of exp(xi) T_cw."""
-    C, dC = _line_camera_points(T_cw, X0, d, 0.0)
+    (X0, d) seen from the camera `baseline` to the right of T_cw (the right
+    view of a stereo pair: T_rl T_cw), w.r.t. the pose increment xi of
+    exp(xi) T_cw."""
+    C, dC = _line_camera_points(T_cw, X0, d, baseline)
     return _endpoint_jacobian(cam, C, dC, x1, x2)
 
 

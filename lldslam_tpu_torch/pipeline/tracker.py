@@ -103,6 +103,9 @@ from ..slammap.map_store import MapStore
 from . import local_mapping, mapper_fast
 from .kf_cache import KfCache
 
+# the line step's joint point+line pose LM: rounds x iterations
+LINE_LM_ROUNDS, LINE_LM_ITERS = 2, 6
+
 
 class TrackState(enum.Enum):
     NOT_INITIALIZED = 0
@@ -370,18 +373,22 @@ def _line_step(cam, T: torch.Tensor, view, fl: line_match.FrameLines,
                pobs: pose_opt.PointPoseObs, gamma: float, md_thr: float):
     """Association of the frame's lines with the local map lines `view`
     (x0, dir, desc, octave, valid), then the joint point+line pose LM from
-    T (2 rounds x 6 iterations). Returns (T (4, 4), det2ln (L,) view index
+    T (LINE_LM_ROUNDS x LINE_LM_ITERS; one kernel launch on the card).
+    Returns (T (4, 4), det2ln (L,) view index
     of each line inlier, -1 elsewhere, n_line (0-d))."""
     x0, dr, desc, oct_, valid = view
-    _, det2ln = line_match.associate_lines(cam, T, x0, dr, desc, oct_, valid,
-                                           fl, md_thr=md_thr)
-    idx = torch.clamp(det2ln, min=0).long()
-    lobs = pose_opt.LinePoseObs(
-        X0=x0[idx], d=dr[idx], x1_l=fl.kl.p1, x2_l=fl.kl.p2, x1_r=fl.p1_r,
-        x2_r=fl.p2_r, octave=fl.kl.octave, has_right=fl.has_stereo,
-        valid=(det2ln >= 0) & fl.kl.valid)
-    T3, _, ln_in, _ = pose_opt.optimize_pose(cam, T, pobs, lobs, gamma=gamma,
-                                             rounds=2, iters=6)
+    with tracing.span("track.line_assoc"):
+        _, det2ln = line_match.associate_lines(cam, T, x0, dr, desc, oct_,
+                                               valid, fl, md_thr=md_thr)
+    with tracing.span("track.line_lm"):
+        idx = torch.clamp(det2ln, min=0).long()
+        lobs = pose_opt.LinePoseObs(
+            X0=x0[idx], d=dr[idx], x1_l=fl.kl.p1, x2_l=fl.kl.p2,
+            x1_r=fl.p1_r, x2_r=fl.p2_r, octave=fl.kl.octave,
+            has_right=fl.has_stereo, valid=(det2ln >= 0) & fl.kl.valid)
+        T3, _, ln_in, _ = pose_opt.optimize_pose(
+            cam, T, pobs, lobs, gamma=gamma, rounds=LINE_LM_ROUNDS,
+            iters=LINE_LM_ITERS, site="line")
     det2ln = torch.where(ln_in, det2ln, -1)
     return T3, det2ln, (det2ln >= 0).sum()
 

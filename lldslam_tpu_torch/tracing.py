@@ -38,7 +38,11 @@ waits on the card (an event wait, a device value read on the host, a
 blocking upload from pageable memory), counted where the wait is, on the
 CPU as on the card; `event_waits`, those of them that wait on a CUDA event
 (`ops.transfer.HostCopy.result`), which CUDA's sync debug mode does not
-report.
+report; `pose_lm_kernel`, launches of the pose LM kernel
+(`ops.pose_lm.pose_lm`), and of them `line_lm_kernel`, the joint
+point+line launches, with `line_lm_rows`, the rows they take (point rows
+and two a line row), and `line_lm_lines`, their line rows, both from the
+tensors' shapes.
 """
 from __future__ import annotations
 

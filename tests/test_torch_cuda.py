@@ -41,11 +41,13 @@ row in one segment, segments far above rows), the vote's entry (bin_sum)
 equals CPU index_add_ over every pixel on a KITTI view and on synthetic
 votes with bins of thousands of pixels, and the sparse solvers of a loop
 event (pose graph, global BA, joint point+line global BA, line
-refinement) give the same bits in two runs. The points-only pose LM kernel
-is held to the plain LM on the same device tensors at the tracking step's
-capacity, one problem a launch and four in one, repeats bit for bit and
-rejects malformed inputs; the chained step launches it twice, counted on
-the frame's record, and the joint point+line LM never.
+refinement) give the same bits in two runs. The pose LM kernel is held to
+the plain LM on the same device tensors at the tracking step's capacity,
+one problem a launch and four in one, points only and with the line step's
+256 line rows, repeats bit for bit, gives the points-only bits it gave
+before line rows were added, and rejects malformed inputs; the chained
+step launches it twice, counted on the frame's record, and three times
+with lines (the joint point+line LM once), with no plain LM op.
 """
 from types import SimpleNamespace
 
@@ -277,6 +279,93 @@ def test_pose_lm_repeats_bit_for_bit(dev):
     T0, p = _pose_lm_problem(dev, seed=6)
     a = pose_opt.optimize_pose(POSE_CAM, T0, p)
     b = pose_opt.optimize_pose(POSE_CAM, T0, p)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# sha256 (first 16 hex digits) of the points-only kernel's outputs (T,
+# inliers, count) on kernel_inputs.pose_lm_inputs(default_rng(seed), POSE_KINDS)
+# before line rows were added to it (NVIDIA H100 80GB HBM3, CUDA 12.8)
+POINTS_ONLY_BITS = {
+    5: ["ac8f89e940c41209", "1f4299c947ffa5fa", "e093dd764447e60b"],
+    6: ["6921c78c4f41dd2c", "866c3dbe4ee46ee0", "8a1542f52d6a80e4"],
+}
+
+
+def _digests(outs):
+    import hashlib
+    torch.cuda.synchronize()
+    return [hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[:16]
+            for x in outs]
+
+
+@pytest.mark.parametrize("seed", sorted(POINTS_ONLY_BITS))
+def test_points_only_pose_lm_keeps_its_bits(dev, seed):
+    """A points-only launch runs the kernel's instantiation without line
+    rows: its outputs on four problems are the bits the points-only kernel
+    gave before line rows were added."""
+    T0, p = _pose_lm_problem(dev, seed=seed)
+    out = pose_lm.pose_lm(POSE_CAM, T0, *p)
+    assert out[3].shape == (4, 0)
+    assert _digests(out[:3]) == POINTS_ONLY_BITS[seed]
+
+
+LINE_KINDS = ("mix", "few", "none")
+
+
+def _joint_problem(dev, seed):
+    """Three problems at the chained line step's capacity, 2048 point rows
+    and 256 line rows (kernel_inputs.pose_lm_inputs with M = 256): mono and
+    stereo points and lines, octaves 0-2 for lines, 20% outliers of each;
+    8 point and 4 line rows; none."""
+    T0, rows = kernel_inputs.pose_lm_inputs(np.random.default_rng(seed), dev,
+                                            LINE_KINDS, M=256)
+    return T0, pose_opt.PointPoseObs(*rows[:5]), pose_opt.LinePoseObs(
+        *rows[5:])
+
+
+@pytest.mark.parametrize("seed", [5, 7, 11])
+def test_joint_pose_lm_equals_plain(dev, seed):
+    """The joint point+line LM of the line step (2 x 6) as one kernel
+    launch against the plain LM on the same device tensors, both with the
+    right view's Jacobian along the left pose's increment: poses within
+    1e-5 m and 1e-6 rad, no point or line inlier row apart, the point
+    count equal; the three problems in one launch give each problem's own
+    launch bit for bit."""
+    T0, p, l = _joint_problem(dev, seed)
+    got, want = [], []
+    for s, kind in enumerate(LINE_KINDS):
+        ps = pose_opt.PointPoseObs(*(t[s] for t in p))
+        ls = pose_opt.LinePoseObs(*(t[s] for t in l))
+        before = pose_lm.launches
+        got.append(pose_opt.optimize_pose(POSE_CAM, T0[s], ps, ls, rounds=2,
+                                          iters=6))
+        assert pose_lm.launches == before + 1
+        want.append(pose_opt.optimize_pose_plain(POSE_CAM, T0[s], ps, ls,
+                                                 rounds=2, iters=6))
+    batched = pose_lm.pose_lm(POSE_CAM, T0, *p, *l, rounds=2, iters=6)
+    torch.cuda.synchronize()
+    for s, kind in enumerate(LINE_KINDS):
+        Tg, Tw = got[s][0].cpu().double(), want[s][0].cpu().double()
+        dt = float((Tg[:3, 3] - Tw[:3, 3]).norm())
+        W = Tg[:3, :3].T @ Tw[:3, :3]
+        da = float(0.5 * torch.stack([W[2, 1] - W[1, 2], W[0, 2] - W[2, 0],
+                                      W[1, 0] - W[0, 1]]).norm())
+        assert dt <= 1e-5 and da <= 1e-6, (kind, dt, da)
+        for i in (1, 2, 3):
+            assert torch.equal(got[s][i], want[s][i]), (kind, i)
+        for i, j in ((0, 0), (1, 1), (2, 3), (3, 2)):
+            assert torch.equal(batched[i][s], got[s][j]), (kind, i)
+    n_lines = [int(g[2].sum()) for g in got]
+    assert n_lines[0] > 150 and n_lines[1:] == [4, 0]
+    assert torch.equal(got[2][0], T0[2])
+
+
+def test_joint_pose_lm_repeats_bit_for_bit(dev):
+    """Two joint launches on the same three problems give the same bits."""
+    T0, p, l = _joint_problem(dev, 6)
+    a = pose_lm.pose_lm(POSE_CAM, T0, *p, *l, rounds=2, iters=6)
+    b = pose_lm.pose_lm(POSE_CAM, T0, *p, *l, rounds=2, iters=6)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
@@ -705,7 +794,8 @@ def test_loop_solvers_never_wait_for_the_host(dev):
     CG steps; the Sim3 refinement, 10 GN steps; global BA on the CG path,
     10 x 64 CG steps, points only and joint point+line; the fixed-pose line
     refinement), the segment layout and segment sum they build and launch,
-    and the tracker's joint point+line pose LM (2 x 6 steps) run under
+    and the tracker's joint point+line pose LM (2 x 6 steps, one kernel
+    launch) run under
     CUDA's sync debug mode set to "error": no operation inside them makes
     the host wait for the card. Their results are finite and reduce their
     errors."""
@@ -735,9 +825,9 @@ def test_loop_solvers_never_wait_for_the_host(dev):
         T_b, in_b, _, n_b = pose_opt.optimize_pose(cam, p.T_b0, p.pobs_b)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    # the joint point+line LM runs op by op; the points-only one launches
-    # the kernel once for the three problems
-    assert lm_joint == 0 and pose_lm.launches == lm_before + 1
+    # the joint point+line LM launches the kernel once, and the
+    # points-only one once for the three problems
+    assert lm_joint == 1 and pose_lm.launches == lm_before + 2
     assert torch.equal(seg.sum((1, 2)).cpu(), 36 * torch.bincount(
         lay.index.cpu(), minlength=4).float())
     assert float(pose_graph.total_error(g_opt)) < 0.1 * float(p.err_0)
@@ -1060,7 +1150,10 @@ def test_chained_step_never_waits_for_the_host(dev, case):
     CUDA's sync debug mode set to "error". With native lines (the line
     corridor, no detections path) the whole dispatch of the next frame:
     its frame build, the line detector on both views, the stereo line
-    match and `_track_step_chained_lines`."""
+    match and `_track_step_chained_lines`, whose three pose LMs (two point,
+    one joint point+line) are one kernel launch each, counted on the
+    frame's record with the joint launch's rows, and run no op of the
+    plain LM."""
     from lldslam_tpu_torch.frontend import line_extract as le
     from lldslam_tpu_torch.frontend import line_match
     from lldslam_tpu_torch.pipeline import tracker as trk
@@ -1071,6 +1164,7 @@ def test_chained_step_never_waits_for_the_host(dev, case):
     tr = s.tracker
     assert tr._line_source is None and tr.enable_lines == lines
     pair = tr.stage_pair(*frames[4])
+    rows = []
 
     def dispatch():
         fd = frame.build_frame_pair(pair, tr.cam, tr.orb)
@@ -1088,6 +1182,7 @@ def test_chained_step_never_waits_for_the_host(dev, case):
         fl = line_match.match_stereo_lines(
             tr.cam, kl, kr, md_thr=tr._md_gate,
             min_len=tr.cfg.line.min_line_len)
+        rows[:] = [fd.feats.xy.shape[0], fl.kl.p1.shape[0]]
         return trk._track_step_chained_lines(
             *args, tr._line_view, fl, float(tr.cfg.line.gamma), tr._md_gate)
 
@@ -1095,17 +1190,28 @@ def test_chained_step_never_waits_for_the_host(dev, case):
     torch.cuda.synchronize()
     m = trk.TrackMetrics()
     before = pose_lm.launches
+
+    def plain(*a, **k):
+        raise AssertionError("the plain pose LM ran on the card")
     torch.cuda.set_sync_debug_mode("error")
     try:
-        with tracing.frame(m):
+        with pytest.MonkeyPatch.context() as mp, tracing.frame(m):
+            mp.setattr(pose_opt, "optimize_pose_plain", plain)
             out = dispatch()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert int(out["stats"][1]) > 100
-    # the step's two point pose LMs: one kernel launch each, counted on the
-    # frame's record (the line step's joint LM runs op by op)
-    assert pose_lm.launches == before + 2
-    assert m.counts["pose_lm_kernel"] == 2
+    # the step's pose LMs: one kernel launch each, counted on the frame's
+    # record
+    assert pose_lm.launches == before + (3 if lines else 2)
+    assert m.counts["pose_lm_kernel"] == (3 if lines else 2)
+    if lines:
+        # point rows and two a detected line row, from the shapes
+        assert m.counts["line_lm_kernel"] == 1
+        assert m.counts["line_lm_rows"] == rows[0] + 2 * rows[1]
+        assert m.counts["line_lm_lines"] == rows[1]
+    else:
+        assert "line_lm_kernel" not in m.counts
 
 
 def test_ba_solve_dense_on_card_matches_cpu(dev):

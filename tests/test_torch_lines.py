@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 pytest.importorskip("jax")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
@@ -47,6 +48,7 @@ from lldslam_tpu_torch import interop  # noqa: E402
 from lldslam_tpu_torch.config import CameraConfig, SlamConfig  # noqa: E402
 from lldslam_tpu_torch.frontend import line_match as tlm  # noqa: E402
 from lldslam_tpu_torch.geometry import lines as tgl  # noqa: E402
+from lldslam_tpu_torch.geometry import se3 as tse3  # noqa: E402
 from lldslam_tpu_torch.geometry.camera import StereoCamera  # noqa: E402
 from lldslam_tpu_torch.io import stored_lines as tsl  # noqa: E402
 from lldslam_tpu_torch.io.synthetic import (add_loop_lines,  # noqa: E402
@@ -440,10 +442,164 @@ def _pose_scene(seed=5, N=300, M=160):
     return T0.astype(np.float32), pts, lns
 
 
+def _f64(rows):
+    """A PointPoseObs or LinePoseObs with its float fields in float64."""
+    return type(rows)(*(t.double() if t.is_floating_point() else t
+                        for t in rows))
+
+
+def _jax64(fn, *args):
+    """fn of the JAX package in float64 (x64 enabled for the call) on numpy
+    copies of torch tensors, back as torch float64."""
+    with jax.enable_x64(True):
+        out = fn(*(jnp.asarray(_n(a)) if torch.is_tensor(a) else a
+                   for a in args))
+        if isinstance(out, tuple):
+            return tuple(torch.tensor(np.asarray(o), dtype=torch.float64)
+                         for o in out)
+        return torch.tensor(np.asarray(out), dtype=torch.float64)
+
+
+def _joint_residuals(T, p, l):
+    """The joint pose step's residuals at T, by the JAX package's own
+    functions in float64: points (N, 3), left and right line views (M, 2)
+    each."""
+    def res(T, X, obs, X0, d, x1l, x2l, x1r, x2r):
+        Tr = jgl.right_camera_pose(T, JCAM.baseline)
+        return (jres.point_residual_stereo(JCAM, T, X, obs),
+                jgl.endpoint_residual(JCAM, T, X0, d, x1l, x2l),
+                jgl.endpoint_residual(JCAM, Tr, X0, d, x1r, x2r))
+    return _jax64(res, T, p.X, p.obs, l.X0, l.d, l.x1_l, l.x2_l, l.x1_r,
+                  l.x2_r)
+
+
+def _joint_weights(rs, p, l, pt_in, ln_in, gamma=0.5):
+    """Each residual block's (chi2, information, Huber delta, active) in the
+    joint step's stated cost (the JAX package's thresholds)."""
+    rp, rl, rr = rs
+    st = p.is_stereo.to(rp.dtype)
+    info_l = gamma ** 2 / 1.44 ** (2.0 * l.octave.to(rp.dtype))
+    d_l = torch.where(l.has_right, jres.CHI2_STEREO * gamma ** 2,
+                      jres.CHI2_MONO * gamma ** 2)
+    row_w = torch.stack([torch.ones_like(st), torch.ones_like(st), st], -1)
+    return [(p.inv_sigma2 * (rp * rp * row_w).sum(-1), p.inv_sigma2[:, None]
+             * row_w, torch.where(p.is_stereo, jres.CHI2_STEREO,
+                                  jres.CHI2_MONO), pt_in),
+            (info_l * (rl * rl).sum(-1), info_l[:, None].expand_as(rl), d_l,
+             ln_in),
+            (info_l * (rr * rr).sum(-1), info_l[:, None].expand_as(rr), d_l,
+             ln_in * l.has_right.to(rp.dtype))]
+
+
+def _joint_cost(T, p, l, pt_in, ln_in):
+    """The joint pose step's stated cost at T: the JAX package's Huber cost
+    of the active point edges and of both views of the active lines."""
+    return sum((_jax64(jres.huber_rho, c, d) * a).sum() for c, _, d, a in
+               _joint_weights(_joint_residuals(T, p, l), p, l, pt_in, ln_in))
+
+
+def _joint_cost_minimum(T, p, l, pt_in, ln_in, iters=40, h=1e-6):
+    """The float64 minimum of `_joint_cost` over fixed inlier sets, from T:
+    Levenberg-Marquardt on the Huber IRLS system of the JAX package's
+    residuals, with central-difference Jacobians along the left pose's
+    increment (none of either package's analytic Jacobians)."""
+    E = torch.eye(6, dtype=torch.float64)
+    cost = _joint_cost(T, p, l, pt_in, ln_in)
+    lam = 1e-5
+    for _ in range(iters):
+        rs = _joint_residuals(T, p, l)
+        plus = [_joint_residuals(tse3.exp(h * E[i]) @ T, p, l)
+                for i in range(6)]
+        minus = [_joint_residuals(tse3.exp(-h * E[i]) @ T, p, l)
+                 for i in range(6)]
+        H = torch.zeros(6, 6, dtype=torch.float64)
+        g = torch.zeros(6, dtype=torch.float64)
+        for k, (c, info, d, a) in enumerate(_joint_weights(rs, p, l, pt_in,
+                                                           ln_in)):
+            J = torch.stack([(plus[i][k] - minus[i][k]) / (2 * h)
+                             for i in range(6)], -1)
+            w = info * (_jax64(jres.huber_weight, c, d) * a)[:, None]
+            H = H + torch.einsum("nri,nr,nrj->ij", J, w, J)
+            g = g + torch.einsum("nri,nr,nr->i", J, w, rs[k])
+        while lam < 1e6:
+            dx = -torch.linalg.solve(H + lam * torch.diag(torch.diagonal(H)),
+                                     g)
+            T_new = tse3.exp(dx) @ T
+            c_new = _joint_cost(T_new, p, l, pt_in, ln_in)
+            if c_new < cost:
+                T, cost, lam = T_new, c_new, max(0.5 * lam, 1e-12)
+                break
+            lam *= 4.0
+        else:
+            break
+    return T
+
+
+def _centre(T):
+    return -T[:3, :3].T @ T[:3, 3]
+
+
+def _pose_problem64():
+    """`_pose_scene` in float64, with the inlier sets of the step's second
+    round (its first round's reclassification) and the float64 minimum of
+    the stated cost over them."""
+    T0, pts, lns = _pose_scene()
+    T0 = _t(T0).double()
+    p = _f64(tpo.PointPoseObs(**{k: _t(v) for k, v in pts.items()}))
+    l = _f64(interop.line_pose_obs(lns))
+    _, pt_in, ln_in, _ = tpo.optimize_pose_plain(CAM, T0, p, l, rounds=1,
+                                                 iters=6)
+    best = _joint_cost_minimum(T0, p, l, pt_in.double(), ln_in.double())
+    return T0, p, l, best
+
+
+def test_right_view_line_jacobian_matches_central_differences():
+    """The right view's analytic line Jacobian (`line_pose_jacobian` with
+    the baseline) is the derivative of its endpoint residual at T_rl T
+    along the left pose's increment exp(xi) T: central differences in
+    float64 agree within 1e-4 relative."""
+    s = _seeded_lines(3)
+    T, X0, d, x1, x2 = (_t(s[k]).double() for k in ("T", "X0", "d", "x1r",
+                                                   "x2r"))
+    J = tres.line_pose_jacobian(CAM, T, X0, d, x1, x2, CAM.baseline)
+    h, E = 1e-6, torch.eye(6, dtype=torch.float64)
+    right = lambda Tl: tgl.endpoint_residual(
+        CAM, tgl.right_camera_pose(Tl, CAM.baseline), X0, d, x1, x2)
+    Jn = torch.stack([(right(tse3.exp(h * E[i]) @ T)
+                       - right(tse3.exp(-h * E[i]) @ T)) / (2 * h)
+                      for i in range(6)], -1)
+    scale = Jn.abs().amax(dim=(-1, -2), keepdim=True)
+    assert float(((J - Jn).abs() / scale).max()) <= 1e-4
+    # the right camera's own increment (the JAX package's) is another
+    # derivative: off by the baseline's lever arm
+    J_own = tres.line_pose_jacobian(
+        CAM, tgl.right_camera_pose(T, CAM.baseline), X0, d, x1, x2)
+    assert float(((J_own - Jn).abs() / scale).max()) > 1e-2
+
+
+def test_joint_pose_lm_reaches_its_cost_minimum_in_float64():
+    """The joint point+line pose LM of the line step (2 rounds x 6
+    iterations), op by op in float64, hands back the float64 minimum of
+    its stated cost over the second round's inliers (each view of a line
+    an edge), found by LM with central-difference Jacobians: camera centres
+    within 1e-8 m."""
+    T0, p, l, best = _pose_problem64()
+    T, _, _, _ = tpo.optimize_pose_plain(CAM, T0, p, l, rounds=2, iters=6)
+    assert float((_centre(T) - _centre(best)).norm()) <= 1e-8
+    assert float((_centre(T0) - _centre(best)).norm()) > 1e-2
+
+
 def test_optimize_pose_with_lines_matches_jax():
     """The joint point+line pose LM of the tracker's line step (2 rounds x
-    6 iterations, line inliers at twice the threshold): pose within 1e-4
-    (translation m, rotation entries), point and line inlier masks exact."""
+    6 iterations, line inliers at twice the threshold), against the JAX
+    package's. A documented divergence (ROADMAP.md): the port takes the
+    right view's Jacobian along the left pose's increment, JAX along the
+    right camera's own, so JAX's step stops short of the minimum of its
+    cost. The pose is held instead to the float64 minimum of that cost,
+    built from the JAX package's own residuals, thresholds and Huber kernel
+    in float64 (entries within 2e-6: the port's float32 reads 6.2e-7 there,
+    JAX's and the port's before the repair 4.1e-6); point and line inlier
+    masks equal JAX's exactly."""
     T0, pts, lns = _pose_scene()
     Tj, pj, lj, nj = jpo.optimize_pose(
         JCAM, jnp.asarray(T0),
@@ -453,7 +609,8 @@ def test_optimize_pose_with_lines_matches_jax():
     Tt, pt, lt, nt = tpo.optimize_pose(
         CAM, _t(T0), tpo.PointPoseObs(**{k: _t(v) for k, v in pts.items()}),
         interop.line_pose_obs(lns), gamma=0.5, rounds=2, iters=6)
-    np.testing.assert_allclose(_n(Tt), np.asarray(Tj), rtol=0, atol=1e-4)
+    _, _, _, best = _pose_problem64()
+    np.testing.assert_allclose(_n(Tt), _n(best), rtol=0, atol=2e-6)
     assert np.array_equal(_n(pt), np.asarray(pj))
     assert np.array_equal(_n(lt), np.asarray(lj))
     assert int(nt) == int(nj)

@@ -148,6 +148,40 @@ def test_every_finalized_frame_is_a_tree_under_its_root(run):
     assert tracing.current() is None
 
 
+@pytest.fixture(scope="module")
+def lines_run():
+    """The pipelined line corridor (native lines on both views), 8 frames,
+    no profiler."""
+    torch.set_num_threads(2)
+    frames = make_sequence(_cfg(True).camera.stereo_camera(), 8,
+                           n_per_m=25.0, seed=3, with_lines=True)
+    s = System(_cfg(True), pipeline=True, enable_loops=False, device="cpu")
+    for i, (l, r) in enumerate(frames):
+        s.track_stereo(l, r, timestamp=0.1 * i)
+    s.flush()
+    return s.tracker
+
+
+def test_the_line_step_spans_its_association_and_its_pose_lm(lines_run):
+    """Every chained line step (`track.line_step`) holds one
+    `track.line_assoc` and then one `track.line_lm`; on the CPU the joint
+    LM is the plain version, so no pose LM kernel is counted."""
+    steps = 0
+    for m in lines_run.metrics:
+        _check_tree(m, None)
+        for k, sp in enumerate(m.spans):
+            if sp[0] != "track.line_step":
+                continue
+            inner = [c for c in m.spans if c[3] == k]
+            assert [c[0] for c in inner] == ["track.line_assoc",
+                                             "track.line_lm"], inner
+            assert inner[0][2] <= inner[1][1]
+            steps += 1
+        assert not {"pose_lm_kernel", "line_lm_kernel", "line_lm_rows",
+                    "line_lm_lines"} & set(m.counts)
+    assert steps >= 5
+
+
 def test_the_timings_equal_their_spans(run):
     tr = run["tr"]
     for m in tr.metrics:
